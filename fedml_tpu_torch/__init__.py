@@ -1,0 +1,19 @@
+"""fedml_tpu_torch — the PyTorch/CUDA port of fedml_tpu.
+
+The JAX package ``fedml_tpu`` stays as the reference; this package imports
+neither it nor JAX. Ported so far: the FedAvg FEMNIST flagship — surrogate
+data, CNN_DropOut, the eager round engine, FedAvg aggregation, the drive
+loop and the fused local-SGD epoch as a hand-written CUDA kernel
+(ops/fused_sgd.py, csrc/fused_sgd.cu). Entry points run on ``cuda`` unless
+the caller passes ``device="cpu"``.
+"""
+
+from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, client_sampling
+from fedml_tpu_torch.core.config import FedConfig
+from fedml_tpu_torch.core.trainer import ClassificationTrainer
+from fedml_tpu_torch.data.registry import FederatedDataset, load_dataset
+from fedml_tpu_torch.models.registry import create_model
+
+__all__ = ["FedAvgAPI", "FedConfig", "ClassificationTrainer",
+           "FederatedDataset", "client_sampling", "create_model",
+           "load_dataset"]

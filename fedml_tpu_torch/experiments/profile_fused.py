@@ -1,0 +1,96 @@
+"""Where the time of a fused FedAvg round goes on the card.
+
+    python -m fedml_tpu_torch.experiments.profile_fused [--rounds 3] [--dtype float32]
+
+Builds the flagship round (10 clients x 200 samples, 28x28, 62 classes,
+batch 20, dropout on) on seeded data, runs one warm-up round, then profiles
+``--rounds`` rounds of the fused round function with ``torch.profiler``
+(CPU and CUDA activities). Prints the card's name and power limit, the
+device time of each kernel summed over the window and per round, and the
+device's busy share of the window's wall time. Needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from fedml_tpu_torch.algorithms.aggregators import make_aggregator
+from fedml_tpu_torch.algorithms.engine import build_round_fn
+from fedml_tpu_torch.core.config import FedConfig
+from fedml_tpu_torch.core.trainer import ClassificationTrainer
+from fedml_tpu_torch.models.registry import create_model
+from fedml_tpu_torch.ops import _build
+from fedml_tpu_torch.utils.device import resolve_device
+
+CLIENTS, SAMPLES, SIDE, CLASSES, BATCH = 10, 200, 28, 62, 20
+
+
+def _device_us(event) -> float:
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    args = parser.parse_args(argv)
+    dev = resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    _build.build(["fused_sgd"])
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(CLIENTS, SAMPLES, SIDE, SIDE, 1).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, CLASSES, (CLIENTS, SAMPLES)).astype(np.int32)).to(dev)
+    counts = torch.full((CLIENTS,), SAMPLES, dtype=torch.int32, device=dev)
+    cfg = FedConfig(batch_size=BATCH, lr=0.1, grad_clip=1.0, epochs=1,
+                    client_num_per_round=CLIENTS, fused_kernel=True, dtype=args.dtype)
+    trainer = ClassificationTrainer(create_model("cnn", CLASSES, dtype=args.dtype))
+    agg = make_aggregator("fedavg", cfg)
+    round_fn = build_round_fn(trainer, cfg, agg, device=dev)
+    gv = trainer.init(torch.Generator().manual_seed(0), dev)
+
+    def one_round(r, gv):
+        gv, _, _ = round_fn(gv, (), x, y, counts, torch.Generator().manual_seed(r))
+        return gv
+
+    gv = one_round(0, gv)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for r in range(args.rounds):
+            gv = one_round(r + 1, gv)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for ev in prof.key_averages():
+        us = _device_us(ev)
+        if us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            rows.append((us, ev.count, ev.key))
+    if not rows:
+        raise RuntimeError("the profiler recorded no device time; time with "
+                           "CUDA events instead")
+    rows.sort(reverse=True)
+    busy = sum(us for us, _, _ in rows)
+    print(f"{args.rounds} rounds, {args.dtype}: wall {wall_us / 1e3 / args.rounds:.3f} ms/round, "
+          f"device busy {busy / 1e3 / args.rounds:.3f} ms/round "
+          f"({100 * busy / wall_us:.1f}% of wall)")
+    print(f"{'ms/round':>10} {'share':>7} {'launches/round':>15}  kernel")
+    for us, count, key in rows:
+        print(f"{us / 1e3 / args.rounds:10.3f} {100 * us / busy:6.1f}% "
+              f"{count / args.rounds:15.1f}  {key[:110]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,25 @@
+"""Device selection for the port's entry points.
+
+Entry points run on ``cuda`` unless the caller asks for the CPU. When
+``cuda`` is asked for and no GPU is found they raise: a run never drops to
+the CPU on its own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} was asked for but torch finds no CUDA "
+            f"device; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

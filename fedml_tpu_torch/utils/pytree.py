@@ -1,0 +1,24 @@
+"""Arithmetic over dicts of tensors, the port's parameter trees."""
+
+from __future__ import annotations
+
+import torch
+
+
+def tree_weighted_mean(stacked: dict, weights: torch.Tensor) -> dict:
+    """Weighted mean over the leading (client) axis of every leaf.
+
+    ``weights`` is [C] and unnormalized (per-client sample counts). An
+    all-zero weight vector yields a zero mean instead of NaN."""
+    w = weights / torch.clamp(weights.sum(), min=1e-12)
+
+    def avg(leaf):
+        wb = w.reshape((-1,) + (1,) * (leaf.dim() - 1)).to(leaf.dtype)
+        return (leaf * wb).sum(0)
+
+    return {k: avg(v) for k, v in stacked.items()}
+
+
+def tree_where(pred: torch.Tensor, a: dict, b: dict) -> dict:
+    """Select dict ``a`` where scalar bool ``pred`` else ``b``."""
+    return {k: torch.where(pred, a[k], b[k]) for k in a}
