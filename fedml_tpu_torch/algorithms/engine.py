@@ -5,7 +5,7 @@ A round is a function
 
     round_fn(global_variables, agg_state, x, y, counts, rng,
              participation=None, seeds=None, perms=None)
-        -> (new_global, agg_state, train_metrics[, stats])
+        -> (new_global, agg_state, train_metrics)
 
 ``rng`` is a CPU ``torch.Generator`` for the round. Each client's dropout
 stream is a seed and each client's shuffle a permutation, both drawn from
@@ -203,16 +203,15 @@ def cohort_stats(global_variables: dict, result: LocalResult) -> dict:
     }
 
 
-def build_round_fn(trainer, cfg: FedConfig, aggregator, collect_stats=False,
-                   codec=None, param_sharding=None, device="cuda") -> Callable:
+def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
+                   param_sharding=None, device="cuda") -> Callable:
     """Synchronous round: every sampled client's local update, then the
     aggregator. Runs on ``device`` (``cuda`` unless the caller asks for the
     CPU); x, y and counts are moved there.
 
-    ``collect_stats=True`` adds the per-cohort ``cohort_stats`` rows as a
-    fourth output. ``cfg.fused_kernel`` routes the local epoch through the
-    fused CUDA kernel (ops/fused_sgd.py) with the JAX engine's guards:
-    CNN_DropOut only, no participation mask, no codec, no tensor sharding.
+    ``cfg.fused_kernel`` routes the local epoch through the fused CUDA
+    kernel (ops/fused_sgd.py) with the JAX engine's guards: CNN_DropOut
+    only, no participation mask, no codec, no tensor sharding.
     """
     device = resolve_device(device)
     cfg.validate()
@@ -246,8 +245,7 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, collect_stats=False,
                     compute_dtype=module.dtype,
                     drop1=float(module.drop1), drop2=float(module.drop2))
                 specialized[key] = build_fused_round_fn(
-                    spec, aggregator, shuffle=cfg.shuffle,
-                    collect_stats=collect_stats)
+                    spec, aggregator, shuffle=cfg.shuffle)
             return specialized[key](gv, agg_state, x.to(device), y.to(device),
                                     counts.to(device), rng, participation,
                                     seeds, perms)
@@ -259,19 +257,14 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, collect_stats=False,
             "fedml_tpu_torch yet")
     from fedml_tpu_torch.core.builder import build_round_core
 
-    core = build_round_core(_batched_update(trainer, cfg), aggregator,
-                            collect_stats)
+    core = build_round_core(_batched_update(trainer, cfg), aggregator)
 
     def round_fn(gv, agg_state, x, y, counts, rng, participation=None,
                  seeds=None, perms=None):
         if participation is not None:
             participation = participation.to(device)
-        new_global, new_state, metrics, stats = core(
-            gv, agg_state, x.to(device), y.to(device), counts.to(device), rng,
-            participation, seeds, perms)
-        if collect_stats:
-            return new_global, new_state, metrics, stats
-        return new_global, new_state, metrics
+        return core(gv, agg_state, x.to(device), y.to(device),
+                    counts.to(device), rng, participation, seeds, perms)
 
     return round_fn
 

@@ -10,9 +10,9 @@ import torch
 from fedml_tpu_torch.utils.pytree import tree_where
 
 
-def build_round_core(batched_update, aggregator, collect_stats: bool) -> Callable:
+def build_round_core(batched_update, aggregator) -> Callable:
     """core(gv, agg_state, x, y, counts, rng, participation, seeds, perms)
-    -> (new_gv, new_state, metrics, stats-or-None).
+    -> (new_gv, new_state, metrics).
 
     ``participation=None`` aggregates every client; a [C] mask arms the
     quarantine stage: dropped clients and clients whose update is not finite
@@ -20,20 +20,17 @@ def build_round_core(batched_update, aggregator, collect_stats: bool) -> Callabl
     ``participated_count`` / ``quarantined_count``, and a round in which no
     client survives leaves globals and aggregator state unchanged."""
     from fedml_tpu_torch.algorithms.aggregators import quarantine_stage
-    from fedml_tpu_torch.algorithms.engine import cohort_stats
 
     def core(global_variables, agg_state, x, y, counts, rng, participation,
              seeds=None, perms=None):
         result = batched_update(global_variables, x, y, counts, rng, seeds,
                                 perms)
-        # ledger stats come from the raw results (pre-quarantine)
-        stats = cohort_stats(global_variables, result) if collect_stats else None
         weights = counts.float()
         if participation is None:
             new_global, new_state = aggregator(global_variables, result,
                                                weights, rng, agg_state)
             metrics = {k: v.sum() for k, v in result.metrics.items()}
-            return new_global, new_state, metrics, stats
+            return new_global, new_state, metrics
         result, weights, alive, quarantined = quarantine_stage(
             result, weights, participation)
         new_global, new_state = aggregator(global_variables, result, weights,
@@ -45,6 +42,6 @@ def build_round_core(batched_update, aggregator, collect_stats: bool) -> Callabl
         metrics = {k: v.sum() for k, v in result.metrics.items()}
         metrics["participated_count"] = alive.sum().float()
         metrics["quarantined_count"] = quarantined.sum().float()
-        return new_global, new_state, metrics, stats
+        return new_global, new_state, metrics
 
     return core

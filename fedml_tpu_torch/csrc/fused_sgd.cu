@@ -7,7 +7,7 @@
 // global-norm clip and SGD — for every client of a round.
 //
 // What bounds it on this card. At the flagship shape (10 clients x 10 steps
-// of batch 20, 28x28, 62 classes) a round is 144 GFLOP, 88% of it in conv2
+// of batch 20, 28x28, 62 classes) a round is 143.2 GFLOP, 89% of it in conv2
 // (forward, its weight gradient and its input gradient), against ~48 MB of
 // weights read and written once per round plus ~0.5 MB of data: far above
 // the card's operations-per-byte line, so it is bound by operations. The
@@ -53,14 +53,11 @@
 #include <cstddef>
 #include <cstdint>
 
-#ifndef FUSED_SGD_EMULATE
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
 #define LAUNCH(fn, grid, block, smem, stream, ...) \
   fn<<<grid, block, smem, stream>>>(__VA_ARGS__)
-#define SHARED __shared__
-#define DYN_SMEM(name) extern __shared__ float name[]
-#endif
 
 namespace {
 
@@ -171,8 +168,8 @@ inline void set_split(GemmShape& p, int want, int bk) {
 template <int BM, int BN, int BK, int TM, int TN, class P>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN)) gemm_kernel(P p) {
   constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY;
-  SHARED float As[BK][BM + 1];
-  SHARED float Bs[BK][BN + 1];
+  __shared__ float As[BK][BM + 1];
+  __shared__ float Bs[BK][BN + 1];
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int z = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
@@ -434,7 +431,7 @@ __global__ void __launch_bounds__(kThreads) dense1_epilogue_kernel(Geo g, Bufs<T
 // gradient and dense2 input gradient — one block per client
 template <typename T>
 __global__ void __launch_bounds__(kThreads) head_kernel(Geo g, Bufs<T> B) {
-  DYN_SMEM(smem);
+  extern __shared__ float smem[];
   const int z = blockIdx.x, tid = threadIdx.x, C = g.C, b = g.b;
   float* sHD = smem;             // [b, 128]
   float* sLG = sHD + b * 128;    // [b, C] logits
@@ -532,7 +529,7 @@ __global__ void __launch_bounds__(kThreads) reduce_parts_kernel(
 }
 
 __global__ void __launch_bounds__(kThreads) sumsq_kernel(const float* g, int np, float* sq) {
-  SHARED float red[kThreads];
+  __shared__ float red[kThreads];
   const int z = blockIdx.y, tid = threadIdx.x;
   float acc = 0.f;
   for (int i = blockIdx.x * kThreads + tid; i < np; i += kSqBlocks * kThreads) {
@@ -551,7 +548,7 @@ __global__ void __launch_bounds__(kThreads) sumsq_kernel(const float* g, int np,
 // clip scale g / max(1, ||g|| / clip) from the per-client partials, then SGD
 __global__ void __launch_bounds__(kThreads) sgd_kernel(Geo g, float* wb, const float* grad,
                                                        const float* sq) {
-  SHARED float s_step;
+  __shared__ float s_step;
   const int z = blockIdx.y, tid = threadIdx.x;
   if (tid == 0) {
     float normsq = 0.f;

@@ -42,7 +42,7 @@ import math
 
 import torch
 
-from fedml_tpu_torch.algorithms.engine import (LocalResult, cohort_stats,
+from fedml_tpu_torch.algorithms.engine import (LocalResult,
                                                draw_client_randomness)
 from fedml_tpu_torch.ops import _build
 
@@ -88,11 +88,12 @@ class FusedEpochSpec:
         self.NP = off
 
     def flops_per_round(self, clients: int) -> int:
-        """Multiply-adds x 2 of forward + backward (the JAX kernel's cost
-        formula, fused_sgd.py:458-460) for one epoch of ``clients``."""
-        step = 2 * self.b * (self.H1 * self.W1 * 9 * 32
-                             + self.H2 * self.W2 * 288 * 64
-                             + self.F * 128 + 128 * self.C) * 3
+        """Multiply-adds x 2 that one epoch of ``clients`` needs: every
+        layer's forward, weight-gradient and input-gradient products, except
+        conv1's input gradient, which nothing needs (its input is the image)."""
+        conv1 = self.H1 * self.W1 * 9 * 32
+        rest = self.H2 * self.W2 * 288 * 64 + self.F * 128 + 128 * self.C
+        step = 2 * self.b * (2 * conv1 + 3 * rest)
         return step * self.steps * clients
 
 
@@ -202,6 +203,19 @@ def _rounder(cdtype):
     return lambda t: t.to(cdtype).float()
 
 
+def _pool_route(dd, candidates, pooled):
+    """Max-pool backward: each window's gradient ``dd`` goes to its first
+    candidate equal to the window's max ``pooled``, in row-major window
+    order (s00, s01, s10, s11). Returns the four routed gradients."""
+    taken = torch.zeros_like(pooled, dtype=torch.bool)
+    routed = []
+    for sv in candidates:
+        eq = sv == pooled
+        routed.append(dd * (eq & ~taken))
+        taken = taken | eq
+    return routed
+
+
 def fused_epoch_reference(spec: FusedEpochSpec, params: dict, x, y, seeds):
     """Plain PyTorch version of the fused epoch, batched over clients.
 
@@ -281,14 +295,10 @@ def fused_epoch_reference(spec: FusedEpochSpec, params: dict, x, y, seeds):
         if keep1 is not None:
             dd = R(dd * keep1)
         dd = dd.reshape(cl, b, Hp, Wp, 64)
-        # first maximal element of each window, row-major
-        taken = s00 == pooled
+        routed = _pool_route(dd, (s00, s01, s10, s11), pooled)
         da2 = torch.zeros_like(win)
-        da2[:, :, :, 0, :, 0] = dd * taken
-        for (u, v), sv in (((0, 1), s01), ((1, 0), s10), ((1, 1), s11)):
-            eq = sv == pooled
-            da2[:, :, :, u, :, v] = dd * (eq & ~taken)
-            taken = taken | eq
+        for (u, v), r in zip(((0, 0), (0, 1), (1, 0), (1, 1)), routed):
+            da2[:, :, :, u, :, v] = r
         dz2 = da2.reshape(cl, b, H2, W2, 64) * (a2 > 0).float()
         gw2 = torch.einsum("zbhwk,zbhwn->zkn", p2, dz2)
         gb2 = dz2.sum((1, 2, 3))
@@ -371,18 +381,17 @@ def fused_epoch(spec: FusedEpochSpec, params: dict, x, y, seeds):
         raise ValueError(f"fused_epoch runs on cuda or cpu, not {x.device}")
     lib = signatures(_build.load("fused_sgd"))
     with torch.cuda.device(x.device):
-        rows, met = run_library(lib, spec, params, x, y, seeds,
-                                torch.cuda.current_stream(x.device).cuda_stream)
+        rows, met = _run_library(lib, spec, params, x, y, seeds,
+                                 torch.cuda.current_stream(x.device).cuda_stream)
         launches += 1
     metrics = {"loss_sum": met[:, 0], "correct": met[:, 1], "total": met[:, 2]}
     return unpack_params(spec, rows), metrics
 
 
-def run_library(lib, spec: FusedEpochSpec, params: dict, x, y, seeds, stream):
-    """Call ``fused_sgd_epoch`` of a loaded library on tensors of one device
-    (``stream`` is its CUDA stream, None for the host emulation). Returns
-    the packed rows [clients, NP] and the metrics [clients, 3]; raises on a
-    non-zero return code."""
+def _run_library(lib, spec: FusedEpochSpec, params: dict, x, y, seeds, stream):
+    """Call ``fused_sgd_epoch`` of the loaded library on CUDA tensors of one
+    device on its ``stream``. Returns the packed rows [clients, NP] and the
+    metrics [clients, 3]; raises on a non-zero return code."""
     cl = x.shape[0]
     bf16 = int(spec.cdtype == torch.bfloat16)
     y32 = y.to(torch.int32).contiguous()
@@ -412,11 +421,10 @@ def run_library(lib, spec: FusedEpochSpec, params: dict, x, y, seeds, stream):
     return rows, met
 
 
-def build_fused_round_fn(spec: FusedEpochSpec, aggregator, shuffle=True,
-                         collect_stats=False):
+def build_fused_round_fn(spec: FusedEpochSpec, aggregator, shuffle=True):
     """Engine-signature round over the fused epoch:
     round_fn(gv, agg_state, x, y, counts, rng, participation=None,
-    seeds=None, perms=None) -> (gv, agg_state, metrics[, stats]).
+    seeds=None, perms=None) -> (gv, agg_state, metrics).
 
     Shuffling gathers each client's rows outside the kernel (one gather per
     round over all n rows); dropout streams are per-client seeds. Both come
@@ -449,11 +457,7 @@ def build_fused_round_fn(spec: FusedEpochSpec, aggregator, shuffle=True,
             num_steps=torch.full((cl,), spec.steps, dtype=torch.int32,
                                  device=x.device),
             metrics=metrics)
-        stats = cohort_stats(gv, result) if collect_stats else None
         gv, agg_state = aggregator(gv, result, counts.float(), rng, agg_state)
-        summed = {k: v.sum() for k, v in metrics.items()}
-        if collect_stats:
-            return gv, agg_state, summed, stats
-        return gv, agg_state, summed
+        return gv, agg_state, {k: v.sum() for k, v in metrics.items()}
 
     return round_fn

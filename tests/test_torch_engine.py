@@ -15,7 +15,8 @@ from fedml_tpu.core.trainer import ClassificationTrainer as JaxTrainer
 from fedml_tpu.models.cnn import CNN_DropOut as JaxCNN
 from fedml_tpu.utils.pytree import tree_weighted_mean as jax_weighted_mean
 from fedml_tpu_torch.algorithms.aggregators import make_aggregator
-from fedml_tpu_torch.algorithms.engine import build_round_fn, draw_client_randomness
+from fedml_tpu_torch.algorithms.engine import (_batched_update, build_round_fn,
+                                               cohort_stats, draw_client_randomness)
 from fedml_tpu_torch.core.config import FedConfig
 from fedml_tpu_torch.core.trainer import ClassificationTrainer
 from fedml_tpu_torch.models.cnn import CNN_DropOut
@@ -74,13 +75,16 @@ def test_participation_quarantines_non_finite_and_dropped_clients():
     jround = jax_round_fn(jt, jcfg, jax_aggregator("fedavg", jcfg),
                           collect_stats=True)
     tround = build_round_fn(tt, tcfg, make_aggregator("fedavg", tcfg),
-                            collect_stats=True, device="cpu")
+                            device="cpu")
     jgv, _, jm, js = jround(gv, (), jnp.asarray(x_bad), jnp.asarray(y),
                             jnp.asarray(COUNTS), jax.random.PRNGKey(0),
                             jnp.asarray(part))
-    tgv, _, tm, ts = tround(flax_to_torch(gv), (), torch.from_numpy(x_bad),
-                            torch.from_numpy(y), torch.from_numpy(COUNTS),
-                            torch.Generator(), torch.from_numpy(part))
+    args = (flax_to_torch(gv), torch.from_numpy(x_bad), torch.from_numpy(y),
+            torch.from_numpy(COUNTS))
+    tgv, _, tm = tround(args[0], (), *args[1:], torch.Generator(),
+                        torch.from_numpy(part))
+    # the per-client health rows of the raw (pre-quarantine) results
+    ts = cohort_stats(args[0], _batched_update(tt, tcfg)(*args, torch.Generator()))
     assert float(tm["participated_count"]) == float(jm["participated_count"]) == 1.0
     assert float(tm["quarantined_count"]) == float(jm["quarantined_count"]) == 1.0
     np.testing.assert_array_equal(ts["finite"].numpy(), np.asarray(js["finite"]))

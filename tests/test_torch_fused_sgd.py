@@ -8,6 +8,9 @@ fedml_tpu_torch.utils.convert. The CUDA kernel itself is held against the
 plain version by the ``cuda``-marked test here and by chip_smoke.py.
 """
 
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,17 +33,23 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 
 
 def _data(seed=0):
-    """Inputs and dropout seeds. The seeds are chosen so that no ReLU or
-    max-pool decision of the epoch sits within float32 rounding of its
-    threshold: there, a different float32 summation order routes a whole
-    gradient element elsewhere, which no elementwise tolerance covers (with
-    seeds (7, 123456789, 2**31 - 2) the second step moves conv2's kernel by
-    1.2e-4 between the two sides, every other leaf agreeing to 1e-7)."""
+    """Inputs and dropout seeds. With these seeds no max-pool route of the
+    epoch is a knife edge (its two largest candidates within float32
+    rounding of each other), so every element meets the float32 contract;
+    KNIFE_SEEDS below have one, and the test of them forces it."""
     rng = np.random.RandomState(seed)
     x = rng.rand(CLIENTS, N, H, H, 1).astype(np.float32)
     y = rng.randint(0, C, size=(CLIENTS, N)).astype(np.int32)
     seeds = np.array([11, 12345, 2 ** 31 - 2], np.int32)
     return x, y, seeds
+
+
+# Dropout seeds under which the plain version and the JAX kernel part on one
+# decision: in step 1, client 0's pool window (hp 2, wp 0) of channel 39 for
+# sample 17 has candidates s01 and s11 a few float32 ulps apart, and the two
+# float32 summation orders pick different maxima.
+KNIFE_SEEDS = np.array([7, 123456789, 2 ** 31 - 2], np.int32)
+KNIFE_STEP, KNIFE_WINDOW = 1, (0, 17, 2, 0, 39)
 
 
 def _flax_params(x):
@@ -89,6 +98,51 @@ def test_fused_epoch_reference_matches_jax_kernel_with_dropout(dtype):
     for key in ("loss_sum", "correct", "total"):
         np.testing.assert_allclose(tm[key].numpy(), np.asarray(jm[key]),
                                    rtol=mtol, atol=mtol, err_msg=key)
+
+
+def test_knife_edge_seeds_agree_once_their_pool_route_is_forced(monkeypatch):
+    """KNIFE_SEEDS: as is, the plain version misses the float32 contract
+    against the JAX kernel, in client 0 only. With the one knife-edge route
+    sent to s01 (the JAX kernel's choice), every element meets it."""
+    x, y, _ = _data()
+    gv = _flax_params(x)
+    jspec, tspec = _specs("float32")
+    jp, _ = jax_fused.fused_epoch(jspec, gv, jnp.asarray(x), jnp.asarray(y),
+                                  jnp.asarray(KNIFE_SEEDS), interpret=True)
+    rtol, atol, _ = TOL["float32"]
+
+    def clients_outside():
+        tp, _ = fused_sgd.fused_epoch(tspec, flax_to_torch(gv), torch.from_numpy(x),
+                                      torch.from_numpy(y), torch.from_numpy(KNIFE_SEEDS))
+        got = torch_to_flax(tp)["params"]
+        bad = np.zeros(CLIENTS, np.int64)
+        for layer, leaves in jp["params"].items():
+            for kind, want in leaves.items():
+                want = np.asarray(want)
+                out = np.abs(got[layer][kind] - want) > atol + rtol * np.abs(want)
+                bad += out.reshape(CLIENTS, -1).sum(1)
+        return bad
+
+    as_is = clients_outside()
+    assert as_is[0] > 0 and not as_is[1:].any(), as_is
+
+    route, calls = fused_sgd._pool_route, []
+
+    def forced(dd, candidates, pooled):
+        calls.append(None)
+        if len(calls) - 1 == KNIFE_STEP:
+            s00, s01, s10, s11 = candidates
+            top = pooled[KNIFE_WINDOW].item()
+            assert s11[KNIFE_WINDOW].item() == top
+            gap = top - s01[KNIFE_WINDOW].item()
+            assert 0 < gap <= 8 * np.spacing(np.float32(top)), gap
+            s01 = s01.clone()
+            s01[KNIFE_WINDOW] = top
+            candidates = (s00, s01, s10, s11)
+        return route(dd, candidates, pooled)
+
+    monkeypatch.setattr(fused_sgd, "_pool_route", forced)
+    np.testing.assert_array_equal(clients_outside(), 0)
 
 
 def test_dropout_masks_follow_the_chunk_geometry():
@@ -190,6 +244,39 @@ def test_pack_unpack_round_trip():
     back = fused_sgd.unpack_params(spec, rows)
     for k, v in gv.items():
         torch.testing.assert_close(back[k][1], v, rtol=0, atol=0)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chip_smoke_agreement_check_passes_sound_and_rejects_faulted_results(dtype):
+    """chip_smoke.py's check of the kernel against its plain version, on
+    plain-version results: a copy off by float32 rounding passes; a copy
+    with a skipped update, a skipped leaf, or a few elements off by more
+    than max_abs (a fault at one tile's edge) does not."""
+    cs = _chip_smoke()
+    tol = cs.TOL[dtype]
+    x, y, seeds = _data()
+    gv = flax_to_torch(_flax_params(x))
+    _, spec = _specs(dtype)
+    plain, _ = fused_sgd.fused_epoch_reference(spec, gv, torch.from_numpy(x),
+                                               torch.from_numpy(y), torch.from_numpy(seeds))
+    gen = torch.Generator().manual_seed(0)
+    sound = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+             for k, v in plain.items()}
+    cs.check_agreement("sound", sound, plain, gv, tol, tol["outliers"])
+    assert cs.check_controls("controls", plain, gv, tol, tol["outliers"]) == 17
+    edge = dict(plain)
+    edge["conv2d_2.weight"] = plain["conv2d_2.weight"].clone()
+    edge["conv2d_2.weight"][:, :2, 0, 0, 0] += 2 * tol["max_abs"]
+    with pytest.raises(cs.Disagreement, match="differs by"):
+        cs.check_agreement("edge", edge, plain, gv, tol, tol["outliers"])
 
 
 @pytest.mark.cuda
