@@ -1,37 +1,53 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-     build every CUDA kernel of the path from the checkout's sources, all
-     ``nvcc`` processes started together, and time the build;
+     build every CUDA kernel of the paths from the checkout's sources (the
+     fused epoch and flash attention), all ``nvcc`` processes started
+     together, and time the build;
   2. every kernel against its plain PyTorch version, in float32 with TF32
-     off and in bfloat16, on seeded data and flax-shaped weights with
-     dropout on and no shuffle: at a small shape (3 clients x 40 samples,
-     12x12, 5 classes), where every element must be within the tolerance
-     (see TOL), and at the flagship shape (10 clients x 200 samples, 28x28,
-     62 classes, batch 20); then the kernel's and the plain version's time
-     at the flagship shape (median of 7 timed calls after 2 warm-up calls,
-     CUDA events) and the least time the card could take (the bound);
-  3. the main path through the user's entry points: the FEMNIST surrogate
-     (100 clients, a cut from the reference's 3400 to keep the surrogate's
-     host memory small; every client capped at 200 samples, as bench.py's
-     _capped does, because the surrogate is ragged and the fused path needs
-     a padded width that is a multiple of the batch), FedAvgAPI with the
-     fused kernel for 5 rounds, then the same with the engine path: finite
-     parameters, a falling training loss, and every kernel of the path
-     launched (counts set to 0 just before the run, read just after).
+     off and in bfloat16:
+     - the fused epoch, on seeded data and flax-shaped weights with dropout
+       on and no shuffle: at a small shape (3 clients x 40 samples, 12x12, 5
+       classes), where every element must be within the tolerance (see
+       TOL), and at the flagship shape (10 clients x 200 samples, 28x28, 62
+       classes, batch 20); then the kernel's and the plain version's time
+       at the flagship shape (median of 7 timed calls after 2 warm-up
+       calls, CUDA events) and the least time the card could take (the
+       bound);
+     - the three flash-attention kernels (forward, dQ, dK/dV), causal and
+       not, at the NWP slice's shape (B 16, T 20, H 4, D 32), a ragged
+       multi-tile shape (2, 333, 2, 64) and a long causal shape (8, 2048,
+       4, 32), every element within ATTN_TOL; faulted results (O without
+       the causal mask, dQ with one key tile dropped, dK and dV swapped)
+       must fail the same check; at the long shape each kernel's time, its
+       plain version's, its bound and the time of PyTorch's
+       ``scaled_dot_product_attention`` forward or backward;
+  3. the main paths through the user's entry points:
+     - FEMNIST: the surrogate (100 clients, a cut from the reference's 3400
+       to keep the surrogate's host memory small; every client capped at
+       200 samples, as bench.py's _capped does, because the surrogate is
+       ragged and the fused path needs a padded width that is a multiple
+       of the batch), FedAvgAPI with the fused kernel for 5 rounds, then
+       the same with the engine path;
+     - StackOverflow NWP: the surrogate (200 clients), the transformer LM
+       at full width (vocab 10,004, d_model 128, 4 heads, 2 layers),
+       NWPTrainer, 50 clients a round, batch 16, lr 0.3, 5 rounds;
+     each checked for finite parameters, a falling training loss, and every
+     kernel of the path launched (counts set to 0 just before the run, read
+     just after).
 
 The last three lines: the card's name and power limit, a JSON object of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --calibrate 5
 
-prints instead the readings of the kernel against its plain version at the
-flagship shape for seeds 0-4, one JSON line each, from which the limits in
-TOL are set.
+prints instead the readings of the fused epoch against its plain version
+at the flagship shape for seeds 0-4, one JSON line each, from which the
+limits in TOL are set.
 """
 
 from __future__ import annotations
@@ -75,6 +91,19 @@ TOL = {"float32": {"rtol": 2e-5, "atol": 1e-5, "outliers": 1e-4, "max_abs": 4e-4
                    "rel_median": 1e-4, "rel_max": 0.03, "loss": 1e-4},
        "bfloat16": {"rtol": 1e-3, "atol": 2e-4, "outliers": 1e-2, "max_abs": 2.5e-2,
                     "rel_median": 5e-3, "rel_max": 0.6, "loss": 5e-3}}
+
+
+# Flash attention: check shapes (B, T, H, D) and elementwise (rtol, atol)
+# of kernel vs plain version. float32 is the JAX package's own contract
+# (tests/test_sequence.py:51 for O, :153 for the gradients), lse included.
+# bfloat16: both sides compute in float32 from the same bf16 inputs and
+# round the outputs once, so an element may differ by one bf16 step (2**-7
+# relative at most) where the two float32 values straddle a rounding
+# point; lse stays float32 on both sides.
+ATTN_SHAPES = {"a": (16, 20, 4, 32), "b": (2, 333, 2, 64), "c": (8, 2048, 4, 32)}
+ATTN_TOL = {"float32": {"o": (2e-5, 2e-5), "lse": (2e-5, 2e-5), "grad": (2e-4, 2e-4)},
+            "bfloat16": {"o": (1e-2, 1e-4), "lse": (2e-5, 2e-5), "grad": (1e-2, 2e-4)}}
+NWP_CLIENTS, NWP_PER_ROUND, NWP_BATCH, NWP_LR = 200, 50, 16, 0.3
 
 
 class Disagreement(RuntimeError):
@@ -267,6 +296,167 @@ def check_fused_epoch(dtype_name: str, device) -> dict:
             "bound_ms": max(flop_ms, byte_ms), "bound_by": bound_by}
 
 
+def close(tag: str, got, want, rtol: float, atol: float) -> dict:
+    """Every element of ``got`` within (rtol, atol) of ``want``; raises
+    Disagreement. Returns the largest difference and the largest share of
+    the allowance used."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise Disagreement(f"{tag}: shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+                           f"finite {bool(torch.isfinite(got).all())}")
+    diff = (got - want).abs()
+    share = (diff / (atol + rtol * want.abs())).max().item()
+    if share > 1.0:
+        raise Disagreement(f"{tag}: {int((diff > atol + rtol * want.abs()).sum())} elements "
+                           f"outside rtol {rtol} atol {atol}, max diff {diff.max().item():.3e}")
+    return {"max_abs": diff.max().item(), "share": share}
+
+
+def must_fail(tag: str, fn) -> None:
+    try:
+        fn()
+    except Disagreement:
+        return
+    raise RuntimeError(f"{tag}: the check passed a faulted result")
+
+
+def attention_inputs(shape, dtype, device, seed=SEED):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(device, dtype)
+            for _ in range(4)]
+
+
+def attention_work(shape, causal, elem):
+    """(flops of the forward, dq, dkv; bytes of each): 2 products for the
+    forward, 3 for dq, 4 for dkv, each 2 D FLOP per live (query, key) pair;
+    each input read once, each output written once."""
+    b, t, h, d = shape
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    x, row = b * t * h * d * elem, b * h * t * 4
+    flops = {n: products * pairs * 2 * d
+             for n, products in (("flash_fwd", 2), ("flash_bwd_dq", 3), ("flash_bwd_dkv", 4))}
+    nbytes = {"flash_fwd": 3 * x + x + row,
+              "flash_bwd_dq": 4 * x + 2 * row + x,
+              "flash_bwd_dkv": 4 * x + 2 * row + 2 * x}
+    return flops, nbytes
+
+
+def check_attention_case(dtype_name, device, key, causal):
+    """The three flash kernels against their plain versions at shape ``key``;
+    faulted results must fail. Returns the inputs and {kernel: max_abs}."""
+    import torch
+
+    from fedml_tpu_torch.ops import attention as A
+
+    dt = getattr(torch, dtype_name)
+    shape = ATTN_SHAPES[key]
+    q, k, v, do = attention_inputs(shape, dt, device)
+    tol = ATTN_TOL[dtype_name]
+    tag = f"flash[{dtype_name}] {key}={shape} causal={causal}"
+    o, lse = A.flash_fwd(q, k, v, causal)
+    po, plse = A.flash_fwd_reference(q, k, v, causal)
+    delta = A.attention_delta(o, do)
+    dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = A.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    pdq = A.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    pdk, pdv = A.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    r = {"o": close(f"{tag} O", o, po, *tol["o"]),
+         "lse": close(f"{tag} lse", lse, plse, *tol["lse"]),
+         "dq": close(f"{tag} dQ", dq, pdq, *tol["grad"]),
+         "dk": close(f"{tag} dK", dk, pdk, *tol["grad"]),
+         "dv": close(f"{tag} dV", dv, pdv, *tol["grad"])}
+    # faulted results: O without the causal mask, dQ with the last key tile
+    # dropped (its keys zeroed: their ds . k terms vanish, nothing else
+    # moves), dK and dV swapped
+    if causal:
+        must_fail(f"{tag} O without the causal mask", lambda: close(
+            "control", A.flash_fwd_reference(q, k, v, False)[0], po, *tol["o"]))
+    t0 = (shape[1] - 1) // 64 * 64
+    k_cut = k.clone()
+    k_cut[:, t0:] = 0
+    must_fail(f"{tag} dQ with one key tile dropped", lambda: close(
+        "control", A.flash_bwd_dq_reference(q, k_cut, v, do, lse, delta, causal), pdq,
+        *tol["grad"]))
+    must_fail(f"{tag} dK and dV swapped", lambda: (
+        close("control", pdv, pdk, *tol["grad"]), close("control", pdk, pdv, *tol["grad"])))
+    log(f"{tag}: max diff O {r['o']['max_abs']:.3e}, lse {r['lse']['max_abs']:.3e}, "
+        f"dQ {r['dq']['max_abs']:.3e}, dK {r['dk']['max_abs']:.3e}, "
+        f"dV {r['dv']['max_abs']:.3e}; largest share of the allowance "
+        f"{max(x['share'] for x in r.values()):.3f}; controls rejected")
+    errs = {"flash_fwd": max(r["o"]["max_abs"], r["lse"]["max_abs"]),
+            "flash_bwd_dq": r["dq"]["max_abs"],
+            "flash_bwd_dkv": max(r["dk"]["max_abs"], r["dv"]["max_abs"])}
+    return (q, k, v, do, o, lse, delta), errs
+
+
+def time_attention(dtype_name, key, inputs, library=True) -> dict:
+    """Each flash kernel's time, its plain version's and its bound at shape
+    ``key`` (causal); with ``library``, PyTorch's SDPA forward and backward
+    on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.ops import attention as A
+
+    q, k, v, do, o, lse, delta = inputs
+    shape = ATTN_SHAPES[key]
+    runs = {
+        "flash_fwd": (lambda: A.flash_fwd(q, k, v, True),
+                      lambda: A.flash_fwd_reference(q, k, v, True)),
+        "flash_bwd_dq": (lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, True),
+                         lambda: A.flash_bwd_dq_reference(q, k, v, do, lse, delta, True)),
+        "flash_bwd_dkv": (lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+                          lambda: A.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True)),
+    }
+    flops, nbytes = attention_work(shape, True, q.element_size())
+    lib = {}
+    if library:
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        doh = do.transpose(1, 2)
+        lib["flash_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True))
+        oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        bwd = cuda_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True))
+        lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = bwd
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        flop_ms = flops[name] / PEAK_FLOPS[dtype_name] * 1e3
+        byte_ms = nbytes[name] / PEAK_BYTES * 1e3
+        out[name] = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+                     "bound_ms": max(flop_ms, byte_ms),
+                     "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+                     "library_ms": lib.get(name)}
+        x = out[name]
+        log(f"{name}[{dtype_name}] {key}={shape} causal: kernel {x['ms']:.4f} ms, plain "
+            f"{x['plain_ms']:.4f} ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}; "
+            f"{flops[name] / 1e9:.3f} GFLOP, {nbytes[name] / 1e6:.2f} MB), "
+            f"SDPA {'-' if x['library_ms'] is None else format(x['library_ms'], '.4f')} ms; "
+            f"{flops[name] / (x['ms'] * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+    return out
+
+
+def check_attention(dtype_name, device) -> dict:
+    """All shapes, causal and not; times at shapes (a) and (c). Returns
+    {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}}
+    at shape (c)."""
+    errs, inputs = {}, {}
+    for key in ATTN_SHAPES:
+        for causal in (False, True):
+            x, e = check_attention_case(dtype_name, device, key, causal)
+            if causal:
+                inputs[key] = x
+            errs = {n: max(errs.get(n, 0.0), e[n]) for n in e}
+    time_attention(dtype_name, "a", inputs["a"], library=False)
+    numbers = time_attention(dtype_name, "c", inputs["c"])
+    return {n: {"max_abs_err": errs[n], **numbers[n]} for n in numbers}
+
+
 def capped(ds, cap, test_cap=256):
     import dataclasses
 
@@ -308,6 +498,43 @@ def run_main_path(ds, fused: bool) -> list:
     return hist
 
 
+def run_nwp_path() -> list:
+    """FedAvg on the StackOverflow NWP surrogate with the transformer LM at
+    full width, through FedAvgAPI on the card."""
+    import math
+
+    import torch
+
+    from fedml_tpu_torch import FedAvgAPI, FedConfig, NWPTrainer, create_model, load_dataset
+
+    t0 = time.perf_counter()
+    ds = load_dataset("stackoverflow_nwp", client_num_in_total=NWP_CLIENTS, seed=SEED)
+    log(f"stackoverflow_nwp surrogate: {NWP_CLIENTS} clients, {ds.train.total_samples} "
+        f"train windows of {ds.train.x.shape[2]} tokens, padded width {ds.train.n_max}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    cfg = FedConfig(dataset="stackoverflow_nwp", model="transformer_nwp",
+                    client_num_in_total=NWP_CLIENTS, client_num_per_round=NWP_PER_ROUND,
+                    batch_size=NWP_BATCH, lr=NWP_LR, grad_clip=1.0, epochs=1,
+                    comm_round=ROUNDS, seed=SEED)
+    module = create_model("transformer_nwp", output_dim=ds.class_num)
+    api = FedAvgAPI(ds, cfg, NWPTrainer(module), device="cuda")
+    n_params = sum(t.numel() for t in api.global_variables.values())
+    hist = api.train()
+    for name, t in api.global_variables.items():
+        if not torch.isfinite(t).all():
+            raise RuntimeError(f"nwp: global {name} is not finite")
+    losses = [h["loss_sum"] / h["total"] for h in hist]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"nwp: training loss did not fall: {losses}")
+    for h, loss in zip(hist, losses):
+        log(f"  nwp round {h['round']}: {h['round_time'] * 1e3:.2f} ms, train loss "
+            f"{loss:.4f}, Test/Acc {h['Test/Acc']:.4f}, Test/Loss {h['Test/Loss']:.4f}")
+    log(f"nwp path: transformer_nwp {n_params} parameters, median round "
+        f"{statistics.median([h['round_time'] * 1e3 for h in hist[1:]]):.2f} ms over rounds "
+        f"1-{len(hist) - 1}")
+    return hist
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -323,7 +550,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
     try:
-        from fedml_tpu_torch.ops import _build, fused_sgd
+        from fedml_tpu_torch.ops import _build, attention, fused_sgd
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 2
@@ -332,7 +559,7 @@ def main(argv=None) -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    reports = _build.build(["fused_sgd"])
+    reports = _build.build(["fused_sgd", "flash_attention"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(reports) or 'already built'})")
     for name, rep in reports.items():
@@ -356,6 +583,7 @@ def main(argv=None) -> int:
                 log(json.dumps({"dtype": d, "seed": seed, **r}))
         return 0
     numbers = {d: check_fused_epoch(d, dev) for d in ("float32", "bfloat16")}
+    attn = {d: check_attention(d, dev) for d in ("float32", "bfloat16")}
 
     # ---- phase 3: the main path through FedAvgAPI
     from fedml_tpu_torch import load_dataset
@@ -376,6 +604,15 @@ def main(argv=None) -> int:
         log(f"{name} path: median round {statistics.median(steady):.2f} ms over rounds "
             f"1-{len(hist) - 1}, final Test/Acc {hist[-1]['Test/Acc']:.4f}")
 
+    for name in attention.launches:
+        attention.launches[name] = 0
+    run_nwp_path()
+    attn_launches = dict(attention.launches)
+    missing = [n for n, c in attn_launches.items() if c <= 0]
+    if missing:
+        raise RuntimeError(f"the NWP main path launched {missing} no time")
+    log(f"nwp path launches: {attn_launches}")
+
     f32 = numbers["float32"]
     kernels = [{
         "name": "fused_epoch",
@@ -390,7 +627,16 @@ def main(argv=None) -> int:
         "bound_by": f32["bound_by"],
         "library_ms": None,
     }]
+    replaces = {"flash_fwd": "fedml_tpu/ops/attention.py:142",
+                "flash_bwd_dq": "fedml_tpu/ops/attention.py:281",
+                "flash_bwd_dkv": "fedml_tpu/ops/attention.py:300"}
+    for name, where in replaces.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": where, "launches": attn_launches[name],
+                        **attn["float32"][name]})
     log(f"bfloat16 fused_epoch: {json.dumps(numbers['bfloat16'])}")
+    log(f"bfloat16 flash attention at shape c: {json.dumps(attn['bfloat16'])}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

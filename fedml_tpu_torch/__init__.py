@@ -4,16 +4,19 @@ The JAX package ``fedml_tpu`` stays as the reference; this package imports
 neither it nor JAX. Ported so far: the FedAvg FEMNIST flagship — surrogate
 data, CNN_DropOut, the eager round engine, FedAvg aggregation, the drive
 loop and the fused local-SGD epoch as a hand-written CUDA kernel
-(ops/fused_sgd.py, csrc/fused_sgd.cu). Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+(ops/fused_sgd.py, csrc/fused_sgd.cu) — and StackOverflow next-word
+prediction with the transformer LM and NWPTrainer, its attention the
+flash-attention forward and backward as hand-written CUDA kernels
+(ops/attention.py, csrc/flash_attention.cu). Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, client_sampling
 from fedml_tpu_torch.core.config import FedConfig
-from fedml_tpu_torch.core.trainer import ClassificationTrainer
+from fedml_tpu_torch.core.trainer import ClassificationTrainer, NWPTrainer
 from fedml_tpu_torch.data.registry import FederatedDataset, load_dataset
 from fedml_tpu_torch.models.registry import create_model
 
-__all__ = ["FedAvgAPI", "FedConfig", "ClassificationTrainer",
+__all__ = ["FedAvgAPI", "FedConfig", "ClassificationTrainer", "NWPTrainer",
            "FederatedDataset", "client_sampling", "create_model",
            "load_dataset"]

@@ -270,15 +270,16 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
 
 
 def build_eval_fn(trainer) -> Callable:
-    """eval(variables, bx[nb, b, ...], by, bmask) -> summed metrics, one
-    batch at a time."""
+    """eval(variables, bx[nb, b, ...], by, bmask, clients=1) -> summed
+    metrics, one batch at a time; each batch's rows are ``clients`` equal
+    consecutive blocks, one per client."""
 
     @torch.no_grad()
-    def eval_fn(variables, bx, by, bmask):
+    def eval_fn(variables, bx, by, bmask, clients=1):
         sums = None
         for i in range(bx.shape[0]):
             m = trainer.eval_fn(variables, {"x": bx[i], "y": by[i],
-                                            "mask": bmask[i]})
+                                            "mask": bmask[i], "clients": clients})
             sums = m if sums is None else {k: sums[k] + m[k] for k in m}
         return sums
 

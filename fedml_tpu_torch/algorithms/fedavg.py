@@ -20,14 +20,18 @@ import torch
 from fedml_tpu_torch.algorithms.aggregators import make_aggregator
 from fedml_tpu_torch.algorithms.engine import build_eval_fn, build_round_fn
 from fedml_tpu_torch.core.config import FedConfig
-from fedml_tpu_torch.data.packing import pack_eval_batches
+from fedml_tpu_torch.data.packing import pack_eval_batches, pad_clients
 from fedml_tpu_torch.data.registry import FederatedDataset
 from fedml_tpu_torch.utils.device import resolve_device, synchronize
 
 log = logging.getLogger(__name__)
 
-# rows per forward pass in local_test_on_all_clients
+# local_test_on_all_clients evaluates whole clients, several per forward
+# pass: at most _EVAL_ROWS rows and _EVAL_LOGITS logits (rows x outputs per
+# row) a pass. 4096 FEMNIST rows make 254k logits; one NWP row makes
+# 20 x 10,004, so there the logits bound the pass (512 MiB of float32).
 _EVAL_ROWS = 4096
+_EVAL_LOGITS = 2 ** 27
 
 
 def client_sampling(round_idx: int, client_num_in_total: int,
@@ -71,7 +75,6 @@ class FedAvgAPI:
         self._test_batches = tuple(
             torch.from_numpy(a).to(self.device)
             for a in pack_eval_batches(*dataset.test_global, max(bs, 64)))
-        self._eval_rows: dict = {}
 
     # ------------------------------------------------------------------ train
     def train_one_round(self, round_idx: int, faults=None, rng_salt: int = 0,
@@ -134,28 +137,34 @@ class FedAvgAPI:
     def local_test_on_all_clients(self, round_idx: int) -> dict[str, float]:
         """The global model on every client's train and test split,
         sample-weighted (reference fedavg_api.py:119-183); CI mode
-        evaluates one client. Only the clients' valid rows are evaluated —
-        the masked sums of the padded rows are the same."""
+        evaluates one client. Each forward pass takes whole clients, their
+        padded rows masked, as the JAX drive's vmap over clients does: the
+        NWP trainer's reported loss is a per-client quantity."""
         ds = self.dataset
         out = {}
         for split_name, packed in (("Train", ds.train), ("Test", ds.test or ds.train)):
-            bx, by, bm = self._split_rows(split_name, packed)
-            m = self.eval_fn(self.global_variables, bx, by, bm)
-            sums = {k: float(v) for k, v in m.items()}
+            sums = None
+            for bx, by, bm, clients in self._client_chunks(packed):
+                m = self.eval_fn(self.global_variables, bx, by, bm, clients)
+                sums = m if sums is None else {k: sums[k] + m[k] for k in m}
+            sums = {k: float(v) for k, v in sums.items()}
             total = max(sums.get("test_total", 0.0), 1.0)
             out[f"{split_name}/Acc"] = sums.get("test_correct", 0.0) / total
             out[f"{split_name}/Loss"] = sums.get("test_loss", 0.0) / total
         return out
 
-    def _split_rows(self, name, packed):
-        """The valid rows of a split as device-resident eval batches, built
-        once."""
-        if name not in self._eval_rows:
-            num = 1 if self.cfg.ci else packed.num_clients
-            xs = [packed.x[i, :packed.counts[i]] for i in range(num)]
-            ys = [packed.y[i, :packed.counts[i]] for i in range(num)]
-            x, y = np.concatenate(xs), np.concatenate(ys)
-            self._eval_rows[name] = tuple(
-                torch.from_numpy(a).to(self.device) for a in pack_eval_batches(
-                    x, y, min(_EVAL_ROWS, max(len(x), 1))))
-        return self._eval_rows[name]
+    def _client_chunks(self, packed):
+        """(x [1, k * n_max, ...], y, mask, k) on the device for each run of
+        k clients of a split; the last run is padded with empty clients."""
+        num = 1 if self.cfg.ci else packed.num_clients
+        n_max = packed.n_max
+        per_row = self.dataset.class_num * int(np.prod(packed.y.shape[2:], dtype=np.int64))
+        rows = min(_EVAL_ROWS, _EVAL_LOGITS // max(per_row, 1))
+        k = max(1, min(num, rows // max(n_max, 1)))
+        for start in range(0, num, k):
+            x, y, counts = packed.select(np.arange(start, min(start + k, num)))
+            x, y, counts = pad_clients(x, y, counts, k)
+            mask = (np.arange(n_max)[None] < counts[:, None]).astype(np.float32)
+            yield (*(torch.from_numpy(np.ascontiguousarray(
+                a.reshape((1, k * n_max) + a.shape[2:]))).to(self.device)
+                for a in (x, y, mask)), k)

@@ -1,7 +1,7 @@
-"""ClassificationTrainer — PyTorch form of
-``fedml_tpu/core/trainer.py::ClassificationTrainer``.
+"""Trainers — PyTorch form of ``fedml_tpu/core/trainer.py``'s
+``ClassificationTrainer`` and ``NWPTrainer``.
 
-The trainer is a bundle of functions over a parameter dict (the port's
+A trainer is a bundle of functions over a parameter dict (the port's
 "variables": ``{"layer.weight": tensor, ...}``), evaluated with
 ``torch.func.functional_call`` so one module serves every client's
 parameters:
@@ -11,40 +11,61 @@ parameters:
   - ``eval_fn(variables, batch)``                 -> dict of metric sums
 
 A batch is a dict with ``x``, ``y`` and a float ``mask`` of per-sample
-validity (padding rows have mask 0).
+validity (padding rows have mask 0). An eval batch may also carry
+``clients``: its rows are then that many equal consecutive blocks, one per
+client, as the JAX drive evaluates one client per vmapped call.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch import nn
 from torch.func import functional_call
 
 from fedml_tpu_torch.models.cnn import lecun_normal_
 
 
-class ClassificationTrainer:
-    """Cross-entropy classification: the loss is the masked mean of
-    per-sample CE; metric sums are float32; argmax ties go to the first
-    index (``torch.argmax`` returns the first maximal index)."""
+def flax_default_init(module: nn.Module, generator: torch.Generator, device) -> dict:
+    """flax's default initialisers by layer kind, drawn in parameter order:
+    Embed normal with std 1/sqrt(features), LayerNorm scale 1 and bias 0,
+    every other weight (Dense, Conv) lecun-normal, biases 0."""
+    kinds = dict(module.named_modules())
+    out = {}
+    for name, p in module.named_parameters():
+        owner = kinds[name.rpartition(".")[0]]
+        t = torch.zeros(p.shape, dtype=torch.float32)
+        if name.endswith("weight"):
+            if isinstance(owner, nn.LayerNorm):
+                t.fill_(1.0)
+            elif isinstance(owner, nn.Embedding):
+                t = torch.randn(p.shape, generator=generator) / math.sqrt(p.shape[1])
+            else:
+                lecun_normal_(t, p[0].numel(), generator)
+        out[name] = t.to(device)
+    return out
+
+
+class ModelTrainer:
+    """A module plus its init and apply; the task trainers add the loss."""
 
     def __init__(self, module):
         self.module = module
 
     def init(self, generator: torch.Generator, device) -> dict:
-        """flax-style init: lecun-normal weights, zero biases."""
-        out = {}
-        for name, p in self.module.named_parameters():
-            t = torch.zeros(p.shape, dtype=torch.float32)
-            if name.endswith("weight"):
-                fan_in = p[0].numel()
-                lecun_normal_(t, fan_in, generator)
-            out[name] = t.to(device)
-        return out
+        return flax_default_init(self.module, generator, device)
 
     def apply(self, variables, x, generator=None, train: bool = False):
         return functional_call(self.module, variables, (x,),
                                {"train": train, "generator": generator})
+
+
+class ClassificationTrainer(ModelTrainer):
+    """Cross-entropy classification: the loss is the masked mean of
+    per-sample CE; metric sums are float32; argmax ties go to the first
+    index (``torch.argmax`` returns the first maximal index)."""
 
     def loss_fn(self, variables, batch, generator, train: bool = True):
         logits = self.apply(variables, batch["x"], generator, train)
@@ -65,4 +86,51 @@ class ClassificationTrainer:
         mask = batch["mask"].to(per.dtype)
         correct = ((logits.argmax(-1) == batch["y"]).to(per.dtype) * mask).sum()
         return {"test_correct": correct, "test_loss": (per * mask).sum(),
+                "test_total": mask.sum()}
+
+
+class NWPTrainer(ModelTrainer):
+    """Next-word prediction with pad-id masking (reference
+    my_model_trainer_nwp.py: CE with ignore_index=0, accuracy over non-pad).
+
+    ``y`` is [b, T]; logits [b, T, vocab]. Tokens equal to ``pad_id`` count
+    in neither loss nor accuracy, nor do padding rows. The CE is taken in
+    float32 whatever the compute dtype."""
+
+    def __init__(self, module, pad_id: int = 0):
+        super().__init__(module)
+        self.pad_id = pad_id
+
+    def _masked_ce(self, variables, batch, generator, train):
+        """Per-token CE [b, T], the token mask [b, T] and the logits."""
+        logits = self.apply(variables, batch["x"], generator, train)
+        y = batch["y"].long()
+        per = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]), y.reshape(-1),
+                              reduction="none").reshape(y.shape)
+        mask = (y != self.pad_id).float() * batch["mask"].float()[:, None]
+        return per, mask, logits
+
+    def loss_fn(self, variables, batch, generator, train: bool = True):
+        per, mask, logits = self._masked_ce(variables, batch, generator, train)
+        loss_sum = (per * mask).sum()
+        loss = loss_sum / torch.clamp(mask.sum(), min=1.0)
+        with torch.no_grad():
+            correct = ((logits.argmax(-1) == batch["y"]).float() * mask).sum()
+            aux = {"loss_sum": loss_sum.detach(), "correct": correct, "total": mask.sum()}
+        return loss, aux
+
+    @torch.no_grad()
+    def eval_fn(self, variables, batch):
+        """The reference's reported-loss contract (my_model_trainer_nwp.py:
+        72-80): each client's batch adds its mean CE over non-pad tokens
+        times its sample count, later divided by test_total (non-pad
+        tokens)."""
+        per, mask, logits = self._masked_ce(variables, batch, None, False)
+        clients = batch.get("clients", 1)
+        loss = (per * mask).sum(1).reshape(clients, -1).sum(1)
+        tokens = mask.sum(1).reshape(clients, -1).sum(1)
+        samples = batch["mask"].float().reshape(clients, -1).sum(1)
+        correct = ((logits.argmax(-1) == batch["y"]).float() * mask).sum()
+        return {"test_correct": correct,
+                "test_loss": (loss / torch.clamp(tokens, min=1.0) * samples).sum(),
                 "test_total": mask.sum()}

@@ -1,4 +1,5 @@
-"""Dataset loaders (the FEMNIST part of ``fedml_tpu/data/loaders.py``)."""
+"""Dataset loaders (the FEMNIST and StackOverflow NWP parts of
+``fedml_tpu/data/loaders.py``)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,16 @@ def load_femnist(data_dir="./data", client_num_in_total=3400, seed=0, **_):
     xtr, ytr, xte, yte = sources.load_femnist_arrays(
         data_dir, client_num=client_num_in_total, seed=seed)
     return _from_client_lists("femnist", xtr, ytr, xte, yte, 62)
+
+
+@register_loader("stackoverflow_nwp")
+def load_stackoverflow_nwp(data_dir="./data", client_num_in_total=200, seed=0, **_):
+    """StackOverflow next-word prediction: per-position targets over the
+    10,004-token vocab (reference stackoverflow_nwp/)."""
+    xtr, ytr, xte, yte = sources.load_stackoverflow_nwp_clients(
+        data_dir, client_num_in_total, seed)
+    return _from_client_lists("stackoverflow_nwp", xtr, ytr, xte, yte,
+                              sources.STACKOVERFLOW_VOCAB, task="nwp")
 
 
 def _from_client_lists(name, xtr, ytr, xte, yte, class_num, **meta):

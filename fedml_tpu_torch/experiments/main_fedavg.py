@@ -6,6 +6,12 @@ Usage (the flagship, through the fused CUDA kernel):
   python -m fedml_tpu_torch.experiments.main_fedavg --dataset femnist \
       --model cnn --client_num_in_total 3400 --client_num_per_round 10 \
       --batch_size 20 --lr 0.1 --comm_round 100 --fused_kernel 1
+
+Next-word prediction with the transformer LM (through the flash-attention
+kernels):
+  python -m fedml_tpu_torch.experiments.main_fedavg --dataset stackoverflow_nwp \
+      --model transformer_nwp --client_num_in_total 200 \
+      --client_num_per_round 50 --batch_size 16 --lr 0.3 --comm_round 100
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
 from fedml_tpu_torch.core.config import FedConfig
-from fedml_tpu_torch.core.trainer import ClassificationTrainer
+from fedml_tpu_torch.core.trainer import ClassificationTrainer, NWPTrainer
 from fedml_tpu_torch.data.registry import load_dataset
 from fedml_tpu_torch.models.registry import create_model
 
@@ -69,6 +75,9 @@ def setup_run(args):
                       partition_method=args.partition_method,
                       partition_alpha=args.partition_alpha, seed=args.seed)
     module = create_model(args.model, output_dim=ds.class_num, dtype=cfg.dtype)
+    # task trainer by dataset (reference FedAvgAPI.py:33-39)
+    if ds.meta.get("task") == "nwp":
+        return cfg, ds, NWPTrainer(module, pad_id=0)
     return cfg, ds, ClassificationTrainer(module)
 
 

@@ -6,8 +6,8 @@ Builds the flagship round (10 clients x 200 samples, 28x28, 62 classes,
 batch 20, dropout on) on seeded data, runs one warm-up round, then profiles
 ``--rounds`` rounds of the fused round function with ``torch.profiler``
 (CPU and CUDA activities). Prints the card's name and power limit, the
-device time of each kernel summed over the window and per round, and the
-device's busy share of the window's wall time. Needs a GPU.
+device's busy share of the window's wall time, and the device time and
+launches per round of each kind of kernel and of each kernel. Needs a GPU.
 """
 
 from __future__ import annotations
@@ -64,13 +64,24 @@ def main(argv=None):
         gv, _, _ = round_fn(gv, (), x, y, counts, torch.Generator().manual_seed(r))
         return gv
 
-    gv = one_round(0, gv)
+    state = {"gv": one_round(0, gv)}
+
+    def run(r):
+        state["gv"] = one_round(r + 1, state["gv"])
+
+    profile_rounds(run, args.rounds, args.dtype)
+
+
+def profile_rounds(run_round, rounds: int, label: str) -> None:
+    """Profile ``run_round(r)`` for r in range(rounds) (after the caller's
+    warm-up) and print the wall and device-busy time per round and each
+    kernel's device time, share and launches per round."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for r in range(args.rounds):
-            gv = one_round(r + 1, gv)
+        for r in range(rounds):
+            run_round(r)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -83,14 +94,32 @@ def main(argv=None):
                            "CUDA events instead")
     rows.sort(reverse=True)
     busy = sum(us for us, _, _ in rows)
-    print(f"{args.rounds} rounds, {args.dtype}: wall {wall_us / 1e3 / args.rounds:.3f} ms/round, "
-          f"device busy {busy / 1e3 / args.rounds:.3f} ms/round "
-          f"({100 * busy / wall_us:.1f}% of wall)")
+    print(f"{rounds} rounds, {label}: wall {wall_us / 1e3 / rounds:.3f} ms/round, "
+          f"device busy {busy / 1e3 / rounds:.3f} ms/round "
+          f"({100 * busy / wall_us:.1f}% of wall), "
+          f"{sum(c for _, c, _ in rows) / rounds:.1f} launches/round")
+    kinds: dict = {}
+    for us, count, key in rows:
+        kind = next((k for k, marks in KINDS if any(m in key for m in marks)), "other")
+        total = kinds.setdefault(kind, [0.0, 0])
+        total[0] += us
+        total[1] += count
+    print(f"{'ms/round':>10} {'share':>7} {'launches/round':>15}  kind")
+    for kind, (us, count) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        print(f"{us / 1e3 / rounds:10.3f} {100 * us / busy:6.1f}% "
+              f"{count / rounds:15.1f}  {kind}")
     print(f"{'ms/round':>10} {'share':>7} {'launches/round':>15}  kernel")
     for us, count, key in rows:
-        print(f"{us / 1e3 / args.rounds:10.3f} {100 * us / busy:6.1f}% "
-              f"{count / args.rounds:15.1f}  {key[:110]}")
+        print(f"{us / 1e3 / rounds:10.3f} {100 * us / busy:6.1f}% "
+              f"{count / rounds:15.1f}  {key[:110]}")
 
+
+# kernel kinds by a substring of the profiler's kernel name, first match wins
+KINDS = (("flash attention (csrc/flash_attention.cu)", ("flash_fwd_kernel", "flash_bwd_")),
+         ("GEMM (cuBLAS, CUTLASS)", ("gemm", "splitKreduce")),
+         ("reduction", ("reduce_kernel",)),
+         ("elementwise", ("elementwise_kernel",)),
+         ("copy, memset", ("Memcpy", "Memset", "CatArrayBatchedCopy")))
 
 if __name__ == "__main__":
     main()

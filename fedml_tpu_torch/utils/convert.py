@@ -1,57 +1,87 @@
 """Parameters of the JAX package <-> parameters of the port.
 
-The JAX package holds a model's parameters as a flax tree
-``{"params": {layer: {"kernel": ..., "bias": ...}}}`` with conv kernels in
-HWIO and dense kernels as [in, out]. The port holds them as a flat dict of
-tensors keyed like a ``state_dict`` (``"layer.weight"``, ``"layer.bias"``)
-in PyTorch's layout: conv weights OIHW, linear weights [out, in].
+The JAX package holds a model's parameters as a nested flax tree
+``{"params": {module: {submodule: {leaf: array}}}}``. The port holds them as
+a flat dict of tensors keyed like a ``state_dict``
+(``"module.submodule.weight"``) in PyTorch's layout. The leaves map by
+kind:
+
+  - Dense/Conv ``kernel`` <-> ``weight``: conv kernels HWIO <-> OIHW, dense
+    kernels [in, out] <-> [out, in];
+  - ``bias`` <-> ``bias``, as is;
+  - LayerNorm ``scale`` <-> ``weight``, as is;
+  - Embed ``embedding`` <-> ``weight``, as is ([num, features] on both
+    sides).
 
 Both functions accept leading batch axes (a client-stacked tree converts
-leaf by leaf). Dense kernels are transposed and nothing else: the port's
-``CNN_DropOut`` flattens its pooled activations channels-last, as flax does,
-so the rows of ``linear_1`` keep their order.
+leaf by leaf). The port's ``CNN_DropOut`` flattens its pooled activations
+channels-last, as flax does, so the rows of ``linear_1`` keep their order.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def flax_to_torch(tree, device="cpu", dtype=torch.float32) -> dict:
-    """flax params tree (numpy or jax arrays) -> {"layer.weight": tensor}."""
-    params = tree.get("params", tree)
+    """flax params tree (numpy or jax arrays) -> {"module.weight": tensor}."""
     out = {}
-    for layer, leaves in params.items():
-        kernel = np.asarray(leaves["kernel"])
-        n = kernel.ndim
-        if n >= 4:  # [..., H, W, I, O] -> [..., O, I, H, W]
-            lead = tuple(range(n - 4))
-            kernel = kernel.transpose(lead + (n - 1, n - 2, n - 4, n - 3))
-        else:  # [..., in, out] -> [..., out, in]
-            kernel = np.swapaxes(kernel, -1, -2)
-        out[f"{layer}.weight"] = torch.tensor(np.ascontiguousarray(kernel),
-                                              dtype=dtype, device=device)
-        out[f"{layer}.bias"] = torch.tensor(np.asarray(leaves["bias"]),
-                                            dtype=dtype, device=device)
+
+    def walk(node, prefix):
+        for name, value in node.items():
+            if hasattr(value, "items"):  # a module's subtree (dict or FrozenDict)
+                walk(value, f"{prefix}{name}.")
+                continue
+            a = np.asarray(value)
+            if name == "kernel":
+                n = a.ndim
+                if n >= 4:  # [..., H, W, I, O] -> [..., O, I, H, W]
+                    lead = tuple(range(n - 4))
+                    a = a.transpose(lead + (n - 1, n - 2, n - 4, n - 3))
+                else:  # [..., in, out] -> [..., out, in]
+                    a = np.swapaxes(a, -1, -2)
+            key = "bias" if name == "bias" else "weight"
+            out[f"{prefix}{key}"] = torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                                 device=device)
+
+    walk(tree.get("params", tree), "")
     return out
 
 
-def torch_to_flax(state: dict) -> dict:
-    """{"layer.weight": tensor} -> {"params": {layer: {"kernel", "bias"}}}
-    of numpy arrays (the inverse of ``flax_to_torch``)."""
+def leaf_kinds(module: nn.Module) -> dict:
+    """{"module.weight": flax leaf name} for the weights that are not a
+    Dense/Conv ``kernel``: LayerNorm ``scale`` and Embed ``embedding``."""
+    kinds = {}
+    for name, mod in module.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(mod, nn.LayerNorm):
+            kinds[f"{prefix}weight"] = "scale"
+        elif isinstance(mod, nn.Embedding):
+            kinds[f"{prefix}weight"] = "embedding"
+    return kinds
+
+
+def torch_to_flax(state: dict, module: nn.Module | None = None) -> dict:
+    """{"module.weight": tensor} -> {"params": nested tree} of numpy arrays
+    (the inverse of ``flax_to_torch``). A weight is a ``kernel`` unless
+    ``module`` makes it a LayerNorm ``scale`` or an Embed ``embedding``."""
+    kinds = leaf_kinds(module) if module is not None else {}
     params: dict = {}
     for key, value in state.items():
-        layer, kind = key.rsplit(".", 1)
+        path, kind = key.rsplit(".", 1)
         a = value.detach().float().cpu().numpy()
-        n = a.ndim
-        if kind == "weight":
+        leaf = kinds.get(key, "kernel") if kind == "weight" else "bias"
+        if leaf == "kernel":
+            n = a.ndim
             if n >= 4:  # [..., O, I, H, W] -> [..., H, W, I, O]
                 lead = tuple(range(n - 4))
                 a = a.transpose(lead + (n - 2, n - 1, n - 3, n - 4))
             else:
                 a = np.swapaxes(a, -1, -2)
-            params.setdefault(layer, {})["kernel"] = np.ascontiguousarray(a)
-        else:
-            params.setdefault(layer, {})["bias"] = a
+        node = params
+        for part in path.split("."):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
     return {"params": params}

@@ -1,0 +1,184 @@
+"""The port's flash attention (fedml_tpu_torch/ops/attention.py) against the
+JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; the JAX
+side runs its Pallas kernels in interpret mode, as tests/test_sequence.py
+does, with the block size models/transformer.py picks (the largest power
+of two up to 128 that divides T). Inputs come from numpy seeds. The CUDA
+kernels themselves are held against the plain versions by the
+``cuda``-marked test here and by chip_smoke.py.
+"""
+
+import importlib.util
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fedml_tpu.ops import attention as jax_attention
+from fedml_tpu_torch.ops import attention
+
+# the JAX package's contract for f32 flash attention (tests/test_sequence.py:51)
+RTOL = ATOL = 2e-5
+
+
+def _qkv(b, t, h, d, seed=0, n=3):
+    rng = np.random.RandomState(seed)
+    return [rng.normal(0, 1, (b, t, h, d)).astype(np.float32) for _ in range(n)]
+
+
+def _block(t):
+    return next(bb for bb in (128, 64, 32, 16, 8, 4, 2, 1) if t % bb == 0)
+
+
+CASES = [(c, t) for c in (False, True) for t in (20, 64, 80)]
+
+
+@pytest.mark.parametrize("causal,t", CASES)
+def test_plain_forward_matches_jax_kernel(causal, t):
+    q, k, v = _qkv(2, t, 2, 16, seed=t)
+    blk = _block(t)
+    want_o, want_lse = jax_attention._flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, blk, blk,
+        interpret=True, return_lse=True)
+    o, lse = attention.flash_fwd(*map(torch.from_numpy, (q, k, v)), causal)
+    assert o.shape == (2, t, 2, 16) and lse.shape == (4, t)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal,t", CASES)
+def test_plain_backward_matches_jax_grad(causal, t):
+    q, k, v, cot = _qkv(2, t, 2, 16, seed=100 + t, n=4)
+    blk = _block(t)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jax_attention.flash_attention(q_, k_, v_, causal, blk, blk, True)
+                       * jnp.asarray(cot))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    (attention.flash_attention(*leaves, causal) * torch.from_numpy(cot)).sum().backward()
+    for name, leaf, w in zip("qkv", leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_reference_matches_jax(causal):
+    q, k, v = _qkv(2, 24, 3, 8, seed=5)
+    want = jax_attention.attention_reference(*map(jnp.asarray, (q, k, v)), causal)
+    got = attention.attention_reference(*map(torch.from_numpy, (q, k, v)), causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_function_gradcheck_float64(causal):
+    rng = np.random.RandomState(7)
+    leaves = [torch.from_numpy(rng.normal(size=(1, 5, 2, 3))).requires_grad_(True)
+              for _ in range(3)]
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: attention.flash_attention(q, k, v, causal), leaves)
+
+
+def test_split_backward_pieces_make_the_whole():
+    """flash_bwd = delta, then the dQ and dK/dV wrappers; each matches the
+    plain whole backward."""
+    q, k, v, do = map(torch.from_numpy, _qkv(1, 33, 2, 8, seed=9, n=4))
+    o, lse = attention.flash_fwd(q, k, v, True)
+    want = attention.flash_bwd_reference(q, k, v, o, lse, do, True)
+    delta = attention.attention_delta(o, do)
+    assert delta.shape == (2, 33)
+    got = (attention.flash_bwd_dq(q, k, v, do, lse, delta, True),
+           *attention.flash_bwd_dkv(q, k, v, do, lse, delta, True))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_causal_mask_and_lse_definition():
+    """The first query sees only the first key: its output is v[0] and its
+    lse is its one score."""
+    q, k, v = map(torch.from_numpy, _qkv(1, 6, 1, 4, seed=3))
+    o, lse = attention.flash_fwd_reference(q, k, v, True)
+    torch.testing.assert_close(o[0, 0, 0], v[0, 0, 0])
+    s00 = (q[0, 0, 0] * 0.5 * k[0, 0, 0]).sum()
+    torch.testing.assert_close(lse[0, 0], s00)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    q, k, v = map(torch.from_numpy, _qkv(1, 4, 1, 4))
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        attention.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="differ in B, H or D"):
+        attention.flash_fwd(q, k[..., :2], v[..., :2])
+    with pytest.raises(ValueError, match="at least 1"):
+        attention.flash_fwd(q[:, :0], k, v)
+    o, lse = attention.flash_fwd(q, k, v)
+    delta = attention.attention_delta(o, o)
+    with pytest.raises(ValueError, match="shaped as q"):
+        attention.flash_bwd_dq(q, k, v, o[:, :2], lse, delta)
+    with pytest.raises(ValueError, match="lse/delta must be"):
+        attention.flash_bwd_dkv(q, k, v, o, lse[:, :2], delta)
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_chip_smoke_attention_check_and_its_controls(monkeypatch, causal):
+    """chip_smoke.py's flash check, run on the CPU (the wrappers run the
+    plain versions, so every reading is 0): the faulted results it builds
+    (O without the causal mask, dQ with one key tile dropped, dK and dV
+    swapped) must each fail its elementwise check."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setitem(cs.ATTN_SHAPES, "t", (2, 70, 2, 16))
+    _, errs = cs.check_attention_case("float32", torch.device("cpu"), "t", causal)
+    assert errs == {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    q = torch.ones(3, 2)
+    with pytest.raises(cs.Disagreement, match="1 elements outside"):
+        cs.close("one off", q + torch.tensor([[0.0, 0.0]] * 2 + [[0.0, 1e-3]]), q, 2e-5, 2e-5)
+
+
+def test_chip_smoke_attention_work_counts_live_pairs():
+    cs = _chip_smoke()
+    flops, nbytes = cs.attention_work((8, 2048, 4, 32), True, 4)
+    pairs = 8 * 4 * 2048 * 2049 // 2
+    assert flops == {"flash_fwd": 2 * pairs * 64, "flash_bwd_dq": 3 * pairs * 64,
+                     "flash_bwd_dkv": 4 * pairs * 64}
+    x = 8 * 2048 * 4 * 32 * 4
+    assert nbytes["flash_fwd"] == 4 * x + 8 * 4 * 2048 * 4
+    assert cs.attention_work((1, 3, 1, 2), False, 2)[0]["flash_fwd"] == 2 * 9 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_kernels_match_plain_versions(dtype, causal):
+    """The three CUDA kernels against their plain versions on the card, at a
+    ragged multi-tile shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(a).to(dev, dt) for a in _qkv(2, 333, 2, 64, n=4))
+    tol = {"float32": (2e-5, 2e-5, 2e-4), "bfloat16": (1e-2, 1e-2, 1e-2)}[dtype]
+    before = dict(attention.launches)
+    o, lse = attention.flash_fwd(q, k, v, causal)
+    po, plse = attention.flash_fwd_reference(q, k, v, causal)
+    torch.testing.assert_close(o.float(), po.float(), rtol=tol[0], atol=tol[1])
+    torch.testing.assert_close(lse, plse, rtol=2e-5, atol=2e-5)
+    got = attention.flash_bwd(q, k, v, o, lse, do, causal)
+    want = attention.flash_bwd_reference(q, k, v, o, lse, do, causal)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol[2], atol=tol[2])
+    assert {n: attention.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}

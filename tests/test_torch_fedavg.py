@@ -116,7 +116,9 @@ def test_port_imports_no_jax_or_reference_package():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import fedml_tpu_torch, fedml_tpu_torch.ops.fused_sgd, "
-        "fedml_tpu_torch.ops._build, fedml_tpu_torch.experiments.main_fedavg\n"
+        "fedml_tpu_torch.ops._build, fedml_tpu_torch.experiments.main_fedavg, "
+        "fedml_tpu_torch.ops.attention, fedml_tpu_torch.models.transformer, "
+        "fedml_tpu_torch.experiments.profile_nwp\n"
         "new = [m for m in set(sys.modules) - before "
         f"if m.split('.')[0] in {_FORBIDDEN!r}]\n"
         "print(sorted(new)); sys.exit(1 if new else 0)\n")
