@@ -20,12 +20,20 @@ Phases (any failure exits non-zero and prints no result line):
        bound);
      - the three flash-attention kernels (forward, dQ, dK/dV), causal and
        not, at the NWP slice's shape (B 16, T 20, H 4, D 32), a ragged
-       multi-tile shape (2, 333, 2, 64) and a long causal shape (8, 2048,
-       4, 32), every element within ATTN_TOL; faulted results (O without
-       the causal mask, dQ with one key tile dropped, dK and dV swapped)
-       must fail the same check; at the long shape each kernel's time, its
-       plain version's, its bound and the time of PyTorch's
-       ``scaled_dot_product_attention`` forward or backward;
+       multi-tile shape (2, 333, 2, 64), a long causal shape (8, 2048, 4,
+       32), a ragged narrow shape (2, 100, 3, 20: D no multiple of 8,
+       40-byte bf16 rows, so the forward stages with 8-byte copies) and a
+       wide odd one (2, 70, 2, 127: the D <= 128 instantiations, float32
+       reloading Q's fragments per tile, bf16 rows of odd length copied
+       element by element), every element within ATTN_TOL; the forward
+       again on q, k, v cut from one [B, T, 3H, D] tensor as the model cuts
+       them, which must give the same bits; faulted results (O without the causal mask, dQ with one
+       key tile dropped, dK and dV swapped, O one bit off) must fail the
+       same checks; the forward on such views, under the profiler, must
+       run one kernel and no copy; at shapes (a) and (c) each kernel's
+       time, its plain version's, its bound and the time of PyTorch's
+       ``scaled_dot_product_attention`` forward or backward; the ptxas
+       report must show no spills in any forward instantiation;
   3. the main paths through the user's entry points:
      - FEMNIST: the surrogate (100 clients, a cut from the reference's 3400
        to keep the surrogate's host memory small; every client capped at
@@ -65,6 +73,10 @@ FEMNIST_CLIENTS, CAP, ROUNDS = 100, 200, 5
 # cores, bf16 tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+# The flash kernels' float32 bound is the card's fastest route to float32
+# accuracy: 3xTF32, three TF32 products per float32 product at 495 TFLOP/s
+# (the forward runs it); bf16 on the tensor cores
+ATTN_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # Kernel vs plain version, both float32-accumulating in different orders.
 # Elementwise (rtol, atol): float32 is the JAX kernel's own contract
 # (tests/test_fused_sgd.py:76-81); bfloat16 rounds at the same points on both
@@ -100,7 +112,8 @@ TOL = {"float32": {"rtol": 2e-5, "atol": 1e-5, "outliers": 1e-4, "max_abs": 4e-4
 # round the outputs once, so an element may differ by one bf16 step (2**-7
 # relative at most) where the two float32 values straddle a rounding
 # point; lse stays float32 on both sides.
-ATTN_SHAPES = {"a": (16, 20, 4, 32), "b": (2, 333, 2, 64), "c": (8, 2048, 4, 32)}
+ATTN_SHAPES = {"a": (16, 20, 4, 32), "b": (2, 333, 2, 64), "c": (8, 2048, 4, 32),
+               "d": (2, 100, 3, 20), "e": (2, 70, 2, 127)}
 ATTN_TOL = {"float32": {"o": (2e-5, 2e-5), "lse": (2e-5, 2e-5), "grad": (2e-4, 2e-4)},
             "bfloat16": {"o": (1e-2, 1e-4), "lse": (2e-5, 2e-5), "grad": (1e-2, 2e-4)}}
 NWP_CLIENTS, NWP_PER_ROUND, NWP_BATCH, NWP_LR = 200, 50, 16, 0.3
@@ -119,6 +132,63 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(report: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_bytes"}} from the
+    ``nvcc -Xptxas -v`` report; spill bytes are stores plus loads."""
+    import re
+
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"registers": 0, "spill_bytes": 0})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if cur is not None and m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if cur is not None and m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def forward_label(mangled: str):
+    """``flash_fwd_kernel<float32, 64>`` for a forward instantiation's
+    mangled name, else None."""
+    import re
+
+    m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if m is None:
+        return None
+    return f"flash_fwd_kernel<{'float32' if m.group(1) == 'f' else 'bfloat16'}, {m.group(2)}>"
+
+
+def check_one_launch(device) -> list:
+    """The forward on the model's split q, k, v views runs exactly one
+    kernel on the card, its own, and no layout copy (torch.profiler).
+    Returns the device events' names."""
+    import torch
+
+    from fedml_tpu_torch.ops import attention as A
+
+    q, k, v = qkv_views(*attention_inputs(ATTN_SHAPES["a"], torch.float32, device)[:3])
+    A.flash_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):  # a trace with no device event at all is retried
+        with torch.profiler.profile(activities=acts) as prof:
+            A.flash_fwd(q, k, v, True)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    if len(names) != 1 or "flash_fwd_kernel" not in names[0]:
+        raise RuntimeError(f"flash_fwd on split views ran {names} on the card, not one "
+                           f"flash_fwd_kernel")
+    return names
 
 
 def cuda_ms(fn, warmup=2, reps=7) -> float:
@@ -314,6 +384,28 @@ def close(tag: str, got, want, rtol: float, atol: float) -> dict:
     return {"max_abs": diff.max().item(), "share": share}
 
 
+def bits(t):
+    """The bits of a float32 or bf16 tensor, as a contiguous int tensor."""
+    import torch
+
+    return t.contiguous().view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def bitwise(tag: str, got, want) -> None:
+    """``got`` holds the same bits as ``want``; raises Disagreement."""
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or not bits(got).equal(bits(want))):
+        raise Disagreement(f"{tag}: not bitwise equal")
+
+
+def qkv_views(q, k, v):
+    """q, k, v as views of one [B, T, 3H, D] tensor, cut as
+    models/transformer.py cuts the qkv projection."""
+    import torch
+
+    return torch.cat((q, k, v), dim=2).split(q.shape[2], dim=2)
+
+
 def must_fail(tag: str, fn) -> None:
     try:
         fn()
@@ -360,6 +452,7 @@ def check_attention_case(dtype_name, device, key, causal):
     tag = f"flash[{dtype_name}] {key}={shape} causal={causal}"
     o, lse = A.flash_fwd(q, k, v, causal)
     po, plse = A.flash_fwd_reference(q, k, v, causal)
+    so, slse = A.flash_fwd(*qkv_views(q, k, v), causal)
     delta = A.attention_delta(o, do)
     dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = A.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
@@ -371,6 +464,8 @@ def check_attention_case(dtype_name, device, key, causal):
          "dq": close(f"{tag} dQ", dq, pdq, *tol["grad"]),
          "dk": close(f"{tag} dK", dk, pdk, *tol["grad"]),
          "dv": close(f"{tag} dV", dv, pdv, *tol["grad"])}
+    bitwise(f"{tag} O from split views", so, o)
+    bitwise(f"{tag} lse from split views", slse, lse)
     # faulted results: O without the causal mask, dQ with the last key tile
     # dropped (its keys zeroed: their ds . k terms vanish, nothing else
     # moves), dK and dV swapped
@@ -385,20 +480,25 @@ def check_attention_case(dtype_name, device, key, causal):
         *tol["grad"]))
     must_fail(f"{tag} dK and dV swapped", lambda: (
         close("control", pdv, pdk, *tol["grad"]), close("control", pdk, pdv, *tol["grad"])))
+    one_bit = bits(so).clone()
+    one_bit.view(-1)[-1] ^= 1
+    must_fail(f"{tag} O from split views one bit off",
+              lambda: bitwise("control", one_bit.view(o.dtype), o))
     log(f"{tag}: max diff O {r['o']['max_abs']:.3e}, lse {r['lse']['max_abs']:.3e}, "
         f"dQ {r['dq']['max_abs']:.3e}, dK {r['dk']['max_abs']:.3e}, "
         f"dV {r['dv']['max_abs']:.3e}; largest share of the allowance "
-        f"{max(x['share'] for x in r.values()):.3f}; controls rejected")
+        f"{max(x['share'] for x in r.values()):.3f} (O {r['o']['share']:.3f}, lse "
+        f"{r['lse']['share']:.3f}); split views bitwise equal; controls rejected")
     errs = {"flash_fwd": max(r["o"]["max_abs"], r["lse"]["max_abs"]),
             "flash_bwd_dq": r["dq"]["max_abs"],
             "flash_bwd_dkv": max(r["dk"]["max_abs"], r["dv"]["max_abs"])}
     return (q, k, v, do, o, lse, delta), errs
 
 
-def time_attention(dtype_name, key, inputs, library=True) -> dict:
+def time_attention(dtype_name, key, inputs) -> dict:
     """Each flash kernel's time, its plain version's and its bound at shape
-    ``key`` (causal); with ``library``, PyTorch's SDPA forward and backward
-    on the same inputs."""
+    ``key`` (causal), and PyTorch's SDPA forward and backward on the same
+    inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -415,28 +515,26 @@ def time_attention(dtype_name, key, inputs, library=True) -> dict:
                           lambda: A.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True)),
     }
     flops, nbytes = attention_work(shape, True, q.element_size())
-    lib = {}
-    if library:
-        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-        doh = do.transpose(1, 2)
-        lib["flash_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True))
-        oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-        bwd = cuda_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True))
-        lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = bwd
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    doh = do.transpose(1, 2)
+    lib = {"flash_fwd": cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))}
+    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = cuda_ms(
+        lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True))
     out = {}
     for name, (kernel, plain) in runs.items():
-        flop_ms = flops[name] / PEAK_FLOPS[dtype_name] * 1e3
+        flop_ms = flops[name] / ATTN_PEAK_FLOPS[dtype_name] * 1e3
         byte_ms = nbytes[name] / PEAK_BYTES * 1e3
         out[name] = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
                      "bound_ms": max(flop_ms, byte_ms),
                      "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-                     "library_ms": lib.get(name)}
+                     "library_ms": lib[name]}
         x = out[name]
         log(f"{name}[{dtype_name}] {key}={shape} causal: kernel {x['ms']:.4f} ms, plain "
             f"{x['plain_ms']:.4f} ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}; "
             f"{flops[name] / 1e9:.3f} GFLOP, {nbytes[name] / 1e6:.2f} MB), "
-            f"SDPA {'-' if x['library_ms'] is None else format(x['library_ms'], '.4f')} ms; "
+            f"SDPA {x['library_ms']:.4f} ms; "
             f"{flops[name] / (x['ms'] * 1e-3) / 1e12:.2f} TFLOP/s achieved")
     return out
 
@@ -452,7 +550,7 @@ def check_attention(dtype_name, device) -> dict:
             if causal:
                 inputs[key] = x
             errs = {n: max(errs.get(n, 0.0), e[n]) for n in e}
-    time_attention(dtype_name, "a", inputs["a"], library=False)
+    time_attention(dtype_name, "a", inputs["a"])
     numbers = time_attention(dtype_name, "c", inputs["c"])
     return {n: {"max_abs_err": errs[n], **numbers[n]} for n in numbers}
 
@@ -562,14 +660,19 @@ def main(argv=None) -> int:
     reports = _build.build(["fused_sgd", "flash_attention"])
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(reports) or 'already built'})")
-    for name, rep in reports.items():
-        regs = [int(w) for line in rep.splitlines() if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
-        spills = sum(int(w) for line in rep.splitlines() if "spill" in line
-                     for w, nxt in zip(line.split(), line.split()[1:])
-                     if nxt == "bytes" and "spill" in line)
-        log(f"  ptxas {name}: {len(regs)} kernels, max {max(regs, default=0)} "
-            f"registers/thread, {spills} bytes of stack/spill")
+    for name in ("fused_sgd", "flash_attention"):
+        # the build keeps each library's ptxas report beside it
+        kernels = ptxas_kernels(_build.library_path(name).with_suffix(".ptxas.txt").read_text())
+        log(f"  ptxas {name}: {len(kernels)} kernels, max "
+            f"{max((x['registers'] for x in kernels.values()), default=0)} registers/thread, "
+            f"{sum(x['spill_bytes'] for x in kernels.values())} bytes of spill")
+        for kname, x in sorted(kernels.items()):
+            label = forward_label(kname)
+            if label is None:
+                continue
+            log(f"    {label}: {x['registers']} registers, {x['spill_bytes']} bytes of spill")
+            if x["spill_bytes"]:
+                raise RuntimeError(f"{label} spills {x['spill_bytes']} bytes")
 
     # ---- phase 2: kernels vs plain versions, TF32 off for the plain float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -584,6 +687,7 @@ def main(argv=None) -> int:
         return 0
     numbers = {d: check_fused_epoch(d, dev) for d in ("float32", "bfloat16")}
     attn = {d: check_attention(d, dev) for d in ("float32", "bfloat16")}
+    log(f"flash_fwd on split views under the profiler: {check_one_launch(dev)}")
 
     # ---- phase 3: the main path through FedAvgAPI
     from fedml_tpu_torch import load_dataset

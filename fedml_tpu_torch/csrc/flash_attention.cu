@@ -14,39 +14,83 @@
 // p = exp(s - lse) per tile, takes ds = p * (dO . V^T - delta) with
 // delta = rowsum(dO * O) computed by the caller, and accumulates
 // dQ = ds . K * scale (sweeping key tiles), dV = p^T . dO and
-// dK = ds^T . Q * scale (sweeping query tiles). All arithmetic is float32
-// FMA with float32 accumulation, for float and bf16 inputs alike (bf16 is
-// widened on load and the outputs rounded once): no TF32, since the float32
-// path is held to the JAX kernel's HIGHEST-precision contract (2e-5).
+// dK = ds^T . Q * scale (sweeping query tiles).
 //
 // What bounds them on this card. For a causal (b, h) pair of length T and
 // head dim D the forward does 2 products of T(T+1)/2 x D multiply-adds
 // (dq 3, dkv 4) against 4 T D values moved: at T = 2048, D = 32 that is
-// ~250 FLOP per byte, far above the float32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20), so long sequences are bound by operations. At the NWP
-// model's T = 20 a (b, h) pair is ~27 kFLOP against ~10 KB: bound by bytes
-// on paper, and in practice by the launch, a few microseconds.
+// ~250 FLOP per byte, above the ridge of every route (float32 SIMT 20,
+// TF32 148, bf16 295 FLOP per byte at 3.35 TB/s), so long sequences are
+// bound by operations; at D = 32 the exponentials and the softmax's
+// per-score arithmetic weigh as much as the products. At the NWP model's
+// T = 20 a (b, h) pair is ~27 kFLOP against ~10 KB: bound by bytes on
+// paper, and in practice by the launch, a few microseconds.
 //
-// Design (simple and right first). One block per (b*h, 64-row tile) with
-// 256 threads: 4 threads per row, each holding every 4th column of the
-// row's head-dim vectors in registers (D <= 128, so at most 32 per
-// thread). The other operand streams through shared memory in 64-row
-// tiles (K and V for the forward and dq, Q and dO for dkv); a dot product
-// is 4 partial sums joined by two warp shuffles. Causal tiles past the
-// diagonal are skipped, and a ragged tail (T not a multiple of 64) is
-// masked inside the one tile shape, so any T runs with the same blocks.
-// Tensor cores (wgmma, bf16), TMA and reading the strided qkv projection
-// directly are later work.
+// The forward (tensor cores). A block of 128 threads (4 warps) owns 64
+// query rows of one (b, h), 16 rows a warp; the grid is (B*H, query tiles),
+// and in causal mode the tiles with the most live keys are launched first.
+// K and V stream through shared memory in 64-key tiles in the input type,
+// two stages deep with cp.async: 16-byte copies where every row address
+// and the row length allow it, else 8 or 4 bytes, else (bf16 rows of odd
+// length or address) element copies; rows past T are zero-filled (source
+// size 0) and the head dim is zero-padded to the instantiation's width.
+// Rows are padded by 16 bytes, so the fragment loads hit 32 distinct banks.
+// Each warp computes its 16 x 64 score tile with mma.sync:
+//   - bf16: m16n8k16 (f32 accumulate; products of bf16 are exact in f32),
+//     then S * scale in f32; P.V with P split into hi = bf16(p) and
+//     lo = bf16(p - hi), two MMAs against the same V fragment (one bf16 P
+//     misses the bf16 contract);
+//   - float32: 3xTF32 with m16n8k8: each operand x is split into
+//     big = tf32(x) and small = tf32(x - big) (cvt.rna), and a product is
+//     big.big + big.small + small.big, which keeps the float32 contract
+//     (one TF32 product misses it); q is multiplied by scale first.
+// The softmax runs on the accumulator fragments: a thread holds rows g and
+// g + 8 of its warp's tile (g = lane / 4), masks dead keys to -inf, and
+// reduces max over its quad with two shuffles. Exponentials are ex2.approx
+// (__expf): its relative error over the softmax's range is a small
+// fraction of either contract, and it costs a few instructions where expf
+// costs about ten. The C fragments of the score tile are the A fragments
+// of P.V without a shuffle (bf16: n-tiles 2j, 2j + 1 are k-step j; TF32:
+// slot t holds key 2t and slot t + 4 key 2t + 1, with V's B fragment
+// loaded in the same order). Q's fragments stay in registers (bf16, and
+// float32 up to D = 64; else they are reloaded from shared memory per
+// tile). O = acc / max(l, 1e-30) is rounded once.
 //
-// Layout: q, k, v, dO, O, dQ, dK, dV are contiguous [B*H, T, D] in the
-// input type; lse and delta are [B*H, T] float32.
+// The backward kernels (simple and right first): one block per (b*h,
+// 64-row tile) with 256 threads, 4 threads per row, each holding every 4th
+// column of the row's head-dim vectors in registers (D <= 128); the other
+// operand streams through shared memory in 64-row tiles (K and V for dq,
+// Q and dO for dkv); a dot product is 4 partial sums joined by two warp
+// shuffles; float32 FMA with float32 accumulation (bf16 widened on load),
+// no TF32. Causal tiles past the diagonal are skipped, and a ragged tail
+// (T not a multiple of 64) is masked inside the one tile shape.
+//
+// Layout. The forward reads q, k and v as [B, T, H, D] views with their
+// own batch, token and head strides (in elements; the D stride is 1), so
+// the three views that a qkv projection is cut into need no copy, and
+// writes O as a contiguous [B, T, H, D] tensor. The backward kernels take
+// contiguous [B*H, T, D] q, k, v, dO and write dQ, dK, dV so. lse and delta
+// are [B*H, T] float32.
 //
 // C interface (ctypes): flash_fwd, flash_bwd_dq, flash_bwd_dkv (each
 // returns the first CUDA error of its launch, 0 on success, or a negative
-// code for a shape it rejects) and flash_error_string.
+// code for a shape it rejects) and flash_error_string. flash_fwd takes each
+// view's three strides as 64-bit ints after the shape (b, h, tq, tk, d).
+//
+// Checks. chip_smoke.py holds every kernel against its plain PyTorch
+// version (ops/attention.py) at (B, T, H, D) = (16, 20, 4, 32), (2, 333, 2,
+// 64), (8, 2048, 4, 32), (2, 100, 3, 20) and (2, 70, 2, 127). (2, 100, 3,
+// 20) has a ragged T, a D that is no multiple of 8 and 40-byte bf16 rows,
+// so the forward stages it with 8-byte copies; (2, 70, 2, 127) runs the
+// D <= 128 instantiations, float32 reloading Q's fragments per tile and
+// bf16 rows copied element by element. It runs the forward on q, k, v cut
+// from one [B, T, 3H, D] tensor too, which must give the same bits. On the CPU,
+// tests/test_torch_flash_numerics.py emulates the forward's rounding points
+// (the bf16 hi/lo split, 3xTF32 with cvt.rna) against the same tolerance.
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +102,7 @@ constexpr int kTile = 64;   // rows of the streamed operand per shared-memory ti
 constexpr int kLanes = 4;   // threads per owned row
 constexpr int kThreads = kRows * kLanes;
 constexpr int kErrHeadDim = -1;
+constexpr int kErrGrid = -2;
 static_assert(kRows == kTile, "the causal tile skipping assumes equal tiles");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -126,65 +171,418 @@ __device__ __forceinline__ float partial_dot(const float (&x)[DS], const float* 
 
 // ---------------------------------------------------------------- forward
 
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdRows = 16 * kFwdWarps;  // query rows a block owns, 16 a warp
+constexpr int kFwdKeys = 64;              // keys per shared-memory tile
+constexpr int kNt = kFwdKeys / 8;         // 8-key n-tiles of a warp's score tile
+static_assert(kFwdRows == kFwdKeys, "the causal tile count assumes equal tiles");
+
+// The MMA depth (the head-dim step of one S = Q.K^T product) and the row
+// padding that keeps the fragment loads free of bank conflicts (a pitch of
+// 4 * odd 32-bit words), per input type.
+template <typename T>
+struct Mma;
+template <>
+struct Mma<float> {
+  static constexpr int kDepth = 8;  // m16n8k8 TF32
+  static constexpr int kPad = 4;
+};
+template <>
+struct Mma<__nv_bfloat16> {
+  static constexpr int kDepth = 16;  // m16n8k16 bf16
+  static constexpr int kPad = 8;
+};
+
+// Q's fragments stay in registers for bf16 and for float32 up to D = 64.
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                 int tq, int tk, int d, float scale, int causal) {
-  constexpr int DS = DMAX / kLanes;
-  extern __shared__ float smem[];
-  float* ks = smem;                 // [kTile][DMAX]
-  float* vs = smem + kTile * DMAX;  // [kTile][DMAX]
-  const int bh = blockIdx.x, q0 = blockIdx.y * kRows;
-  const int lane = threadIdx.x % kLanes, qi = q0 + threadIdx.x / kLanes;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
+constexpr bool kQInRegs = sizeof(T) == 2 || DMAX <= 64;
 
-  float qr[DS], acc[DS];
-  load_row<T, DS>(qr, qb, qi, tq, d, lane, scale);
-#pragma unroll
-  for (int c = 0; c < DS; ++c) acc[c] = 0.f;
-  float m = -INFINITY, l = 0.f;
+template <typename T, int DMAX>
+struct FwdSmem {
+  static constexpr int kPitch = DMAX + Mma<T>::kPad;    // elements per tile row
+  static constexpr int kTileElems = kFwdKeys * kPitch;  // a Q, K or V tile
+  static constexpr size_t kBytes = 5 * kTileElems * sizeof(T);  // Q, 2 K, 2 V
+  static_assert(kPitch * sizeof(T) % 16 == 0, "rows must stay 16-byte aligned");
+};
 
-  int tiles = (tk + kTile - 1) / kTile;
-  if (causal) tiles = min(tiles, (q0 + kRows - 1) / kTile + 1);  // past the diagonal: all dead
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    stage<T, DMAX>(ks, kb, k0, tk, d, 1.f);
-    stage<T, DMAX>(vs, vb, k0, tk, d, 1.f);
-    __syncthreads();
+// Geometry of one forward call: strides in elements of the [B, T, H, D]
+// views (batch, token, head), and the width of the staging copies.
+struct FwdGeom {
+  long long qs[3], ks[3], vs[3];
+  int h, tq, tk, d, causal, vec;
+  float scale;
+};
 
-    float s[kTile];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const float dot = row_sum(partial_dot<DS, DMAX>(qr, ks, j, lane));
-      const int kj = k0 + j;
-      s[j] = (kj < tk && (!causal || kj <= qi)) ? dot : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `bytes` bytes (16, 8 or 4) of which the first `src_bytes`
+// come from global memory and the rest are zero-filled.
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, int src_bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// c += a . b: m16n8k16, bf16 inputs, float32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += a . b: m16n8k8, TF32 inputs, float32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// x = big + small + (what neither holds), each a TF32 bit pattern rounded
+// to nearest, ties away (cvt.rna): a float32 is never handed to the MMA raw.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// The pair (p0, p1) as two bf16 pairs, hi = bf16(p) and lo = bf16(p - hi);
+// p0 in the low halves.
+__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(p0 - __low2float(h), p1 - __high2float(h)));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two bf16 from two rows packed into one register, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_rows(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
+  return uint32_t(*reinterpret_cast<const unsigned short*>(lo)) |
+         (uint32_t(*reinterpret_cast<const unsigned short*>(hi)) << 16);
+}
+
+// Rows [r0, r0 + 64) of a strided [rows, d] matrix (row r at src + r *
+// stride) into a shared-memory tile of pitch P, columns [0, d); rows past
+// `rows` read 0. Copies of `vec` bytes with cp.async; vec == 2 (bf16 rows of
+// odd length or address) copies element by element.
+template <typename T, int P>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long stride, int r0,
+                                           int rows, int d, int vec) {
+  if (vec == 2) {
+    for (int i = threadIdx.x; i < kFwdKeys * d; i += kFwdThreads) {
+      const int r = i / d, c = i - r * d;
+      dst[r * P + c] = r0 + r < rows ? src[(r0 + r) * stride + c] : from_f<T>(0.f);
     }
-    const float m_new = fmaxf(m, tile_max);
-    // exp(-inf - -inf) guard: a row with no live score yet keeps m = -inf
-    const float alpha = (m == -INFINITY) ? 1.f : expf(m - m_new);
-#pragma unroll
-    for (int c = 0; c < DS; ++c) acc[c] *= alpha;
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const float p = (s[j] == -INFINITY) ? 0.f : expf(s[j] - m_new);
-      psum += p;
-      const float* vr = vs + j * DMAX + lane;
-#pragma unroll
-      for (int c = 0; c < DS; ++c) acc[c] = fmaf(p, vr[c * kLanes], acc[c]);
-    }
-    l = l * alpha + psum;
-    m = m_new;
+    return;
   }
-  const float lsafe = fmaxf(l, 1e-30f);
-  store_row<T, DS>(o + (size_t)bh * tq * d, acc, qi, tq, d, lane, 1.f / lsafe);
-  if (lane == 0 && qi < tq) lse[(size_t)bh * tq + qi] = m + logf(lsafe);
+  const int chunks = d * (int)sizeof(T) / vec;
+  for (int i = threadIdx.x; i < kFwdKeys * chunks; i += kFwdThreads) {
+    const int r = i / chunks, c = i - r * chunks;
+    const bool live = r0 + r < rows;
+    const char* s = live ? reinterpret_cast<const char*>(src + (r0 + r) * stride) + c * vec
+                         : reinterpret_cast<const char*>(src);
+    cp_async(reinterpret_cast<char*>(dst + r * P) + c * vec, s, vec, live ? vec : 0);
+  }
+}
+
+// Registers of one A fragment of Q (one k-step of this warp's 16 rows):
+// bf16 4 (pairs), float32 8 (4 big then 4 small TF32 halves of q * scale).
+template <typename T>
+constexpr int kQRegs = sizeof(T) == 2 ? 4 : 8;
+
+template <typename T, int DMAX>
+__device__ __forceinline__ void q_frag(uint32_t (&a)[kQRegs<T>], const T* qw, int ks, int g,
+                                       int t, float scale) {
+  constexpr int P = FwdSmem<T, DMAX>::kPitch;
+  if constexpr (sizeof(T) == 2) {
+    // a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
+    const T* p = qw + g * P + ks * 16 + 2 * t;
+    a[0] = ld32(p);
+    a[1] = ld32(p + 8 * P);
+    a[2] = ld32(p + 8);
+    a[3] = ld32(p + 8 * P + 8);
+  } else {
+    // a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+    const float* p = qw + g * P + ks * 8 + t;
+    const float x[4] = {p[0] * scale, p[8 * P] * scale, p[4] * scale, p[8 * P + 4] * scale};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(x[i], a[i], a[4 + i]);
+  }
+}
+
+template <typename T, int DMAX, bool REGS = kQInRegs<T, DMAX>>
+struct QFrags {
+  uint32_t a[DMAX / Mma<T>::kDepth][kQRegs<T>];
+};
+template <typename T, int DMAX>
+struct QFrags<T, DMAX, false> {};  // reloaded from shared memory per tile
+
+// s = (q * scale) . k^T for this warp's 16 rows and the tile's 64 keys, as
+// 8 n-tiles of C fragments: s[n][0..1] row g, keys 8n + 2t..2t+1;
+// s[n][2..3] row g + 8. Head-dim steps past d (all zero) are skipped.
+template <typename T, int DMAX>
+__device__ __forceinline__ void qk_product(float (&s)[kNt][4], const QFrags<T, DMAX>& qf,
+                                           const T* qw, const T* kt, int d, int g, int t,
+                                           float scale) {
+  constexpr int P = FwdSmem<T, DMAX>::kPitch, DEPTH = Mma<T>::kDepth;
+#pragma unroll
+  for (int ks = 0; ks < DMAX / DEPTH; ++ks) {
+    if (ks * DEPTH >= d) continue;
+    uint32_t a[kQRegs<T>];
+    if constexpr (kQInRegs<T, DMAX>) {
+#pragma unroll
+      for (int i = 0; i < kQRegs<T>; ++i) a[i] = qf.a[ks][i];
+    } else {
+      q_frag<T, DMAX>(a, qw, ks, g, t, scale);
+    }
+#pragma unroll
+    for (int n = 0; n < kNt; ++n) {
+      const T* kr = kt + (n * 8 + g) * P + ks * DEPTH;  // key 8n + g
+      if constexpr (sizeof(T) == 2) {
+        // b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
+        mma_bf16(s[n], a[0], a[1], a[2], a[3], ld32(kr + 2 * t), ld32(kr + 2 * t + 8));
+      } else {
+        // b0 (k t, n g), b1 (k t+4, n g)
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(kr[t], bb0, bs0);
+        split_tf32(kr[t + 4], bb1, bs1);
+        mma_tf32(s[n], a[4], a[5], a[6], a[7], bb0, bb1);  // small . big
+        mma_tf32(s[n], a[0], a[1], a[2], a[3], bs0, bs1);  // big . small
+        mma_tf32(s[n], a[0], a[1], a[2], a[3], bb0, bb1);  // big . big
+      }
+    }
+  }
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= scale;
+  }
+}
+
+// o += p . v for this warp's 16 rows, p in the C-fragment layout of
+// qk_product; o[j] holds columns 8j + 2t..2t+1 of rows g and g + 8.
+template <typename T, int DMAX>
+__device__ __forceinline__ void pv_product(float (&o)[DMAX / 8][4], const float (&p)[kNt][4],
+                                           const T* vt, int d, int g, int t) {
+  constexpr int P = FwdSmem<T, DMAX>::kPitch;
+  if constexpr (sizeof(T) == 2) {
+    // k-step j (keys 16j..16j+15): its A fragment is the C fragments of
+    // n-tiles 2j and 2j+1, split into hi and lo bf16 terms
+#pragma unroll
+    for (int j = 0; j < kNt / 2; ++j) {
+      uint32_t hi[4], lo[4];
+      split_bf16(p[2 * j][0], p[2 * j][1], hi[0], lo[0]);
+      split_bf16(p[2 * j][2], p[2 * j][3], hi[1], lo[1]);
+      split_bf16(p[2 * j + 1][0], p[2 * j + 1][1], hi[2], lo[2]);
+      split_bf16(p[2 * j + 1][2], p[2 * j + 1][3], hi[3], lo[3]);
+      const T* vr = vt + (16 * j + 2 * t) * P + g;  // key 16j + 2t, column g
+#pragma unroll
+      for (int n = 0; n < DMAX / 8; ++n) {
+        if (n * 8 >= d) continue;
+        const T* c = vr + n * 8;
+        const uint32_t b0 = pack_rows(c, c + P), b1 = pack_rows(c + 8 * P, c + 9 * P);
+        mma_bf16(o[n], lo[0], lo[1], lo[2], lo[3], b0, b1);
+        mma_bf16(o[n], hi[0], hi[1], hi[2], hi[3], b0, b1);
+      }
+    }
+  } else {
+    // k-step j (keys 8j..8j+7) is n-tile j; slot t holds key 2t and slot
+    // t + 4 key 2t + 1, on both sides of the product
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+      uint32_t ab[4], as[4];
+      split_tf32(p[j][0], ab[0], as[0]);  // a0 (g, slot t): key 2t
+      split_tf32(p[j][2], ab[1], as[1]);  // a1 (g+8, slot t)
+      split_tf32(p[j][1], ab[2], as[2]);  // a2 (g, slot t+4): key 2t+1
+      split_tf32(p[j][3], ab[3], as[3]);  // a3 (g+8, slot t+4)
+      const float* vr = vt + (8 * j + 2 * t) * P + g;  // key 8j + 2t, column g
+#pragma unroll
+      for (int n = 0; n < DMAX / 8; ++n) {
+        if (n * 8 >= d) continue;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(vr[n * 8], bb0, bs0);      // b0 (slot t, n g)
+        split_tf32(vr[n * 8 + P], bb1, bs1);  // b1 (slot t+4, n g)
+        mma_tf32(o[n], as[0], as[1], as[2], as[3], bb0, bb1);
+        mma_tf32(o[n], ab[0], ab[1], ab[2], ab[3], bs0, bs1);
+        mma_tf32(o[n], ab[0], ab[1], ab[2], ab[3], bb0, bb1);
+      }
+    }
+  }
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kFwdThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse, const FwdGeom geo) {
+  using S = FwdSmem<T, DMAX>;
+  constexpr int P = S::kPitch;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  T* qs = reinterpret_cast<T*>(fwd_smem);  // [64][P]
+  T* ks = qs + S::kTileElems;              // 2 stages of [64][P]
+  T* vs = ks + 2 * S::kTileElems;          // 2 stages of [64][P]
+
+  const int d = geo.d, tq = geo.tq, tk = geo.tk, causal = geo.causal;
+  const int bh = blockIdx.x, b = bh / geo.h, h = bh % geo.h;
+  // causal: the last query tiles have the most live keys; launch them first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kFwdRows;
+  const T* qb = q + b * geo.qs[0] + h * geo.qs[2];
+  const T* kb = k + b * geo.ks[0] + h * geo.ks[2];
+  const T* vb = v + b * geo.vs[0] + h * geo.vs[2];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w0 = q0 + warp * 16;                     // the warp's first row
+  const int rows[2] = {w0 + g, w0 + g + 8};          // this thread's two rows
+  const bool warp_live = w0 < tq;                    // every warp still syncs
+  const T* qw = qs + warp * 16 * P;
+
+  // zero the head-dim padding of all five tiles once; copies never touch it
+  if (d < DMAX) {
+    const int pad = DMAX - d;
+    for (int i = threadIdx.x; i < 5 * kFwdKeys * pad; i += kFwdThreads)
+      qs[(i / pad) * P + d + i % pad] = from_f<T>(0.f);
+  }
+  int tiles = (tk + kFwdKeys - 1) / kFwdKeys;
+  if (causal) tiles = min(tiles, qt + 1);  // past the diagonal: all dead
+  stage_tile<T, P>(qs, qb, geo.qs[1], q0, tq, d, geo.vec);
+  stage_tile<T, P>(ks, kb, geo.ks[1], 0, tk, d, geo.vec);
+  stage_tile<T, P>(vs, vb, geo.vs[1], 0, tk, d, geo.vec);
+  cp_async_commit();
+
+  QFrags<T, DMAX> qf;
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's share
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kFwdKeys, cur = (it & 1) * S::kTileElems;
+    if (it + 1 < tiles) {  // the next tile into the other stage
+      const int nxt = S::kTileElems - cur;
+      stage_tile<T, P>(ks + nxt, kb, geo.ks[1], k0 + kFwdKeys, tk, d, geo.vec);
+      stage_tile<T, P>(vs + nxt, vb, geo.vs[1], k0 + kFwdKeys, tk, d, geo.vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (warp_live) {
+      if constexpr (kQInRegs<T, DMAX>) {
+        if (it == 0) {
+#pragma unroll
+          for (int ks_ = 0; ks_ < DMAX / Mma<T>::kDepth; ++ks_)
+            q_frag<T, DMAX>(qf.a[ks_], qw, ks_, g, t, geo.scale);
+        }
+      }
+      float s[kNt][4];
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      qk_product<T, DMAX>(s, qf, qw, ks + cur, d, g, t, geo.scale);
+
+      // dead scores (key past tk, or past the query) to -inf; a tile whose
+      // keys all precede the warp's first row and tk is all live
+      const bool full = k0 + kFwdKeys <= tk && (!causal || k0 + kFwdKeys - 1 <= w0);
+      if (!full) {
+#pragma unroll
+        for (int n = 0; n < kNt; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + n * 8 + 2 * t + (e & 1);
+            if (key >= tk || (causal && key > rows[e >> 1])) s[n][e] = -INFINITY;
+          }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        // exp(-inf - -inf) guard: a row with no live score yet keeps m = -inf
+        const float alpha = (m[r] == -INFINITY) ? 1.f : __expf(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha;
+#pragma unroll
+        for (int n = 0; n < DMAX / 8; ++n) {
+          acc[n][2 * r] *= alpha;
+          acc[n][2 * r + 1] *= alpha;
+        }
+      }
+      // p = exp(s - m); a dead score gives exp(-inf) = 0, and while a row
+      // has no live score (m = -inf) it is taken against 0 instead
+      const float mref[2] = {m[0] == -INFINITY ? 0.f : m[0], m[1] == -INFINITY ? 0.f : m[1]};
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = __expf(s[n][e] - mref[e >> 1]);
+          s[n][e] = p;
+          l[e >> 1] += p;
+        }
+      pv_product<T, DMAX>(acc, s, vs + cur, d, g, t);
+    }
+    __syncthreads();  // the stage just read is the next iteration's target
+  }
+
+  if (!warp_live) return;
+  const long long o_row = (long long)geo.h * d;  // O is contiguous [B, T, H, D]
+  T* ob = o + (long long)b * tq * o_row + (long long)h * d;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rows[r];
+    if (row >= tq) continue;
+    const float lsafe = fmaxf(l[r], 1e-30f);
+    T* orow = ob + row * o_row;
+#pragma unroll
+    for (int n = 0; n < DMAX / 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (c < d) orow[c] = from_f<T>(acc[n][2 * r] / lsafe);
+      if (c + 1 < d) orow[c + 1] = from_f<T>(acc[n][2 * r + 1] / lsafe);
+    }
+    if (t == 0) lse[(long long)bh * tq + row] = m[r] + logf(lsafe);
+  }
 }
 
 // ------------------------------------------------------------ backward dQ
@@ -309,20 +707,22 @@ struct Args {
   void *out0, *out1;
   int bh, tq, tk, d, causal;
   float scale;
+  FwdGeom geo;  // the forward's strides, heads and copy width
 };
 
 template <typename T, int DMAX>
 int fwd(const Args& a, cudaStream_t st) {
-  const size_t smem = 2 * kTile * DMAX * sizeof(float);
+  const size_t smem = FwdSmem<T, DMAX>::kBytes;
   auto kernel = flash_fwd_kernel<T, DMAX>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.bh, (a.tq + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, st>>>(
+  const int qtiles = (a.tq + kFwdRows - 1) / kFwdRows;
+  if (qtiles > 65535) return kErrGrid;
+  const dim3 grid(a.bh, qtiles);
+  kernel<<<grid, kFwdThreads, smem, st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.tq, a.tk, a.d, a.scale,
-      a.causal);
+      static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.geo);
   return (int)cudaGetLastError();
 }
 
@@ -389,17 +789,32 @@ struct BwdDkv {
 
 }  // namespace
 
+// q, k, v: [B, T, H, D] views, each with its own (batch, token, head)
+// strides in elements and a D stride of 1; o: contiguous [B, Tq, H, D];
+// lse: [B*H, Tq] float32.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                         int bh, int tq, int tk, int d, float scale, int causal, int bf16,
-                         void* stream) {
-  Args a{q, k, v, nullptr, nullptr, nullptr, o, lse, bh, tq, tk, d, causal, scale};
+                         int b, int h, int tq, int tk, int d, long long q_sb, long long q_st,
+                         long long q_sh, long long k_sb, long long k_st, long long k_sh,
+                         long long v_sb, long long v_st, long long v_sh, float scale,
+                         int causal, int bf16, void* stream) {
+  FwdGeom geo{{q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
+              h, tq, tk, d, causal, 0, scale};
+  // the widest copy (16, 8 or 4 bytes) that every row address and the row
+  // length allow; 2 means element copies
+  const unsigned long long es = bf16 ? 2 : 4;
+  unsigned long long align = (unsigned long long)d * es | (uintptr_t)q | (uintptr_t)k |
+                             (uintptr_t)v;
+  const long long strides[9] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh};
+  for (long long s : strides) align |= (unsigned long long)s * es;
+  geo.vec = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : align % 4 == 0 ? 4 : 2;
+  Args a{q, k, v, nullptr, nullptr, nullptr, o, lse, b * h, tq, tk, d, causal, scale, geo};
   return dispatch<Fwd>(a, bf16, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int bh, int tq,
                             int tk, int d, float scale, int causal, int bf16, void* stream) {
-  Args a{q, k, v, dout, lse, delta, dq, nullptr, bh, tq, tk, d, causal, scale};
+  Args a{q, k, v, dout, lse, delta, dq, nullptr, bh, tq, tk, d, causal, scale, {}};
   return dispatch<BwdDq>(a, bf16, static_cast<cudaStream_t>(stream));
 }
 
@@ -407,11 +822,12 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              const void* lse, const void* delta, void* dk, void* dv, int bh,
                              int tq, int tk, int d, float scale, int causal, int bf16,
                              void* stream) {
-  Args a{q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, causal, scale};
+  Args a{q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, causal, scale, {}};
   return dispatch<BwdDkv>(a, bf16, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_error_string(int code) {
   if (code == kErrHeadDim) return "head dim must be between 1 and 128";
+  if (code == kErrGrid) return "more than 65535 query tiles of 64 rows";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -18,8 +18,12 @@ Layouts are the JAX package's: q, k, v, O and their gradients are
 [B, T, H, D]; lse and delta are [B*H, T] float32 (float64 for float64
 inputs, which only the plain versions take). Scores are
 ``(q * scale) . k^T`` with ``scale = 1 / sqrt(D)``; ``causal`` masks keys
-after the query. The kernels take float32 or bfloat16 and compute in
-float32 without TF32.
+after the query. The kernels take float32 or bfloat16. The forward runs
+on the tensor cores (bf16 MMAs with P split into two bf16 terms; 3xTF32
+for float32, which keeps the float32 contract) and reads q, k and v
+through their own strides, so the views a qkv projection is cut into go
+to the kernel uncopied; it writes O contiguous. The backward kernels
+compute in float32 FMA on contiguous copies.
 """
 
 from __future__ import annotations
@@ -176,9 +180,11 @@ def _check(q, k, v, do=None, lse=None, delta=None):
 
 def signatures(lib):
     """Declare the C interface of a loaded flash_attention library."""
-    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     shape = [i, i, i, i, f, i, i, vp]  # bh, tq, tk, d, scale, causal, bf16, stream
-    lib.flash_fwd.argtypes = [vp] * 5 + shape
+    # q, k, v, o, lse; b, h, tq, tk, d; (batch, token, head) strides of q, k, v;
+    # scale, causal, bf16, stream
+    lib.flash_fwd.argtypes = [vp] * 5 + [i] * 5 + [ll] * 9 + [f, i, i, vp]
     lib.flash_bwd_dq.argtypes = [vp] * 7 + shape
     lib.flash_bwd_dkv.argtypes = [vp] * 8 + shape
     for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
@@ -194,20 +200,23 @@ def _library():
     return signatures(_build.load("flash_attention"))
 
 
-def _launch(name: str, q, k, tensors, causal: bool):
-    """Call the C entry point ``name`` on the data pointers of ``tensors``
-    with q's and k's geometry, on the current stream of q's device; count
-    the launch; raise on a non-zero return code."""
+def _call(name: str, device, *args):
+    """Call the C entry point ``name`` with ``args`` and the current stream
+    of ``device``; count the launch; raise on a non-zero return code."""
     lib = _library()
-    b, tq, h, d = q.shape
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, name)(*(t.data_ptr() for t in tensors), b * h, tq, k.shape[1], d,
-                                1.0 / math.sqrt(d), int(causal),
-                                int(q.dtype == torch.bfloat16), stream)
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} failed: " + lib.flash_error_string(rc).decode())
     launches[name] += 1
+
+
+def _launch(name: str, q, k, tensors, causal: bool):
+    """A backward kernel on the data pointers of ``tensors``, with q's and
+    k's geometry."""
+    b, tq, h, d = q.shape
+    _call(name, q.device, *(t.data_ptr() for t in tensors), b * h, tq, k.shape[1], d,
+          1.0 / math.sqrt(d), int(causal), int(q.dtype == torch.bfloat16))
 
 
 def _rows(t):
@@ -215,17 +224,32 @@ def _rows(t):
     return t.to(torch.float32).contiguous()
 
 
+def fwd_operand(t):
+    """A [B, T, H, D] operand as the forward kernel reads it: the view
+    itself when its D stride is 1 (any batch, token and head strides), else
+    one contiguous copy."""
+    return t if t.stride(3) == 1 or t.shape[3] == 1 else t.contiguous()
+
+
+def fwd_strides(*operands):
+    """The (batch, token, head) strides, in elements, of each operand."""
+    return [s for t in operands for s in t.stride()[:3]]
+
+
 def flash_fwd(q, k, v, causal: bool = False):
-    """Forward: (O [B, T, H, D] in q's dtype, lse [B*H, T] float32)."""
+    """Forward: (O [B, T, H, D] in q's dtype, lse [B*H, T] float32). On the
+    card O is contiguous and q, k, v are read in place (``fwd_operand``)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal)
-    b, tq, h, _ = q.shape
-    qr, kr, vr = (_heads_first(t).contiguous() for t in (q, k, v))
-    o = torch.empty_like(qr)
+    b, tq, h, d = q.shape
+    q, k, v = (fwd_operand(t) for t in (q, k, v))
+    o = torch.empty(b, tq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b * h, tq, dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q, k, (qr, kr, vr, o, lse), causal)
-    return _heads_last(o, b, h), lse
+    _call("flash_fwd", q.device, *(t.data_ptr() for t in (q, k, v, o, lse)),
+          b, h, tq, k.shape[1], d, *fwd_strides(q, k, v), 1.0 / math.sqrt(d), int(causal),
+          int(q.dtype == torch.bfloat16))
+    return o, lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):

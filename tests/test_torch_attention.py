@@ -124,6 +124,41 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         attention.flash_bwd_dkv(q, k, v, o, lse[:, :2], delta)
 
 
+def test_forward_reads_split_views_in_place_and_copies_a_strided_head_dim():
+    """The forward kernel takes the q, k, v views the model cuts from one
+    [B, T, 3H, D] projection as they are (their pointers and batch, token and
+    head strides go to the kernel); a view whose D stride is not 1 is copied
+    once."""
+    b, t, h, d = 2, 5, 3, 4
+    qkv = torch.from_numpy(np.random.RandomState(0).normal(size=(b, t, 3 * h, d)))
+    views = qkv.split(h, dim=2)
+    for i, view in enumerate(views):
+        got = attention.fwd_operand(view)
+        assert got is view
+        assert got.data_ptr() == qkv.data_ptr() + i * h * d * qkv.element_size()
+    assert attention.fwd_strides(*views) == [t * 3 * h * d, 3 * h * d, d] * 3
+    heads_outer = qkv[:, :, :h].transpose(1, 2).contiguous().transpose(1, 2)
+    assert attention.fwd_operand(heads_outer) is heads_outer  # D stride 1: any order
+    assert attention.fwd_strides(heads_outer) == [h * t * d, d, t * d]
+    strided = torch.zeros(b, t, h, 2 * d, dtype=torch.float64)[..., ::2]
+    assert strided.stride(3) == 2
+    copied = attention.fwd_operand(strided)
+    assert copied.is_contiguous() and copied.data_ptr() != strided.data_ptr()
+    assert torch.equal(copied, strided)
+    one = torch.zeros(b, t, h, 2)[..., :1]  # D = 1: its stride is never used
+    assert attention.fwd_operand(one) is one
+
+
+def test_forward_on_split_views_matches_contiguous_inputs():
+    q, k, v = map(torch.from_numpy, _qkv(2, 33, 3, 8, seed=11))
+    views = torch.cat((q, k, v), dim=2).split(3, dim=2)
+    for causal in (False, True):
+        o, lse = attention.flash_fwd(*views, causal)
+        want_o, want_lse = attention.flash_fwd(q, k, v, causal)
+        torch.testing.assert_close(o, want_o, rtol=0, atol=0)
+        torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
+
+
 def _chip_smoke():
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -146,6 +181,49 @@ def test_chip_smoke_attention_check_and_its_controls(monkeypatch, causal):
     q = torch.ones(3, 2)
     with pytest.raises(cs.Disagreement, match="1 elements outside"):
         cs.close("one off", q + torch.tensor([[0.0, 0.0]] * 2 + [[0.0, 1e-3]]), q, 2e-5, 2e-5)
+
+
+PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_PfNS_7FwdGeomE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_PfNS_7FwdGeomE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 140 registers, used 1 barriers, 472 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_PfNS_7FwdGeomE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_PfNS_7FwdGeomE
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 472 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi32EEEvPKT_S3_S3_S3_PKfS5_PS1_iiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi32EEEvPKT_S3_S3_S3_PKfS5_PS1_iiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 62 registers, used 1 barriers, 420 bytes cmem[0]
+"""
+
+
+def test_chip_smoke_reads_registers_and_spills_per_kernel():
+    cs = _chip_smoke()
+    kernels = cs.ptxas_kernels(PTXAS)
+    assert len(kernels) == 3
+    got = {cs.forward_label(name): x for name, x in kernels.items()}
+    assert got == {"flash_fwd_kernel<bfloat16, 64>": {"registers": 140, "spill_bytes": 0},
+                   "flash_fwd_kernel<float32, 128>": {"registers": 255, "spill_bytes": 28},
+                   None: {"registers": 62, "spill_bytes": 0}}
+
+
+def test_chip_smoke_split_view_check_and_its_control():
+    """chip_smoke's views are cut from one [B, T, 3H, D] tensor, hold the
+    same values, and its bitwise check rejects one flipped bit."""
+    cs = _chip_smoke()
+    q, k, v = map(torch.from_numpy, _qkv(2, 7, 3, 4, seed=2))
+    views = cs.qkv_views(q, k, v)
+    assert all(t.data_ptr() == views[0].data_ptr() + i * 3 * 4 * 4
+               for i, t in enumerate(views))
+    for got, want in zip(views, (q, k, v)):
+        cs.bitwise("view", got, want)
+    flipped = q.clone()
+    flipped.view(torch.int32).view(-1)[5] ^= 1
+    with pytest.raises(cs.Disagreement, match="not bitwise equal"):
+        cs.bitwise("flipped", flipped, q)
+    with pytest.raises(cs.Disagreement, match="not bitwise equal"):
+        cs.bitwise("dtype", q.to(torch.bfloat16), q.to(torch.bfloat16).half())
 
 
 def test_chip_smoke_attention_work_counts_live_pairs():
@@ -176,9 +254,18 @@ def test_cuda_kernels_match_plain_versions(dtype, causal):
     po, plse = attention.flash_fwd_reference(q, k, v, causal)
     torch.testing.assert_close(o.float(), po.float(), rtol=tol[0], atol=tol[1])
     torch.testing.assert_close(lse, plse, rtol=2e-5, atol=2e-5)
+    assert o.is_contiguous()
+    # the model's split views go to the kernel uncopied and give the same bits
+    so, slse = attention.flash_fwd(*torch.cat((q, k, v), dim=2).split(2, dim=2), causal)
+    torch.testing.assert_close(so, o, rtol=0, atol=0)
+    torch.testing.assert_close(slse, lse, rtol=0, atol=0)
+    # a view with a D stride of 2 is copied once, then runs the same
+    copied, _ = attention.flash_fwd(*(torch.cat((t, t), dim=-1)[..., ::2] for t in (q, k, v)),
+                                    causal)
+    torch.testing.assert_close(copied, o, rtol=0, atol=0)
     got = attention.flash_bwd(q, k, v, o, lse, do, causal)
     want = attention.flash_bwd_reference(q, k, v, o, lse, do, causal)
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=tol[2], atol=tol[2])
     assert {n: attention.launches[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd": 3, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
