@@ -25,15 +25,18 @@ Phases (any failure exits non-zero and prints no result line):
        40-byte bf16 rows, so the forward stages with 8-byte copies) and a
        wide odd one (2, 70, 2, 127: the D <= 128 instantiations, float32
        reloading Q's fragments per tile, bf16 rows of odd length copied
-       element by element), every element within ATTN_TOL; the forward
-       again on q, k, v cut from one [B, T, 3H, D] tensor as the model cuts
-       them, which must give the same bits; faulted results (O without the causal mask, dQ with one
-       key tile dropped, dK and dV swapped, O one bit off) must fail the
-       same checks; the forward on such views, under the profiler, must
-       run one kernel and no copy; at shapes (a) and (c) each kernel's
-       time, its plain version's, its bound and the time of PyTorch's
-       ``scaled_dot_product_attention`` forward or backward; the ptxas
-       report must show no spills in any forward instantiation;
+       element by element), every element within ATTN_TOL; the three
+       kernels again on q, k, v cut from one [B, T, 3H, D] tensor as the
+       model cuts them (dO contiguous), which must give the same bits;
+       faulted results (O without the causal mask, dQ with one key tile
+       dropped, dK and dV swapped, O and dK one bit off) must fail the same
+       checks; under the profiler, the forward on such views must run one
+       kernel and no copy, and the backward (``flash_bwd``) the delta op's
+       kernels, one dQ and one dK/dV kernel, and no layout copy; at shapes
+       (a) and (c) each kernel's time, its plain version's, its bound and
+       the time of PyTorch's ``scaled_dot_product_attention`` forward or
+       backward; the ptxas report must show no spill in any flash
+       instantiation with D <= 64 (a spill at D = 128 is printed);
   3. the main paths through the user's entry points:
      - FEMNIST: the surrogate (100 clients, a cut from the reference's 3400
        to keep the surrogate's host memory small; every client capped at
@@ -154,15 +157,57 @@ def ptxas_kernels(report: str) -> dict:
     return out
 
 
-def forward_label(mangled: str):
-    """``flash_fwd_kernel<float32, 64>`` for a forward instantiation's
-    mangled name, else None."""
+def flash_label(mangled: str):
+    """(``flash_bwd_dq_kernel<float32, 64>``, 64) for a flash-attention
+    instantiation's mangled name, else None."""
     import re
 
-    m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                  mangled)
     if m is None:
         return None
-    return f"flash_fwd_kernel<{'float32' if m.group(1) == 'f' else 'bfloat16'}, {m.group(2)}>"
+    dtype = "float32" if m.group(2) == "f" else "bfloat16"
+    return f"{m.group(1)}<{dtype}, {m.group(3)}>", int(m.group(3))
+
+
+def check_spills(kernels: dict) -> list:
+    """One line per flash instantiation of a ``ptxas_kernels`` report: its
+    registers and bytes of spill. Raises RuntimeError on a spill at
+    D <= 64; a spill at D = 128 is only marked."""
+    lines, spills = [], []
+    for name, x in sorted(kernels.items()):
+        found = flash_label(name)
+        if found is None:
+            continue
+        label, dmax = found
+        mark = " (SPILL)" if x["spill_bytes"] else ""
+        lines.append(f"{label}: {x['registers']} registers, {x['spill_bytes']} bytes of "
+                     f"spill{mark}")
+        if x["spill_bytes"] and dmax <= 64:
+            spills.append(f"{label} spills {x['spill_bytes']} bytes")
+    if spills:
+        raise RuntimeError("; ".join(spills))
+    return lines
+
+
+def device_kernels(fn) -> list:
+    """The names of the kernels that ``fn()`` runs on the card, from
+    torch.profiler (after one untraced call; a trace with no device event
+    at all is retried)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def check_one_launch(device) -> list:
@@ -174,20 +219,40 @@ def check_one_launch(device) -> list:
     from fedml_tpu_torch.ops import attention as A
 
     q, k, v = qkv_views(*attention_inputs(ATTN_SHAPES["a"], torch.float32, device)[:3])
-    A.flash_fwd(q, k, v, True)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # a trace with no device event at all is retried
-        with torch.profiler.profile(activities=acts) as prof:
-            A.flash_fwd(q, k, v, True)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
+    names = device_kernels(lambda: A.flash_fwd(q, k, v, True))
     if len(names) != 1 or "flash_fwd_kernel" not in names[0]:
         raise RuntimeError(f"flash_fwd on split views ran {names} on the card, not one "
                            f"flash_fwd_kernel")
+    return names
+
+
+def backward_kernels_ok(names: list, delta_names: list) -> bool:
+    """``names`` (a backward's kernels) are the delta op's kernels
+    ``delta_names``, one flash_bwd_dq_kernel and one flash_bwd_dkv_kernel,
+    in any order, and nothing else: no layout copy."""
+    flash = sorted("dkv" if "flash_bwd_dkv_kernel" in n else "dq"
+                   for n in names if "flash_bwd_" in n)
+    rest = sorted(n for n in names if "flash_bwd_" not in n)
+    return flash == ["dkv", "dq"] and rest == sorted(delta_names)
+
+
+def check_backward_launches(device) -> list:
+    """``flash_bwd`` on the model's split q, k, v views (dO contiguous)
+    runs the delta op's kernels, one dQ and one dK/dV kernel on the card,
+    and no layout copy of q, k, v or dO (torch.profiler). Returns the
+    device events' names."""
+    import torch
+
+    from fedml_tpu_torch.ops import attention as A
+
+    q, k, v, do = attention_inputs(ATTN_SHAPES["a"], torch.float32, device)
+    views = qkv_views(q, k, v)
+    o, lse = A.flash_fwd(*views, True)
+    delta_names = device_kernels(lambda: A.attention_delta(o, do))
+    names = device_kernels(lambda: A.flash_bwd(*views, o, lse, do, True))
+    if not backward_kernels_ok(names, delta_names):
+        raise RuntimeError(f"flash_bwd on split views ran {names} on the card, not the delta "
+                           f"op's {delta_names} and one kernel each of dQ and dK/dV")
     return names
 
 
@@ -452,10 +517,13 @@ def check_attention_case(dtype_name, device, key, causal):
     tag = f"flash[{dtype_name}] {key}={shape} causal={causal}"
     o, lse = A.flash_fwd(q, k, v, causal)
     po, plse = A.flash_fwd_reference(q, k, v, causal)
-    so, slse = A.flash_fwd(*qkv_views(q, k, v), causal)
+    views = qkv_views(q, k, v)
+    so, slse = A.flash_fwd(*views, causal)
     delta = A.attention_delta(o, do)
     dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = A.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    split_grads = (A.flash_bwd_dq(*views, do, lse, delta, causal),
+                   *A.flash_bwd_dkv(*views, do, lse, delta, causal))
     pdq = A.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
     pdk, pdv = A.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
     torch.cuda.synchronize()
@@ -466,6 +534,8 @@ def check_attention_case(dtype_name, device, key, causal):
          "dv": close(f"{tag} dV", dv, pdv, *tol["grad"])}
     bitwise(f"{tag} O from split views", so, o)
     bitwise(f"{tag} lse from split views", slse, lse)
+    for name, got, want in zip(("dQ", "dK", "dV"), split_grads, (dq, dk, dv)):
+        bitwise(f"{tag} {name} from split views", got, want)
     # faulted results: O without the causal mask, dQ with the last key tile
     # dropped (its keys zeroed: their ds . k terms vanish, nothing else
     # moves), dK and dV swapped
@@ -484,11 +554,17 @@ def check_attention_case(dtype_name, device, key, causal):
     one_bit.view(-1)[-1] ^= 1
     must_fail(f"{tag} O from split views one bit off",
               lambda: bitwise("control", one_bit.view(o.dtype), o))
+    one_bit_dk = bits(split_grads[1]).clone()
+    one_bit_dk.view(-1)[0] ^= 1
+    must_fail(f"{tag} dK from split views one bit off",
+              lambda: bitwise("control", one_bit_dk.view(dk.dtype), dk))
     log(f"{tag}: max diff O {r['o']['max_abs']:.3e}, lse {r['lse']['max_abs']:.3e}, "
         f"dQ {r['dq']['max_abs']:.3e}, dK {r['dk']['max_abs']:.3e}, "
         f"dV {r['dv']['max_abs']:.3e}; largest share of the allowance "
         f"{max(x['share'] for x in r.values()):.3f} (O {r['o']['share']:.3f}, lse "
-        f"{r['lse']['share']:.3f}); split views bitwise equal; controls rejected")
+        f"{r['lse']['share']:.3f}, dQ {r['dq']['share']:.3f}, dK {r['dk']['share']:.3f}, "
+        f"dV {r['dv']['share']:.3f}); split views bitwise equal, forward and backward; "
+        f"controls rejected")
     errs = {"flash_fwd": max(r["o"]["max_abs"], r["lse"]["max_abs"]),
             "flash_bwd_dq": r["dq"]["max_abs"],
             "flash_bwd_dkv": max(r["dk"]["max_abs"], r["dv"]["max_abs"])}
@@ -666,13 +742,8 @@ def main(argv=None) -> int:
         log(f"  ptxas {name}: {len(kernels)} kernels, max "
             f"{max((x['registers'] for x in kernels.values()), default=0)} registers/thread, "
             f"{sum(x['spill_bytes'] for x in kernels.values())} bytes of spill")
-        for kname, x in sorted(kernels.items()):
-            label = forward_label(kname)
-            if label is None:
-                continue
-            log(f"    {label}: {x['registers']} registers, {x['spill_bytes']} bytes of spill")
-            if x["spill_bytes"]:
-                raise RuntimeError(f"{label} spills {x['spill_bytes']} bytes")
+        for line in check_spills(kernels):
+            log(f"    {line}")
 
     # ---- phase 2: kernels vs plain versions, TF32 off for the plain float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -688,6 +759,7 @@ def main(argv=None) -> int:
     numbers = {d: check_fused_epoch(d, dev) for d in ("float32", "bfloat16")}
     attn = {d: check_attention(d, dev) for d in ("float32", "bfloat16")}
     log(f"flash_fwd on split views under the profiler: {check_one_launch(dev)}")
+    log(f"flash_bwd on split views under the profiler: {check_backward_launches(dev)}")
 
     # ---- phase 3: the main path through FedAvgAPI
     from fedml_tpu_torch import load_dataset

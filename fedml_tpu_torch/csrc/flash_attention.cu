@@ -1,5 +1,5 @@
 // Flash attention for Hopper (sm_90a): the forward and both blocked
-// backward kernels.
+// backward kernels, all on the tensor cores.
 //
 // Replaces the TPU kernels of fedml_tpu/ops/attention.py:
 //   flash_fwd_kernel     <- _flash_fwd_kernel     (pallas_call in _flash_fwd, :142)
@@ -26,12 +26,12 @@
 // T = 20 a (b, h) pair is ~27 kFLOP against ~10 KB: bound by bytes on
 // paper, and in practice by the launch, a few microseconds.
 //
-// The forward (tensor cores). A block of 128 threads (4 warps) owns 64
-// query rows of one (b, h), 16 rows a warp; the grid is (B*H, query tiles),
-// and in causal mode the tiles with the most live keys are launched first.
-// K and V stream through shared memory in 64-key tiles in the input type,
-// two stages deep with cp.async: 16-byte copies where every row address
-// and the row length allow it, else 8 or 4 bytes, else (bf16 rows of odd
+// The forward. A block of 128 threads (4 warps) owns 64 query rows of one
+// (b, h), 16 rows a warp; the grid is (B*H, query tiles), and in causal
+// mode the tiles with the most live keys are launched first. K and V
+// stream through shared memory in 64-key tiles in the input type, two
+// stages deep with cp.async: 16-byte copies where every row address and
+// the row length allow it, else 8 or 4 bytes, else (bf16 rows of odd
 // length or address) element copies; rows past T are zero-filled (source
 // size 0) and the head dim is zero-padded to the instantiation's width.
 // Rows are padded by 16 bytes, so the fragment loads hit 32 distinct banks.
@@ -56,37 +56,56 @@
 // float32 up to D = 64; else they are reloaded from shared memory per
 // tile). O = acc / max(l, 1e-30) is rounded once.
 //
-// The backward kernels (simple and right first): one block per (b*h,
-// 64-row tile) with 256 threads, 4 threads per row, each holding every 4th
-// column of the row's head-dim vectors in registers (D <= 128); the other
-// operand streams through shared memory in 64-row tiles (K and V for dq,
-// Q and dO for dkv); a dot product is 4 partial sums joined by two warp
-// shuffles; float32 FMA with float32 accumulation (bf16 widened on load),
-// no TF32. Causal tiles past the diagonal are skipped, and a ragged tail
-// (T not a multiple of 64) is masked inside the one tile shape.
+// The backward kernels are the same two products with the roles of the
+// operands swapped, on the same block, tiles, copies, padding and routes:
+//   - dQ: a block owns 64 query rows and streams K and V tiles (the grid
+//     order and the causal tile count are the forward's). Per tile a warp
+//     takes S = qk_product(Q, K tile, scale), dP = qk_product(dO, V tile,
+//     1), P = exp(S - lse) with its rows' lse and delta in registers (no
+//     online softmax), dS = P * (dP - delta), and dQ += pv_product(dS,
+//     K tile): dS's C fragments are the A fragments, as P's are in the
+//     forward. dQ is scaled once at the end.
+//   - dK/dV: a block owns 64 key rows and streams Q and dO tiles with
+//     their lse and delta entries (4-byte cp.async beside them). Per tile
+//     S^T = qk_product(K, Q tile, scale), P^T = exp(S^T - lse[column]),
+//     dV += pv_product(P^T, dO tile), dP^T = qk_product(V, dO tile, 1),
+//     dS^T = P^T * (dP^T - delta[column]), dK += pv_product(dS^T, Q tile);
+//     dK is scaled once at the end. In causal mode a key tile starts at
+//     its diagonal query tile, so key tile 0, launched first, has the most
+//     work.
+// Where the score and dP fragments would not fit in registers beside the
+// accumulators (float32 dK/dV, and D = 128 in float32 dQ or bf16 dK/dV) a
+// streamed tile is taken in two parts of 32 rows.
+// bf16 P and dS are both split hi/lo (one bf16 term of P misses the bf16
+// contract in dV, one of dS in dQ and dK); float32 is 3xTF32 throughout.
+// The owned operands' A fragments (Q and dO, or K and V) stay in registers
+// where a row of them is at most 128 bytes (bf16 D <= 64; float32 D <= 32
+// in dQ only, since beside dK/dV's two accumulators they spilled), else
+// they are reloaded from shared memory per tile. Every dead pair
+// (query past tq, key past tk, key after the query) is set to p = 0
+// explicitly: a zero-filled row with its lse read as 0 would give exp(0).
 //
-// Layout. The forward reads q, k and v as [B, T, H, D] views with their
-// own batch, token and head strides (in elements; the D stride is 1), so
-// the three views that a qkv projection is cut into need no copy, and
-// writes O as a contiguous [B, T, H, D] tensor. The backward kernels take
-// contiguous [B*H, T, D] q, k, v, dO and write dQ, dK, dV so. lse and delta
-// are [B*H, T] float32.
+// Layout. All three kernels read q, k, v (and dO) as [B, T, H, D] views
+// with their own batch, token and head strides (in elements; the D stride
+// is 1), so the three views that a qkv projection is cut into need no copy,
+// and write O, dQ, dK and dV as contiguous [B, T, H, D] tensors. lse and
+// delta are [B*H, T] float32.
 //
 // C interface (ctypes): flash_fwd, flash_bwd_dq, flash_bwd_dkv (each
 // returns the first CUDA error of its launch, 0 on success, or a negative
-// code for a shape it rejects) and flash_error_string. flash_fwd takes each
-// view's three strides as 64-bit ints after the shape (b, h, tq, tk, d).
+// code for a shape it rejects) and flash_error_string. Each takes the
+// views' three strides as 64-bit ints after the shape (b, h, tq, tk, d).
 //
 // Checks. chip_smoke.py holds every kernel against its plain PyTorch
 // version (ops/attention.py) at (B, T, H, D) = (16, 20, 4, 32), (2, 333, 2,
 // 64), (8, 2048, 4, 32), (2, 100, 3, 20) and (2, 70, 2, 127). (2, 100, 3,
 // 20) has a ragged T, a D that is no multiple of 8 and 40-byte bf16 rows,
-// so the forward stages it with 8-byte copies; (2, 70, 2, 127) runs the
-// D <= 128 instantiations, float32 reloading Q's fragments per tile and
-// bf16 rows copied element by element. It runs the forward on q, k, v cut
-// from one [B, T, 3H, D] tensor too, which must give the same bits. On the CPU,
-// tests/test_torch_flash_numerics.py emulates the forward's rounding points
-// (the bf16 hi/lo split, 3xTF32 with cvt.rna) against the same tolerance.
+// so its tiles are staged with 8-byte copies; (2, 70, 2, 127) runs the
+// D <= 128 instantiations, reloading fragments per tile and copying bf16
+// rows element by element. It runs all three kernels on q, k, v cut from
+// one [B, T, 3H, D] tensor too, which must give the same bits. On the CPU,
+// tests/test_torch_flash_numerics.py emulates the kernels' rounding points
+// (the bf16 hi/lo splits, 3xTF32 with cvt.rna) against the same tolerance.
 
 #include <cmath>
 #include <cstddef>
@@ -97,16 +116,14 @@
 
 namespace {
 
-constexpr int kRows = 64;   // rows a block owns: queries (fwd, dq) or keys (dkv)
-constexpr int kTile = 64;   // rows of the streamed operand per shared-memory tile
-constexpr int kLanes = 4;   // threads per owned row
-constexpr int kThreads = kRows * kLanes;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // rows a block owns, 16 a warp: queries, or keys (dkv)
+constexpr int kTile = 64;           // rows of the streamed operand per shared-memory tile
+constexpr int kNt = kTile / 8;      // 8-column n-tiles of a warp's score tile
 constexpr int kErrHeadDim = -1;
 constexpr int kErrGrid = -2;
-static_assert(kRows == kTile, "the causal tile skipping assumes equal tiles");
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+static_assert(kRows == kTile, "the causal tile counts assume equal tiles");
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -116,67 +133,6 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
-
-// Sum over the kLanes adjacent threads that share a row.
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
-
-// This thread's columns (lane, lane + 4, ...) of row `row` of a [rows, d]
-// matrix, times `mul`; rows and columns out of range read 0.
-template <typename T, int DS>
-__device__ __forceinline__ void load_row(float (&dst)[DS], const T* src, int row,
-                                         int rows, int d, int lane, float mul) {
-#pragma unroll
-  for (int j = 0; j < DS; ++j) {
-    const int c = lane + kLanes * j;
-    dst[j] = (row < rows && c < d) ? to_f(src[(size_t)row * d + c]) * mul : 0.f;
-  }
-}
-
-template <typename T, int DS>
-__device__ __forceinline__ void store_row(T* dst, const float (&src)[DS], int row,
-                                          int rows, int d, int lane, float mul) {
-  if (row >= rows) return;
-#pragma unroll
-  for (int j = 0; j < DS; ++j) {
-    const int c = lane + kLanes * j;
-    if (c < d) dst[(size_t)row * d + c] = from_f<T>(src[j] * mul);
-  }
-}
-
-// Rows [r0, r0 + kTile) of a [rows, d] matrix, times `mul`, into a
-// [kTile][DMAX] float tile; rows and columns out of range read 0.
-template <typename T, int DMAX>
-__device__ __forceinline__ void stage(float* tile, const T* src, int r0, int rows,
-                                      int d, float mul) {
-  for (int i = threadIdx.x; i < kTile * DMAX; i += kThreads) {
-    const int r = i / DMAX, c = i % DMAX;
-    tile[i] = (r0 + r < rows && c < d) ? to_f(src[(size_t)(r0 + r) * d + c]) * mul : 0.f;
-  }
-}
-
-// Partial dot product of this thread's columns with row j of a tile.
-template <int DS, int DMAX>
-__device__ __forceinline__ float partial_dot(const float (&x)[DS], const float* tile,
-                                             int j, int lane) {
-  const float* r = tile + j * DMAX + lane;
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < DS; ++c) acc = fmaf(x[c], r[c * kLanes], acc);
-  return acc;
-}
-
-// ---------------------------------------------------------------- forward
-
-constexpr int kFwdWarps = 4;
-constexpr int kFwdThreads = 32 * kFwdWarps;
-constexpr int kFwdRows = 16 * kFwdWarps;  // query rows a block owns, 16 a warp
-constexpr int kFwdKeys = 64;              // keys per shared-memory tile
-constexpr int kNt = kFwdKeys / 8;         // 8-key n-tiles of a warp's score tile
-static_assert(kFwdRows == kFwdKeys, "the causal tile count assumes equal tiles");
 
 // The MMA depth (the head-dim step of one S = Q.K^T product) and the row
 // padding that keeps the fragment loads free of bank conflicts (a pitch of
@@ -194,22 +150,38 @@ struct Mma<__nv_bfloat16> {
   static constexpr int kPad = 8;
 };
 
-// Q's fragments stay in registers for bf16 and for float32 up to D = 64.
+// The forward's Q fragments stay in registers for bf16 and for float32 up
+// to D = 64.
 template <typename T, int DMAX>
 constexpr bool kQInRegs = sizeof(T) == 2 || DMAX <= 64;
 
+// The backward kernels hold two operands' fragments beside ACCS
+// accumulators: in registers where a row of them is at most 128 bytes, and
+// beside dK/dV's two accumulators only in bf16 (float32 fragments take 8
+// registers a k-step; at D = 32 they made dK/dV spill).
+template <typename T, int DMAX, int ACCS>
+constexpr bool kBwdInRegs = DMAX * sizeof(T) <= 128 && (ACCS == 1 || sizeof(T) == 2);
+
+// The n-tiles of a streamed tile that a backward warp takes at once: all 8,
+// or two parts of 4 where the score and dP fragments would not fit beside
+// the accumulators (float32 dK/dV, and D = 128 in float32 dQ or bf16 dK/dV).
+template <typename T, int DMAX, int ACCS>
+constexpr int kBwdNt =
+    (sizeof(T) == 4 && (ACCS == 2 || DMAX > 64)) || (ACCS == 2 && DMAX > 64) ? kNt / 2 : kNt;
+
 template <typename T, int DMAX>
-struct FwdSmem {
-  static constexpr int kPitch = DMAX + Mma<T>::kPad;    // elements per tile row
-  static constexpr int kTileElems = kFwdKeys * kPitch;  // a Q, K or V tile
-  static constexpr size_t kBytes = 5 * kTileElems * sizeof(T);  // Q, 2 K, 2 V
+struct Smem {
+  static constexpr int kPitch = DMAX + Mma<T>::kPad;  // elements per tile row
+  static constexpr int kTileElems = kTile * kPitch;   // one [64][kPitch] tile
+  static constexpr size_t kTileBytes = kTileElems * sizeof(T);
   static_assert(kPitch * sizeof(T) % 16 == 0, "rows must stay 16-byte aligned");
 };
 
-// Geometry of one forward call: strides in elements of the [B, T, H, D]
-// views (batch, token, head), and the width of the staging copies.
-struct FwdGeom {
-  long long qs[3], ks[3], vs[3];
+// Geometry of one call: strides in elements of the [B, T, H, D] views
+// (batch, token, head) of q, k, v and dO (unused by the forward), and the
+// width of the staging copies.
+struct Geom {
+  long long qs[3], ks[3], vs[3], ds[3];
   int h, tq, tk, d, causal, vec;
   float scale;
 };
@@ -296,14 +268,14 @@ template <typename T, int P>
 __device__ __forceinline__ void stage_tile(T* dst, const T* src, long long stride, int r0,
                                            int rows, int d, int vec) {
   if (vec == 2) {
-    for (int i = threadIdx.x; i < kFwdKeys * d; i += kFwdThreads) {
+    for (int i = threadIdx.x; i < kTile * d; i += kThreads) {
       const int r = i / d, c = i - r * d;
       dst[r * P + c] = r0 + r < rows ? src[(r0 + r) * stride + c] : from_f<T>(0.f);
     }
     return;
   }
   const int chunks = d * (int)sizeof(T) / vec;
-  for (int i = threadIdx.x; i < kFwdKeys * chunks; i += kFwdThreads) {
+  for (int i = threadIdx.x; i < kTile * chunks; i += kThreads) {
     const int r = i / chunks, c = i - r * chunks;
     const bool live = r0 + r < rows;
     const char* s = live ? reinterpret_cast<const char*>(src + (r0 + r) * stride) + c * vec
@@ -312,15 +284,25 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* src, long long strid
   }
 }
 
-// Registers of one A fragment of Q (one k-step of this warp's 16 rows):
-// bf16 4 (pairs), float32 8 (4 big then 4 small TF32 halves of q * scale).
+// Entries [r0, r0 + 64) of a float32 row (lse or delta) into shared
+// memory, 4-byte cp.async; entries past `rows` read 0.
+__device__ __forceinline__ void stage_row(float* dst, const float* src, int r0, int rows) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    const bool live = r0 + i < rows;
+    cp_async(dst + i, live ? src + r0 + i : src, 4, live ? 4 : 0);
+  }
+}
+
+// Registers of one A fragment of an owned operand (one k-step of this
+// warp's 16 rows): bf16 4 (pairs), float32 8 (4 big then 4 small TF32
+// halves of x * scale).
 template <typename T>
 constexpr int kQRegs = sizeof(T) == 2 ? 4 : 8;
 
 template <typename T, int DMAX>
 __device__ __forceinline__ void q_frag(uint32_t (&a)[kQRegs<T>], const T* qw, int ks, int g,
                                        int t, float scale) {
-  constexpr int P = FwdSmem<T, DMAX>::kPitch;
+  constexpr int P = Smem<T, DMAX>::kPitch;
   if constexpr (sizeof(T) == 2) {
     // a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
     const T* p = qw + g * P + ks * 16 + 2 * t;
@@ -344,26 +326,37 @@ struct QFrags {
 template <typename T, int DMAX>
 struct QFrags<T, DMAX, false> {};  // reloaded from shared memory per tile
 
-// s = (q * scale) . k^T for this warp's 16 rows and the tile's 64 keys, as
-// 8 n-tiles of C fragments: s[n][0..1] row g, keys 8n + 2t..2t+1;
-// s[n][2..3] row g + 8. Head-dim steps past d (all zero) are skipped.
+// All k-steps of an owned operand's fragments into registers.
 template <typename T, int DMAX>
-__device__ __forceinline__ void qk_product(float (&s)[kNt][4], const QFrags<T, DMAX>& qf,
+__device__ __forceinline__ void load_frags(QFrags<T, DMAX, true>& f, const T* w, int g, int t,
+                                           float scale) {
+#pragma unroll
+  for (int ks = 0; ks < DMAX / Mma<T>::kDepth; ++ks) q_frag<T, DMAX>(f.a[ks], w, ks, g, t, scale);
+}
+template <typename T, int DMAX>
+__device__ __forceinline__ void load_frags(QFrags<T, DMAX, false>&, const T*, int, int, float) {}
+
+// s = (q * scale) . k^T for this warp's 16 rows (A: the fragments `qf`, or
+// the rows at `qw`) and NT * 8 rows of a tile (B: the rows at `kt`), as NT
+// n-tiles of C fragments: s[n][0..1] row g, columns 8n + 2t..2t+1;
+// s[n][2..3] row g + 8. Head-dim steps past d (all zero) are skipped.
+template <typename T, int DMAX, bool REGS, int NT>
+__device__ __forceinline__ void qk_product(float (&s)[NT][4], const QFrags<T, DMAX, REGS>& qf,
                                            const T* qw, const T* kt, int d, int g, int t,
                                            float scale) {
-  constexpr int P = FwdSmem<T, DMAX>::kPitch, DEPTH = Mma<T>::kDepth;
+  constexpr int P = Smem<T, DMAX>::kPitch, DEPTH = Mma<T>::kDepth;
 #pragma unroll
   for (int ks = 0; ks < DMAX / DEPTH; ++ks) {
     if (ks * DEPTH >= d) continue;
     uint32_t a[kQRegs<T>];
-    if constexpr (kQInRegs<T, DMAX>) {
+    if constexpr (REGS) {
 #pragma unroll
       for (int i = 0; i < kQRegs<T>; ++i) a[i] = qf.a[ks][i];
     } else {
       q_frag<T, DMAX>(a, qw, ks, g, t, scale);
     }
 #pragma unroll
-    for (int n = 0; n < kNt; ++n) {
+    for (int n = 0; n < NT; ++n) {
       const T* kr = kt + (n * 8 + g) * P + ks * DEPTH;  // key 8n + g
       if constexpr (sizeof(T) == 2) {
         // b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
@@ -381,23 +374,24 @@ __device__ __forceinline__ void qk_product(float (&s)[kNt][4], const QFrags<T, D
   }
   if constexpr (sizeof(T) == 2) {
 #pragma unroll
-    for (int n = 0; n < kNt; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] *= scale;
   }
 }
 
 // o += p . v for this warp's 16 rows, p in the C-fragment layout of
-// qk_product; o[j] holds columns 8j + 2t..2t+1 of rows g and g + 8.
-template <typename T, int DMAX>
-__device__ __forceinline__ void pv_product(float (&o)[DMAX / 8][4], const float (&p)[kNt][4],
+// qk_product (NT * 8 columns, the rows of v at `vt`); o[j] holds columns
+// 8j + 2t..2t+1 of rows g and g + 8.
+template <typename T, int DMAX, int NT>
+__device__ __forceinline__ void pv_product(float (&o)[DMAX / 8][4], const float (&p)[NT][4],
                                            const T* vt, int d, int g, int t) {
-  constexpr int P = FwdSmem<T, DMAX>::kPitch;
+  constexpr int P = Smem<T, DMAX>::kPitch;
   if constexpr (sizeof(T) == 2) {
     // k-step j (keys 16j..16j+15): its A fragment is the C fragments of
     // n-tiles 2j and 2j+1, split into hi and lo bf16 terms
 #pragma unroll
-    for (int j = 0; j < kNt / 2; ++j) {
+    for (int j = 0; j < NT / 2; ++j) {
       uint32_t hi[4], lo[4];
       split_bf16(p[2 * j][0], p[2 * j][1], hi[0], lo[0]);
       split_bf16(p[2 * j][2], p[2 * j][3], hi[1], lo[1]);
@@ -417,7 +411,7 @@ __device__ __forceinline__ void pv_product(float (&o)[DMAX / 8][4], const float 
     // k-step j (keys 8j..8j+7) is n-tile j; slot t holds key 2t and slot
     // t + 4 key 2t + 1, on both sides of the product
 #pragma unroll
-    for (int j = 0; j < kNt; ++j) {
+    for (int j = 0; j < NT; ++j) {
       uint32_t ab[4], as[4];
       split_tf32(p[j][0], ab[0], as[0]);  // a0 (g, slot t): key 2t
       split_tf32(p[j][2], ab[1], as[1]);  // a1 (g+8, slot t)
@@ -438,11 +432,52 @@ __device__ __forceinline__ void pv_product(float (&o)[DMAX / 8][4], const float 
   }
 }
 
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+}
+
+// Zero the head-dim padding (columns d..DMAX) of `tiles` consecutive tiles
+// once; the copies never touch it.
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kFwdThreads)
+__device__ __forceinline__ void zero_padding(T* first, int tiles, int d) {
+  if (d >= DMAX) return;
+  constexpr int P = Smem<T, DMAX>::kPitch;
+  const int pad = DMAX - d;
+  for (int i = threadIdx.x; i < tiles * kTile * pad; i += kThreads)
+    first[(i / pad) * P + d + i % pad] = from_f<T>(0.f);
+}
+
+// Rows `rows` (g and g + 8 of a warp) of acc * mul into a contiguous
+// [B, T, H, D] tensor `out` whose (b, h) slice starts at `ob`; rows at or
+// past `n` are not written.
+template <typename T, int DMAX>
+__device__ __forceinline__ void store_rows(T* ob, const float (&acc)[DMAX / 8][4],
+                                           const int (&rows)[2], int n, long long row_stride,
+                                           int d, int t, float mul) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= n) continue;
+    T* orow = ob + rows[r] * row_stride;
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (c < d) orow[c] = from_f<T>(acc[j][2 * r] * mul);
+      if (c + 1 < d) orow[c + 1] = from_f<T>(acc[j][2 * r + 1] * mul);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- forward
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, const FwdGeom geo) {
-  using S = FwdSmem<T, DMAX>;
+                 T* __restrict__ o, float* __restrict__ lse, const Geom geo) {
+  using S = Smem<T, DMAX>;
   constexpr int P = S::kPitch;
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   T* qs = reinterpret_cast<T*>(fwd_smem);  // [64][P]
@@ -453,7 +488,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bh = blockIdx.x, b = bh / geo.h, h = bh % geo.h;
   // causal: the last query tiles have the most live keys; launch them first
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * kFwdRows;
+  const int q0 = qt * kRows;
   const T* qb = q + b * geo.qs[0] + h * geo.qs[2];
   const T* kb = k + b * geo.ks[0] + h * geo.ks[2];
   const T* vb = v + b * geo.vs[0] + h * geo.vs[2];
@@ -464,13 +499,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const bool warp_live = w0 < tq;                    // every warp still syncs
   const T* qw = qs + warp * 16 * P;
 
-  // zero the head-dim padding of all five tiles once; copies never touch it
-  if (d < DMAX) {
-    const int pad = DMAX - d;
-    for (int i = threadIdx.x; i < 5 * kFwdKeys * pad; i += kFwdThreads)
-      qs[(i / pad) * P + d + i % pad] = from_f<T>(0.f);
-  }
-  int tiles = (tk + kFwdKeys - 1) / kFwdKeys;
+  zero_padding<T, DMAX>(qs, 5, d);
+  int tiles = (tk + kTile - 1) / kTile;
   if (causal) tiles = min(tiles, qt + 1);  // past the diagonal: all dead
   stage_tile<T, P>(qs, qb, geo.qs[1], q0, tq, d, geo.vec);
   stage_tile<T, P>(ks, kb, geo.ks[1], 0, tk, d, geo.vec);
@@ -479,18 +509,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   QFrags<T, DMAX> qf;
   float acc[DMAX / 8][4];
-#pragma unroll
-  for (int n = 0; n < DMAX / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  zero(acc);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's share
 
   for (int it = 0; it < tiles; ++it) {
-    const int k0 = it * kFwdKeys, cur = (it & 1) * S::kTileElems;
+    const int k0 = it * kTile, cur = (it & 1) * S::kTileElems;
     if (it + 1 < tiles) {  // the next tile into the other stage
       const int nxt = S::kTileElems - cur;
-      stage_tile<T, P>(ks + nxt, kb, geo.ks[1], k0 + kFwdKeys, tk, d, geo.vec);
-      stage_tile<T, P>(vs + nxt, vb, geo.vs[1], k0 + kFwdKeys, tk, d, geo.vec);
+      stage_tile<T, P>(ks + nxt, kb, geo.ks[1], k0 + kTile, tk, d, geo.vec);
+      stage_tile<T, P>(vs + nxt, vb, geo.vs[1], k0 + kTile, tk, d, geo.vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -498,23 +525,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     __syncthreads();
     if (warp_live) {
-      if constexpr (kQInRegs<T, DMAX>) {
-        if (it == 0) {
-#pragma unroll
-          for (int ks_ = 0; ks_ < DMAX / Mma<T>::kDepth; ++ks_)
-            q_frag<T, DMAX>(qf.a[ks_], qw, ks_, g, t, geo.scale);
-        }
-      }
+      if (it == 0) load_frags<T, DMAX>(qf, qw, g, t, geo.scale);
       float s[kNt][4];
-#pragma unroll
-      for (int n = 0; n < kNt; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      zero(s);
       qk_product<T, DMAX>(s, qf, qw, ks + cur, d, g, t, geo.scale);
 
       // dead scores (key past tk, or past the query) to -inf; a tile whose
       // keys all precede the warp's first row and tk is all live
-      const bool full = k0 + kFwdKeys <= tk && (!causal || k0 + kFwdKeys - 1 <= w0);
+      const bool full = k0 + kTile <= tk && (!causal || k0 + kTile - 1 <= w0);
       if (!full) {
 #pragma unroll
         for (int n = 0; n < kNt; ++n)
@@ -589,115 +607,218 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int tq, int tk, int d, float scale, int causal) {
-  constexpr int DS = DMAX / kLanes;
-  extern __shared__ float smem[];
-  float* ks = smem;                 // [kTile][DMAX]
-  float* vs = smem + kTile * DMAX;  // [kTile][DMAX]
-  const int bh = blockIdx.x, q0 = blockIdx.y * kRows;
-  const int lane = threadIdx.x % kLanes, qi = q0 + threadIdx.x / kLanes;
-  const size_t qoff = (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, const Geom geo) {
+  using S = Smem<T, DMAX>;
+  constexpr int P = S::kPitch;
+  constexpr bool REGS = kBwdInRegs<T, DMAX, 1>;
+  constexpr int NT = kBwdNt<T, DMAX, 1>;
+  extern __shared__ __align__(16) unsigned char dq_smem[];
+  T* qs = reinterpret_cast<T*>(dq_smem);  // [64][P]
+  T* dos = qs + S::kTileElems;            // [64][P]
+  T* ks = dos + S::kTileElems;            // 2 stages of [64][P]
+  T* vs = ks + 2 * S::kTileElems;         // 2 stages of [64][P]
 
-  float qr[DS], dor[DS], acc[DS];
-  load_row<T, DS>(qr, q + qoff, qi, tq, d, lane, scale);
-  load_row<T, DS>(dor, dout + qoff, qi, tq, d, lane, 1.f);
-#pragma unroll
-  for (int c = 0; c < DS; ++c) acc[c] = 0.f;
-  const bool row_ok = qi < tq;
-  const float lse_i = row_ok ? lse[(size_t)bh * tq + qi] : 0.f;
-  const float dl_i = row_ok ? delta[(size_t)bh * tq + qi] : 0.f;
+  const int d = geo.d, tq = geo.tq, tk = geo.tk, causal = geo.causal;
+  const int bh = blockIdx.x, b = bh / geo.h, h = bh % geo.h;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // as the forward
+  const int q0 = qt * kRows;
+  const T* qb = q + b * geo.qs[0] + h * geo.qs[2];
+  const T* kb = k + b * geo.ks[0] + h * geo.ks[2];
+  const T* vb = v + b * geo.vs[0] + h * geo.vs[2];
+  const T* db = dout + b * geo.ds[0] + h * geo.ds[2];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w0 = q0 + warp * 16;
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  const bool warp_live = w0 < tq;
+  const T* qw = qs + warp * 16 * P;
+  const T* dw = dos + warp * 16 * P;
 
+  zero_padding<T, DMAX>(qs, 6, d);
   int tiles = (tk + kTile - 1) / kTile;
-  if (causal) tiles = min(tiles, (q0 + kRows - 1) / kTile + 1);
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    stage<T, DMAX>(ks, kb, k0, tk, d, 1.f);
-    stage<T, DMAX>(vs, vb, k0, tk, d, 1.f);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      const float s = row_sum(partial_dot<DS, DMAX>(qr, ks, j, lane));
-      const float dp = row_sum(partial_dot<DS, DMAX>(dor, vs, j, lane));
-      const int kj = k0 + j;
-      const bool live = row_ok && kj < tk && (!causal || kj <= qi);
-      const float p = live ? expf(s - lse_i) : 0.f;
-      const float ds = p * (dp - dl_i);
-      const float* kr = ks + j * DMAX + lane;
+  if (causal) tiles = min(tiles, qt + 1);
+  stage_tile<T, P>(qs, qb, geo.qs[1], q0, tq, d, geo.vec);
+  stage_tile<T, P>(dos, db, geo.ds[1], q0, tq, d, geo.vec);
+  stage_tile<T, P>(ks, kb, geo.ks[1], 0, tk, d, geo.vec);
+  stage_tile<T, P>(vs, vb, geo.vs[1], 0, tk, d, geo.vec);
+  cp_async_commit();
+
+  float lse_r[2], dl_r[2];  // this thread's rows' lse and delta
 #pragma unroll
-      for (int c = 0; c < DS; ++c) acc[c] = fmaf(ds, kr[c * kLanes], acc[c]);
-    }
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = rows[r] < tq;
+    lse_r[r] = ok ? lse[(long long)bh * tq + rows[r]] : 0.f;
+    dl_r[r] = ok ? delta[(long long)bh * tq + rows[r]] : 0.f;
   }
-  store_row<T, DS>(dq + qoff, acc, qi, tq, d, lane, scale);
+  QFrags<T, DMAX, REGS> qf, df;
+  float acc[DMAX / 8][4];
+  zero(acc);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kTile, cur = (it & 1) * S::kTileElems;
+    if (it + 1 < tiles) {
+      const int nxt = S::kTileElems - cur;
+      stage_tile<T, P>(ks + nxt, kb, geo.ks[1], k0 + kTile, tk, d, geo.vec);
+      stage_tile<T, P>(vs + nxt, vb, geo.vs[1], k0 + kTile, tk, d, geo.vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (warp_live) {
+      if (it == 0) {
+        load_frags<T, DMAX>(qf, qw, g, t, geo.scale);
+        load_frags<T, DMAX>(df, dw, g, t, 1.f);
+      }
+      // every pair live: keys before tk and the warp's first row, rows before tq
+      const bool full = k0 + kTile <= tk && w0 + 16 <= tq && (!causal || k0 + kTile - 1 <= w0);
+#pragma unroll 1
+      for (int part = 0; part < kNt / NT; ++part) {
+        const int c0 = part * NT * 8;  // the part's first key in the tile
+        const T* kt = ks + cur + c0 * P;
+        float s[NT][4], dp[NT][4];
+        zero(s);
+        zero(dp);
+        qk_product<T, DMAX>(s, qf, qw, kt, d, g, t, geo.scale);         // S = (q * scale) . k^T
+        qk_product<T, DMAX>(dp, df, dw, vs + cur + c0 * P, d, g, t, 1.f);  // dP = dO . v^T
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, key = k0 + c0 + n * 8 + 2 * t + (e & 1);
+            const bool live = full || (key < tk && rows[r] < tq && (!causal || key <= rows[r]));
+            const float p = live ? __expf(s[n][e] - lse_r[r]) : 0.f;
+            s[n][e] = p * (dp[n][e] - dl_r[r]);  // dS
+          }
+        pv_product<T, DMAX>(acc, s, kt, d, g, t);  // dQ += dS . k
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!warp_live) return;
+  const long long row_stride = (long long)geo.h * d;  // dQ is contiguous [B, T, H, D]
+  store_rows<T, DMAX>(dq + (long long)b * tq * row_stride + (long long)h * d, acc, rows, tq,
+                      row_stride, d, t, geo.scale);
 }
 
 // -------------------------------------------------------- backward dK, dV
 
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int tq, int tk, int d,
-                     float scale, int causal) {
-  constexpr int DS = DMAX / kLanes;
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [kTile][DMAX], q * scale
-  float* dos = smem + kTile * DMAX;   // [kTile][DMAX]
-  float* ls = dos + kTile * DMAX;     // [kTile] lse
-  float* dls = ls + kTile;            // [kTile] delta
-  const int bh = blockIdx.x, k0 = blockIdx.y * kRows;
-  const int lane = threadIdx.x % kLanes, kj = k0 + threadIdx.x / kLanes;
-  const size_t koff = (size_t)bh * tk * d;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* db = dout + (size_t)bh * tq * d;
-  const float* lb = lse + (size_t)bh * tq;
-  const float* deb = delta + (size_t)bh * tq;
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     const Geom geo) {
+  using S = Smem<T, DMAX>;
+  constexpr int P = S::kPitch;
+  constexpr bool REGS = kBwdInRegs<T, DMAX, 2>;
+  constexpr int NT = kBwdNt<T, DMAX, 2>;
+  extern __shared__ __align__(16) unsigned char dkv_smem[];
+  T* ks = reinterpret_cast<T*>(dkv_smem);  // [64][P]
+  T* vs = ks + S::kTileElems;              // [64][P]
+  T* qs = vs + S::kTileElems;              // 2 stages of [64][P]
+  T* dos = qs + 2 * S::kTileElems;         // 2 stages of [64][P]
+  float* ls = reinterpret_cast<float*>(dos + 2 * S::kTileElems);  // 2 stages of [64] lse
+  float* dls = ls + 2 * kTile;                                     // 2 stages of [64] delta
 
-  float kr[DS], vr[DS], dk_acc[DS], dv_acc[DS];
-  load_row<T, DS>(kr, k + koff, kj, tk, d, lane, 1.f);
-  load_row<T, DS>(vr, v + koff, kj, tk, d, lane, 1.f);
-#pragma unroll
-  for (int c = 0; c < DS; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+  const int d = geo.d, tq = geo.tq, tk = geo.tk, causal = geo.causal;
+  const int bh = blockIdx.x, b = bh / geo.h, h = bh % geo.h;
+  const int k0 = blockIdx.y * kRows;
+  const T* qb = q + b * geo.qs[0] + h * geo.qs[2];
+  const T* kb = k + b * geo.ks[0] + h * geo.ks[2];
+  const T* vb = v + b * geo.vs[0] + h * geo.vs[2];
+  const T* db = dout + b * geo.ds[0] + h * geo.ds[2];
+  const float* lb = lse + (long long)bh * tq;
+  const float* deb = delta + (long long)bh * tq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w0 = k0 + warp * 16;
+  const int keys[2] = {w0 + g, w0 + g + 8};
+  const bool warp_live = w0 < tk;
+  const T* kw = ks + warp * 16 * P;
+  const T* vw = vs + warp * 16 * P;
 
-  const int tiles = (tq + kTile - 1) / kTile;
-  // causal: query tiles that end before this key tile starts are all dead
-  for (int t = causal ? k0 / kTile : 0; t < tiles; ++t) {
-    const int q0 = t * kTile;
-    __syncthreads();
-    stage<T, DMAX>(qs, qb, q0, tq, d, scale);
-    stage<T, DMAX>(dos, db, q0, tq, d, 1.f);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool ok = q0 + i < tq;
-      ls[i] = ok ? lb[q0 + i] : 0.f;
-      dls[i] = ok ? deb[q0 + i] : 0.f;
+  zero_padding<T, DMAX>(ks, 6, d);
+  // causal: query tiles before this key tile's diagonal are all dead
+  const int first = causal ? blockIdx.y : 0;
+  const int tiles = max(0, (tq + kTile - 1) / kTile - first);
+  stage_tile<T, P>(ks, kb, geo.ks[1], k0, tk, d, geo.vec);
+  stage_tile<T, P>(vs, vb, geo.vs[1], k0, tk, d, geo.vec);
+  if (tiles > 0) {
+    const int q0 = first * kTile;
+    stage_tile<T, P>(qs, qb, geo.qs[1], q0, tq, d, geo.vec);
+    stage_tile<T, P>(dos, db, geo.ds[1], q0, tq, d, geo.vec);
+    stage_row(ls, lb, q0, tq);
+    stage_row(dls, deb, q0, tq);
+  }
+  cp_async_commit();
+
+  QFrags<T, DMAX, REGS> kf, vf;
+  float dk_acc[DMAX / 8][4], dv_acc[DMAX / 8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int q0 = (first + it) * kTile, stage = it & 1;
+    const int cur = stage * S::kTileElems, rcur = stage * kTile;
+    if (it + 1 < tiles) {
+      const int nxt = S::kTileElems - cur, rnxt = kTile - rcur;
+      stage_tile<T, P>(qs + nxt, qb, geo.qs[1], q0 + kTile, tq, d, geo.vec);
+      stage_tile<T, P>(dos + nxt, db, geo.ds[1], q0 + kTile, tq, d, geo.vec);
+      stage_row(ls + rnxt, lb, q0 + kTile, tq);
+      stage_row(dls + rnxt, deb, q0 + kTile, tq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < kTile; ++i) {
-      const float s = row_sum(partial_dot<DS, DMAX>(kr, qs, i, lane));
-      const float dp = row_sum(partial_dot<DS, DMAX>(vr, dos, i, lane));
-      const int qi = q0 + i;
-      const bool live = qi < tq && (!causal || kj <= qi);
-      const float p = live ? expf(s - ls[i]) : 0.f;
-      const float ds = p * (dp - dls[i]);
-      const float* qrow = qs + i * DMAX + lane;
-      const float* drow = dos + i * DMAX + lane;
+    if (warp_live) {
+      if (it == 0) {
+        load_frags<T, DMAX>(kf, kw, g, t, geo.scale);
+        load_frags<T, DMAX>(vf, vw, g, t, 1.f);
+      }
+      // every pair live: queries before tq and after the warp's last key,
+      // keys before tk
+      const bool full = q0 + kTile <= tq && w0 + 16 <= tk && (!causal || w0 + 15 <= q0);
+#pragma unroll 1
+      for (int part = 0; part < kNt / NT; ++part) {
+        const int c0 = part * NT * 8;  // the part's first column (query) in the tile
+        const T* qt = qs + cur + c0 * P;
+        const T* dt = dos + cur + c0 * P;
+        float s[NT][4], dp[NT][4];
+        zero(s);
+        zero(dp);
+        qk_product<T, DMAX>(s, kf, kw, qt, d, g, t, geo.scale);  // S^T = (k * scale) . q^T
+        qk_product<T, DMAX>(dp, vf, vw, dt, d, g, t, 1.f);       // dP^T = v . dO^T
 #pragma unroll
-      for (int c = 0; c < DS; ++c) {
-        dv_acc[c] = fmaf(p, drow[c * kLanes], dv_acc[c]);
-        dk_acc[c] = fmaf(ds, qrow[c * kLanes], dk_acc[c]);
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + n * 8 + 2 * t + (e & 1), query = q0 + col;
+            const int key = keys[e >> 1];
+            const bool live = full || (query < tq && key < tk && (!causal || key <= query));
+            const float p = live ? __expf(s[n][e] - ls[rcur + col]) : 0.f;
+            s[n][e] = p;                                    // P^T
+            dp[n][e] = p * (dp[n][e] - dls[rcur + col]);  // dS^T
+          }
+        pv_product<T, DMAX>(dv_acc, s, dt, d, g, t);   // dV += P^T . dO
+        pv_product<T, DMAX>(dk_acc, dp, qt, d, g, t);  // dK += dS^T . q
       }
     }
+    __syncthreads();
   }
-  // dK = ds^T . (q * scale): the scale rode in with the staged q
-  store_row<T, DS>(dk + koff, dk_acc, kj, tk, d, lane, 1.f);
-  store_row<T, DS>(dv + koff, dv_acc, kj, tk, d, lane, 1.f);
+  cp_async_wait<0>();  // with no live query tile the owned tiles' copies are still in flight
+
+  if (!warp_live) return;
+  const long long row_stride = (long long)geo.h * d;  // dK, dV are contiguous [B, T, H, D]
+  const long long off = (long long)b * tk * row_stride + (long long)h * d;
+  store_rows<T, DMAX>(dk + off, dk_acc, keys, tk, row_stride, d, t, geo.scale);
+  store_rows<T, DMAX>(dv + off, dv_acc, keys, tk, row_stride, d, t, 1.f);
 }
 
 // ---------------------------------------------------------------- launch
@@ -705,87 +826,100 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;
-  int bh, tq, tk, d, causal;
-  float scale;
-  FwdGeom geo;  // the forward's strides, heads and copy width
+  int bh;
+  Geom geo;
+};
+
+// `kernel` on a (bh, tiles of `rows`) grid with `smem` bytes of dynamic
+// shared memory.
+template <typename... Params, typename... Given>
+int launch(void (*kernel)(Params...), int bh, int rows, size_t smem, cudaStream_t st,
+           Given... given) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (rows + kRows - 1) / kRows;
+  if (tiles > 65535) return kErrGrid;
+  kernel<<<dim3(bh, tiles), kThreads, smem, st>>>(given...);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DMAX>
+struct Fwd {
+  static int run(const Args& a, cudaStream_t st) {
+    return launch(flash_fwd_kernel<T, DMAX>, a.bh, a.geo.tq, 5 * Smem<T, DMAX>::kTileBytes, st,
+                  static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                  static_cast<const T*>(a.v), static_cast<T*>(a.out0),
+                  static_cast<float*>(a.out1), a.geo);
+  }
 };
 
 template <typename T, int DMAX>
-int fwd(const Args& a, cudaStream_t st) {
-  const size_t smem = FwdSmem<T, DMAX>::kBytes;
-  auto kernel = flash_fwd_kernel<T, DMAX>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int qtiles = (a.tq + kFwdRows - 1) / kFwdRows;
-  if (qtiles > 65535) return kErrGrid;
-  const dim3 grid(a.bh, qtiles);
-  kernel<<<grid, kFwdThreads, smem, st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.geo);
-  return (int)cudaGetLastError();
-}
+struct BwdDq {
+  static int run(const Args& a, cudaStream_t st) {
+    return launch(flash_bwd_dq_kernel<T, DMAX>, a.bh, a.geo.tq, 6 * Smem<T, DMAX>::kTileBytes,
+                  st, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                  static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+                  static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+                  static_cast<T*>(a.out0), a.geo);
+  }
+};
 
 template <typename T, int DMAX>
-int bwd_dq(const Args& a, cudaStream_t st) {
-  const size_t smem = 2 * kTile * DMAX * sizeof(float);
-  auto kernel = flash_bwd_dq_kernel<T, DMAX>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.bh, (a.tq + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.out0), a.tq, a.tk, a.d,
-      a.scale, a.causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int DMAX>
-int bwd_dkv(const Args& a, cudaStream_t st) {
-  const size_t smem = (2 * kTile * DMAX + 2 * kTile) * sizeof(float);
-  auto kernel = flash_bwd_dkv_kernel<T, DMAX>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.bh, (a.tk + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.out0), static_cast<T*>(a.out1),
-      a.tq, a.tk, a.d, a.scale, a.causal);
-  return (int)cudaGetLastError();
-}
+struct BwdDkv {
+  static int run(const Args& a, cudaStream_t st) {
+    const size_t smem = 6 * Smem<T, DMAX>::kTileBytes + 4 * kTile * sizeof(float);
+    return launch(flash_bwd_dkv_kernel<T, DMAX>, a.bh, a.geo.tk, smem, st,
+                  static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                  static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+                  static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+                  static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.geo);
+  }
+};
 
 // The instantiation for the input type and the smallest head-dim width
 // (32, 64 or 128) that holds d.
 template <template <typename, int> class Launch>
 int dispatch(const Args& a, int bf16, cudaStream_t st) {
-  if (a.d < 1 || a.d > 128) return kErrHeadDim;
-  if (a.bh == 0 || a.tq == 0 || a.tk == 0) return 0;
+  const int d = a.geo.d;
+  if (d < 1 || d > 128) return kErrHeadDim;
+  if (a.bh == 0 || a.geo.tq == 0 || a.geo.tk == 0) return 0;
   if (bf16) {
-    if (a.d <= 32) return Launch<__nv_bfloat16, 32>::run(a, st);
-    if (a.d <= 64) return Launch<__nv_bfloat16, 64>::run(a, st);
+    if (d <= 32) return Launch<__nv_bfloat16, 32>::run(a, st);
+    if (d <= 64) return Launch<__nv_bfloat16, 64>::run(a, st);
     return Launch<__nv_bfloat16, 128>::run(a, st);
   }
-  if (a.d <= 32) return Launch<float, 32>::run(a, st);
-  if (a.d <= 64) return Launch<float, 64>::run(a, st);
+  if (d <= 32) return Launch<float, 32>::run(a, st);
+  if (d <= 64) return Launch<float, 64>::run(a, st);
   return Launch<float, 128>::run(a, st);
 }
 
-template <typename T, int DMAX>
-struct Fwd {
-  static int run(const Args& a, cudaStream_t st) { return fwd<T, DMAX>(a, st); }
-};
-template <typename T, int DMAX>
-struct BwdDq {
-  static int run(const Args& a, cudaStream_t st) { return bwd_dq<T, DMAX>(a, st); }
-};
-template <typename T, int DMAX>
-struct BwdDkv {
-  static int run(const Args& a, cudaStream_t st) { return bwd_dkv<T, DMAX>(a, st); }
-};
+// The geometry of `views` [B, T, H, D] views (q, k, v and, for the
+// backward, dO) with (batch, token, head) strides `s`, three a view, and
+// the widest copy (16, 8 or 4 bytes) that every row address and the row
+// length allow; 2 means element copies.
+Geom geometry(const void* const* ptrs, const long long* s, int views, int h, int tq, int tk,
+              int d, float scale, int causal, int bf16) {
+  Geom geo{};
+  long long* dst[4] = {geo.qs, geo.ks, geo.vs, geo.ds};
+  const unsigned long long es = bf16 ? 2 : 4;
+  unsigned long long align = (unsigned long long)d * es;
+  for (int i = 0; i < views; ++i) {
+    align |= (uintptr_t)ptrs[i];
+    for (int j = 0; j < 3; ++j) {
+      dst[i][j] = s[3 * i + j];
+      align |= (unsigned long long)s[3 * i + j] * es;
+    }
+  }
+  geo.h = h;
+  geo.tq = tq;
+  geo.tk = tk;
+  geo.d = d;
+  geo.causal = causal;
+  geo.scale = scale;
+  geo.vec = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : align % 4 == 0 ? 4 : 2;
+  return geo;
+}
 
 }  // namespace
 
@@ -797,37 +931,47 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
                          long long q_sh, long long k_sb, long long k_st, long long k_sh,
                          long long v_sb, long long v_st, long long v_sh, float scale,
                          int causal, int bf16, void* stream) {
-  FwdGeom geo{{q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
-              h, tq, tk, d, causal, 0, scale};
-  // the widest copy (16, 8 or 4 bytes) that every row address and the row
-  // length allow; 2 means element copies
-  const unsigned long long es = bf16 ? 2 : 4;
-  unsigned long long align = (unsigned long long)d * es | (uintptr_t)q | (uintptr_t)k |
-                             (uintptr_t)v;
-  const long long strides[9] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh};
-  for (long long s : strides) align |= (unsigned long long)s * es;
-  geo.vec = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : align % 4 == 0 ? 4 : 2;
-  Args a{q, k, v, nullptr, nullptr, nullptr, o, lse, b * h, tq, tk, d, causal, scale, geo};
+  const void* ptrs[3] = {q, k, v};
+  const long long s[9] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh};
+  Args a{q, k, v, nullptr, nullptr, nullptr, o, lse, b * h,
+         geometry(ptrs, s, 3, h, tq, tk, d, scale, causal, bf16)};
   return dispatch<Fwd>(a, bf16, static_cast<cudaStream_t>(stream));
 }
 
+// q, k, v, dout: [B, T, H, D] views with strides as flash_fwd's (dout's
+// after v's); lse, delta: [B*H, Tq] float32; dq: contiguous [B, Tq, H, D].
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, void* dq, int bh, int tq,
-                            int tk, int d, float scale, int causal, int bf16, void* stream) {
-  Args a{q, k, v, dout, lse, delta, dq, nullptr, bh, tq, tk, d, causal, scale, {}};
+                            const void* lse, const void* delta, void* dq, int b, int h, int tq,
+                            int tk, int d, long long q_sb, long long q_st, long long q_sh,
+                            long long k_sb, long long k_st, long long k_sh, long long v_sb,
+                            long long v_st, long long v_sh, long long do_sb, long long do_st,
+                            long long do_sh, float scale, int causal, int bf16, void* stream) {
+  const void* ptrs[4] = {q, k, v, dout};
+  const long long s[12] = {q_sb, q_st, q_sh, k_sb,  k_st,  k_sh,
+                           v_sb, v_st, v_sh, do_sb, do_st, do_sh};
+  Args a{q, k, v, dout, lse, delta, dq, nullptr, b * h,
+         geometry(ptrs, s, 4, h, tq, tk, d, scale, causal, bf16)};
   return dispatch<BwdDq>(a, bf16, static_cast<cudaStream_t>(stream));
 }
 
+// As flash_bwd_dq; dk, dv: contiguous [B, Tk, H, D].
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, void* dk, void* dv, int bh,
-                             int tq, int tk, int d, float scale, int causal, int bf16,
-                             void* stream) {
-  Args a{q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, causal, scale, {}};
+                             const void* lse, const void* delta, void* dk, void* dv, int b,
+                             int h, int tq, int tk, int d, long long q_sb, long long q_st,
+                             long long q_sh, long long k_sb, long long k_st, long long k_sh,
+                             long long v_sb, long long v_st, long long v_sh, long long do_sb,
+                             long long do_st, long long do_sh, float scale, int causal,
+                             int bf16, void* stream) {
+  const void* ptrs[4] = {q, k, v, dout};
+  const long long s[12] = {q_sb, q_st, q_sh, k_sb,  k_st,  k_sh,
+                           v_sb, v_st, v_sh, do_sb, do_st, do_sh};
+  Args a{q, k, v, dout, lse, delta, dk, dv, b * h,
+         geometry(ptrs, s, 4, h, tq, tk, d, scale, causal, bf16)};
   return dispatch<BwdDkv>(a, bf16, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_error_string(int code) {
   if (code == kErrHeadDim) return "head dim must be between 1 and 128";
-  if (code == kErrGrid) return "more than 65535 query tiles of 64 rows";
+  if (code == kErrGrid) return "more than 65535 tiles of 64 rows";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -18,12 +18,12 @@ Layouts are the JAX package's: q, k, v, O and their gradients are
 [B, T, H, D]; lse and delta are [B*H, T] float32 (float64 for float64
 inputs, which only the plain versions take). Scores are
 ``(q * scale) . k^T`` with ``scale = 1 / sqrt(D)``; ``causal`` masks keys
-after the query. The kernels take float32 or bfloat16. The forward runs
-on the tensor cores (bf16 MMAs with P split into two bf16 terms; 3xTF32
-for float32, which keeps the float32 contract) and reads q, k and v
-through their own strides, so the views a qkv projection is cut into go
-to the kernel uncopied; it writes O contiguous. The backward kernels
-compute in float32 FMA on contiguous copies.
+after the query. The kernels take float32 or bfloat16 and run on the
+tensor cores: bf16 MMAs with P (and, in the backward, dS) split into two
+bf16 terms, and 3xTF32 for float32, which keeps the float32 contract. All
+three read q, k, v (and dO) through their own strides, so the views a qkv
+projection is cut into go to the kernels uncopied, and write O, dQ, dK and
+dV contiguous.
 """
 
 from __future__ import annotations
@@ -90,9 +90,12 @@ def _scores(qr, kr, causal: bool):
 
 
 def attention_delta(o, do):
-    """delta = rowsum(dO * O) in the accumulation type: [B*H, T]."""
+    """delta = rowsum(dO * O) in the accumulation type: [B*H, T]. The sums
+    are taken on the [B, T, H, D] tensors, so only the [B, T, H] result is
+    moved heads first."""
+    b, t, h, _ = o.shape
     acc = _acc(o)
-    return (_heads_first(do).to(acc) * _heads_first(o).to(acc)).sum(-1)
+    return (do.to(acc) * o.to(acc)).sum(-1).transpose(1, 2).reshape(b * h, t)
 
 
 # ---------------------------------------------------------- plain versions
@@ -181,12 +184,13 @@ def _check(q, k, v, do=None, lse=None, delta=None):
 def signatures(lib):
     """Declare the C interface of a loaded flash_attention library."""
     vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    shape = [i, i, i, i, f, i, i, vp]  # bh, tq, tk, d, scale, causal, bf16, stream
-    # q, k, v, o, lse; b, h, tq, tk, d; (batch, token, head) strides of q, k, v;
-    # scale, causal, bf16, stream
-    lib.flash_fwd.argtypes = [vp] * 5 + [i] * 5 + [ll] * 9 + [f, i, i, vp]
-    lib.flash_bwd_dq.argtypes = [vp] * 7 + shape
-    lib.flash_bwd_dkv.argtypes = [vp] * 8 + shape
+    # the tensors; b, h, tq, tk, d; (batch, token, head) strides of q, k, v
+    # (and dO); scale, causal, bf16, stream
+    tail = [f, i, i, vp]
+    lib.flash_fwd.argtypes = [vp] * 5 + [i] * 5 + [ll] * 9 + tail  # q, k, v, o, lse
+    # q, k, v, dO, lse, delta, then dq, or dk and dv
+    lib.flash_bwd_dq.argtypes = [vp] * 7 + [i] * 5 + [ll] * 12 + tail
+    lib.flash_bwd_dkv.argtypes = [vp] * 8 + [i] * 5 + [ll] * 12 + tail
     for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
         fn.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
@@ -211,12 +215,13 @@ def _call(name: str, device, *args):
     launches[name] += 1
 
 
-def _launch(name: str, q, k, tensors, causal: bool):
-    """A backward kernel on the data pointers of ``tensors``, with q's and
-    k's geometry."""
+def _launch(name: str, views, outputs, causal: bool):
+    """The kernel ``name`` on the [B, T, H, D] ``views`` (q, k, v, and dO
+    for the backward) and ``outputs``, with the views' strides."""
+    q, k = views[:2]
     b, tq, h, d = q.shape
-    _call(name, q.device, *(t.data_ptr() for t in tensors), b * h, tq, k.shape[1], d,
-          1.0 / math.sqrt(d), int(causal), int(q.dtype == torch.bfloat16))
+    _call(name, q.device, *(t.data_ptr() for t in (*views, *outputs)), b, h, tq, k.shape[1], d,
+          *fwd_strides(*views), 1.0 / math.sqrt(d), int(causal), int(q.dtype == torch.bfloat16))
 
 
 def _rows(t):
@@ -225,9 +230,9 @@ def _rows(t):
 
 
 def fwd_operand(t):
-    """A [B, T, H, D] operand as the forward kernel reads it: the view
-    itself when its D stride is 1 (any batch, token and head strides), else
-    one contiguous copy."""
+    """A [B, T, H, D] operand as the kernels read it: the view itself when
+    its D stride is 1 (any batch, token and head strides), else one
+    contiguous copy."""
     return t if t.stride(3) == 1 or t.shape[3] == 1 else t.contiguous()
 
 
@@ -243,39 +248,41 @@ def flash_fwd(q, k, v, causal: bool = False):
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal)
     b, tq, h, d = q.shape
-    q, k, v = (fwd_operand(t) for t in (q, k, v))
+    views = [fwd_operand(t) for t in (q, k, v)]
     o = torch.empty(b, tq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b * h, tq, dtype=torch.float32, device=q.device)
-    _call("flash_fwd", q.device, *(t.data_ptr() for t in (q, k, v, o, lse)),
-          b, h, tq, k.shape[1], d, *fwd_strides(q, k, v), 1.0 / math.sqrt(d), int(causal),
-          int(q.dtype == torch.bfloat16))
+    _launch("flash_fwd", views, (o, lse), causal)
     return o, lse
 
 
+def _bwd_views(q, k, v, do):
+    """q, k, v and dO as the backward kernels read them (``fwd_operand``),
+    dO in q's dtype."""
+    return [fwd_operand(t) for t in (q, k, v, do.to(q.dtype))]
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
-    """dQ [B, T, H, D] in q's dtype, given lse and delta [B*H, T]."""
+    """dQ [B, T, H, D] in q's dtype, given lse and delta [B*H, T]. On the
+    card dQ is contiguous and q, k, v, dO are read in place."""
     _check(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
-    b, _, h, _ = q.shape
-    qr, kr, vr, dor = (_heads_first(t).to(q.dtype).contiguous() for t in (q, k, v, do))
-    dq = torch.empty_like(qr)
-    _launch("flash_bwd_dq", q, k,
-            (qr, kr, vr, dor, _rows(lse), _rows(delta), dq), causal)
-    return _heads_last(dq, b, h)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch("flash_bwd_dq", _bwd_views(q, k, v, do), (_rows(lse), _rows(delta), dq), causal)
+    return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
-    """(dK, dV) [B, T, H, D] in k's and v's dtype, given lse and delta."""
+    """(dK, dV) [B, T, H, D] in k's and v's dtype, given lse and delta. On
+    the card dK and dV are contiguous and q, k, v, dO are read in place."""
     _check(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
-    b, _, h, _ = q.shape
-    qr, kr, vr, dor = (_heads_first(t).to(q.dtype).contiguous() for t in (q, k, v, do))
-    dk, dv = torch.empty_like(kr), torch.empty_like(vr)
-    _launch("flash_bwd_dkv", q, k,
-            (qr, kr, vr, dor, _rows(lse), _rows(delta), dk, dv), causal)
-    return _heads_last(dk, b, h), _heads_last(dv, b, h)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch("flash_bwd_dkv", _bwd_views(q, k, v, do), (_rows(lse), _rows(delta), dk, dv),
+            causal)
+    return dk, dv
 
 
 def flash_bwd(q, k, v, o, lse, do, causal: bool = False):

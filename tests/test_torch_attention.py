@@ -159,6 +159,32 @@ def test_forward_on_split_views_matches_contiguous_inputs():
         torch.testing.assert_close(lse, want_lse, rtol=0, atol=0)
 
 
+def test_attention_delta_sums_before_moving_heads_first():
+    """delta is rowsum(dO * O), [B*H, T] contiguous, with the same bits as
+    the sums taken on heads-first copies."""
+    for dtype, h in ((torch.float32, 3), (torch.bfloat16, 3), (torch.float32, 1)):
+        o, do = (torch.from_numpy(a).to(dtype) for a in _qkv(2, 9, h, 8, seed=4, n=2))
+        got = attention.attention_delta(o, do)
+        acc = torch.float32
+        want = (attention._heads_first(do).to(acc) * attention._heads_first(o).to(acc)).sum(-1)
+        assert got.shape == (2 * h, 9) and got.dtype == acc and got.is_contiguous()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_backward_reads_views_in_place():
+    """The backward wrappers hand the kernels q, k, v and dO as they come
+    when their D stride is 1, dO in q's dtype, and copy only a view whose D
+    stride is not 1."""
+    b, t, h, d = 2, 5, 3, 4
+    qkv = torch.from_numpy(np.random.RandomState(1).normal(size=(b, t, 3 * h, d)))
+    q, k, v = qkv.split(h, dim=2)
+    do = torch.zeros(b, t, h, 2 * d, dtype=torch.float32)[..., ::2]
+    got = attention._bwd_views(q, k, v, do)
+    assert all(g is w for g, w in zip(got[:3], (q, k, v)))
+    assert got[3].dtype == q.dtype and got[3].is_contiguous()
+    assert attention.fwd_strides(*got) == [t * 3 * h * d, 3 * h * d, d] * 3 + [t * h * d, h * d, d]
+
+
 def _chip_smoke():
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -183,29 +209,63 @@ def test_chip_smoke_attention_check_and_its_controls(monkeypatch, causal):
         cs.close("one off", q + torch.tensor([[0.0, 0.0]] * 2 + [[0.0, 1e-3]]), q, 2e-5, 2e-5)
 
 
-PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_PfNS_7FwdGeomE' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_PfNS_7FwdGeomE
+PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_PfNS_4GeomE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_PfNS_4GeomE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 140 registers, used 1 barriers, 472 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_PfNS_7FwdGeomE' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_PfNS_7FwdGeomE
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_PfNS_4GeomE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_PfNS_4GeomE
     8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers, 472 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi32EEEvPKT_S3_S3_S3_PKfS5_PS1_iiifi' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi32EEEvPKT_S3_S3_S3_PKfS5_PS1_iiifi
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi32EEEvPKT_S3_S3_S3_PKfS5_PS1_NS_4GeomE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi32EEEvPKT_S3_S3_S3_PKfS5_PS1_NS_4GeomE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 62 registers, used 1 barriers, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110fused_stepEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_110fused_stepEv
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 420 bytes cmem[0]
 """
+DKV64 = "_ZN12_GLOBAL__N_120flash_bwd_dkv_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_NS_4GeomE"
 
 
 def test_chip_smoke_reads_registers_and_spills_per_kernel():
+    """Every flash instantiation is labelled, the forward's and both
+    backward kernels'; a spill fails at D <= 64 and is only marked at
+    D = 128."""
     cs = _chip_smoke()
     kernels = cs.ptxas_kernels(PTXAS)
-    assert len(kernels) == 3
-    got = {cs.forward_label(name): x for name, x in kernels.items()}
-    assert got == {"flash_fwd_kernel<bfloat16, 64>": {"registers": 140, "spill_bytes": 0},
-                   "flash_fwd_kernel<float32, 128>": {"registers": 255, "spill_bytes": 28},
-                   None: {"registers": 62, "spill_bytes": 0}}
+    assert len(kernels) == 4
+    got = {cs.flash_label(name): x for name, x in kernels.items()}
+    assert got == {("flash_fwd_kernel<bfloat16, 64>", 64): {"registers": 140, "spill_bytes": 0},
+                   ("flash_fwd_kernel<float32, 128>", 128): {"registers": 255,
+                                                             "spill_bytes": 28},
+                   ("flash_bwd_dq_kernel<float32, 32>", 32): {"registers": 62,
+                                                              "spill_bytes": 0},
+                   None: {"registers": 40, "spill_bytes": 8}}
+    assert cs.flash_label(DKV64) == ("flash_bwd_dkv_kernel<bfloat16, 64>", 64)
+    lines = cs.check_spills(kernels)
+    assert len(lines) == 3
+    assert "flash_fwd_kernel<float32, 128>: 255 registers, 28 bytes of spill (SPILL)" in lines
+    assert "flash_bwd_dq_kernel<float32, 32>: 62 registers, 0 bytes of spill" in lines
+    with pytest.raises(RuntimeError, match="flash_bwd_dkv_kernel<bfloat16, 64> spills 12 bytes"):
+        cs.check_spills({**kernels, DKV64: {"registers": 255, "spill_bytes": 12}})
+
+
+def test_chip_smoke_backward_kernel_list_check():
+    """chip_smoke's profiler check of a backward on split views: the delta
+    op's kernels, one dQ and one dK/dV kernel, in any order, and nothing
+    more (a layout copy) or less."""
+    cs = _chip_smoke()
+    delta = ["vectorized_elementwise_kernel<mul>", "reduce_kernel<sum>", "elementwise_copy"]
+    dq = "void (anonymous namespace)::flash_bwd_dq_kernel<float, 32>(...)"
+    dkv = "void (anonymous namespace)::flash_bwd_dkv_kernel<float, 32>(...)"
+    assert cs.backward_kernels_ok([*delta, dkv, dq], delta)
+    assert cs.backward_kernels_ok([delta[1], dq, delta[0], dkv, delta[2]], delta)
+    assert not cs.backward_kernels_ok([*delta, "elementwise_copy", dq, dkv], delta)
+    assert not cs.backward_kernels_ok([*delta, dq], delta)
+    assert not cs.backward_kernels_ok([*delta, dq, dq, dkv], delta)
+    assert not cs.backward_kernels_ok([*delta[:2], dq, dkv], delta)
 
 
 def test_chip_smoke_split_view_check_and_its_control():
@@ -259,13 +319,21 @@ def test_cuda_kernels_match_plain_versions(dtype, causal):
     so, slse = attention.flash_fwd(*torch.cat((q, k, v), dim=2).split(2, dim=2), causal)
     torch.testing.assert_close(so, o, rtol=0, atol=0)
     torch.testing.assert_close(slse, lse, rtol=0, atol=0)
-    # a view with a D stride of 2 is copied once, then runs the same
-    copied, _ = attention.flash_fwd(*(torch.cat((t, t), dim=-1)[..., ::2] for t in (q, k, v)),
-                                    causal)
+    # a view with a D stride of 2 (the same values, every other element of
+    # a wider tensor) is copied once, then runs the same
+    strided = [torch.stack((t, torch.zeros_like(t)), dim=-1).flatten(-2)[..., ::2]
+               for t in (q, k, v)]
+    assert all(t.stride(3) == 2 and torch.equal(t, w) for t, w in zip(strided, (q, k, v)))
+    copied, _ = attention.flash_fwd(*strided, causal)
     torch.testing.assert_close(copied, o, rtol=0, atol=0)
     got = attention.flash_bwd(q, k, v, o, lse, do, causal)
     want = attention.flash_bwd_reference(q, k, v, o, lse, do, causal)
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=tol[2], atol=tol[2])
+    # the backward reads the split views in place too, and gives the same bits
+    split = attention.flash_bwd(*torch.cat((q, k, v), dim=2).split(2, dim=2), o, lse, do, causal)
+    for g, w in zip(split, got):
+        assert g.is_contiguous()
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert {n: attention.launches[n] - before[n] for n in before} == {
-        "flash_fwd": 3, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd": 3, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}

@@ -1,4 +1,4 @@
-"""The rounding points of the tensor-core flash forward, emulated on the CPU.
+"""The rounding points of the tensor-core flash kernels, emulated on the CPU.
 
 ``csrc/flash_attention.cu``'s forward computes its products on the tensor
 cores: in bf16 the scores exactly (bf16 products are exact in float32) and
@@ -14,6 +14,14 @@ check the kernel itself must pass on the card, at the check shapes (a),
 the splits are there: one bf16 P, or one TF32 product, misses the
 tolerance. Exponentials are exact here; the kernel's ex2.approx is not
 emulated, and the card's own check holds it.
+
+The backward kernels compose the same two products with roles swapped
+(``emulate_backward``): in bf16 the score and dP = dO.V^T products are
+exact and the second-level products take P and dS as A operands, each
+split hi/lo; in float32 every product is 3xTF32. The dQ kernel computes
+S = (q * scale).k^T; the dK/dV kernel S^T = (k * scale).q^T, and
+dP^T = V.dO^T. The controls show why both splits are kept: one bf16 term
+of P misses in dV, one of dS in dQ and dK, one TF32 product everywhere.
 """
 
 import importlib.util
@@ -104,11 +112,44 @@ def emulate_forward(q, k, v, causal, split=True):
     return attention._heads_last(o, b, h), m + torch.log(lsafe)
 
 
-def _inputs(key, dtype, seed):
+def emulate_backward(q, k, v, do, lse, delta, causal, split=True):
+    """The backward kernels at their rounding points: (dQ, dK, dV) [B, T, H,
+    D] in q's dtype. ``split`` is True (every split the kernels make),
+    False (the controls: one bf16 term of P and of dS, or one TF32
+    product), or, for bf16, the names ("p", "ds") of the A operands that
+    are split hi/lo."""
+    b, _, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qr, kr, vr, dor = (attention._heads_first(t).float() for t in (q, k, v, do))
+    t_ = lambda x: x.transpose(-1, -2)  # noqa: E731
+    if q.dtype == torch.bfloat16:
+        terms = {"p", "ds"} if split is True else set(split or ())
+        s_q, s_k = (qr @ t_(kr)) * scale, t_((kr @ t_(qr)) * scale)
+        dp_q, dp_k = dor @ t_(vr), t_(vr @ t_(dor))
+        mm_p = pv_bf16_split if "p" in terms else pv_bf16_once
+        mm_ds = pv_bf16_split if "ds" in terms else pv_bf16_once
+    else:
+        mm = mm_3xtf32 if split else mm_tf32
+        s_q, s_k = mm(qr * scale, t_(kr)), t_(mm(kr * scale, t_(qr)))
+        dp_q, dp_k = mm(dor, t_(vr)), t_(mm(vr, t_(dor)))
+        mm_p = mm_ds = mm
+    live = attention._causal_live(s_q) if causal else torch.ones_like(s_q, dtype=torch.bool)
+
+    def p_ds(s, dp):
+        p = torch.where(live, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
+        return p, p * (dp - delta.float()[..., None])
+
+    _, ds_q = p_ds(s_q, dp_q)  # the dQ kernel's, sweeping key tiles
+    p_k, ds_k = p_ds(s_k, dp_k)  # the dK/dV kernel's, sweeping query tiles
+    grads = (mm_ds(ds_q, kr) * scale, mm_ds(t_(ds_k), qr) * scale, mm_p(t_(p_k), dor))
+    return tuple(attention._heads_last(x.to(q.dtype), b, h) for x in grads)
+
+
+def _inputs(key, dtype, seed, n=3):
     rng = np.random.RandomState(seed)
     shape = CS.ATTN_SHAPES[key]
     return [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(dtype)
-            for _ in range(3)]
+            for _ in range(n)]
 
 
 def _shares(dtype_name, key, causal, seed, split):
@@ -141,6 +182,54 @@ def test_kernel_rounding_points_meet_the_contract(dtype_name, key, causal, seed)
 def test_one_bf16_p_or_one_tf32_product_misses_the_contract(dtype_name, key, causal):
     with pytest.raises(CS.Disagreement, match="O: .* elements outside"):
         _shares(dtype_name, key, causal, 0, split=False)
+
+
+GRADS = {"dq": "dQ", "dk": "dK", "dv": "dV"}
+
+
+def _grad_shares(dtype_name, key, causal, seed, split, grads=tuple(GRADS)):
+    """The emulated backward against the plain versions: {name: reading of
+    chip_smoke.close} for the gradients named in ``grads``, or
+    Disagreement."""
+    q, k, v, do = _inputs(key, getattr(torch, dtype_name), seed, n=4)
+    o, lse = attention.flash_fwd_reference(q, k, v, causal)
+    delta = attention.attention_delta(o, do)
+    got = emulate_backward(q, k, v, do, lse, delta, causal, split)
+    want = (attention.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal),
+            *attention.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal))
+    tol = CS.ATTN_TOL[dtype_name]["grad"]
+    tag = f"{dtype_name} {key} causal={causal} seed {seed}"
+    return {name: CS.close(f"{tag} {GRADS[name]}", g, w, *tol)
+            for name, g, w in zip(GRADS, got, want) if name in grads}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("key", SHAPES)
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_backward_rounding_points_meet_the_contract(dtype_name, key, causal, seed):
+    r = _grad_shares(dtype_name, key, causal, seed, split=True)
+    assert all(x["share"] <= 1.0 for x in r.values())
+
+
+# (dtype, split, the gradients that miss, those that still meet the
+# contract): one TF32 product misses in all three; one bf16 term of P (only
+# dS split) in dV, which P alone feeds; one bf16 term of dS (only P split)
+# in dQ and dK
+BACKWARD_CONTROLS = [("float32", False, ("dq", "dk", "dv"), ()),
+                     ("bfloat16", ("ds",), ("dv",), ("dq", "dk")),
+                     ("bfloat16", ("p",), ("dq", "dk"), ("dv",))]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("key", SHAPES)
+@pytest.mark.parametrize("dtype_name,split,misses,meets", BACKWARD_CONTROLS)
+def test_one_bf16_term_of_p_or_ds_or_one_tf32_product_misses(dtype_name, split, misses, meets,
+                                                             key, causal):
+    for name in misses:
+        with pytest.raises(CS.Disagreement, match=f"{GRADS[name]}: .* elements outside"):
+            _grad_shares(dtype_name, key, causal, 0, split, grads=(name,))
+    _grad_shares(dtype_name, key, causal, 0, split, grads=meets)
 
 
 def test_tf32_rounds_to_nearest_ties_away():
