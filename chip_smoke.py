@@ -14,10 +14,12 @@ Phases (any failure exits non-zero and prints no result line):
        on and no shuffle: at a small shape (3 clients x 40 samples, 12x12, 5
        classes), where every element must be within the tolerance (see
        TOL), and at the flagship shape (10 clients x 200 samples, 28x28, 62
-       classes, batch 20); then the kernel's and the plain version's time
-       at the flagship shape (median of 7 timed calls after 2 warm-up
-       calls, CUDA events) and the least time the card could take (the
-       bound);
+       classes, batch 20), where two runs must also agree bit for bit (a
+       copy one bit off must fail); then the kernel's and the plain
+       version's time at the flagship shape (median of 7 timed calls after
+       2 warm-up calls, CUDA events) and the least time the card could take
+       (the bound); the ptxas report must show no spill in its conv2
+       tensor-core kernels;
      - the three flash-attention kernels (forward, dQ, dK/dV), causal and
        not, at the NWP slice's shape (B 16, T 20, H 4, D 32), a ragged
        multi-tile shape (2, 333, 2, 64), a long causal shape (8, 2048, 4,
@@ -72,14 +74,13 @@ import time
 SEED = 0
 CLIENTS, SAMPLES, BATCH, SIDE, CLASSES = 10, 200, 20, 28, 62
 FEMNIST_CLIENTS, CAP, ROUNDS = 100, 200, 5
-# H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
-# cores, bf16 tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM peaks (NVIDIA data sheet, dense), one table for every kernel:
+# float32 at the card's fastest route to float32 accuracy, 3xTF32 (three
+# TF32 products per float32 product at 495 TFLOP/s, which the flash kernels
+# and the fused epoch's conv2 products run); bf16 on the tensor cores; HBM3
+# bandwidth
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
-# The flash kernels' float32 bound is the card's fastest route to float32
-# accuracy: 3xTF32, three TF32 products per float32 product at 495 TFLOP/s
-# (the forward runs it); bf16 on the tensor cores
-ATTN_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # Kernel vs plain version, both float32-accumulating in different orders.
 # Elementwise (rtol, atol): float32 is the JAX kernel's own contract
 # (tests/test_fused_sgd.py:76-81); bfloat16 rounds at the same points on both
@@ -96,12 +97,17 @@ ATTN_PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 #     ``rel_median``, and every client's within ``rel_max``: a leaf the
 #     kernel left un-updated reads 1 there;
 #   - the loss sums agree to ``loss`` relative.
-# The limits are about 10x the largest reading of sound runs over seeds 0-4
-# (``--calibrate 5`` on an H100 80GB HBM3: float32 max_abs 4.1e-5, outliers
-# 1.4e-5, rel_median 9.0e-6, rel_max 3.2e-3; bfloat16 max_abs 2.5e-3,
-# outliers 1.1e-3, rel_median 4.8e-4, rel_max 0.24), except bfloat16's
-# rel_max, held below the 1 of a skipped leaf. ``check_controls`` shows that
-# a kernel that skips the update, or one leaf's update, fails them.
+# The limits were set at about 10x the largest reading of sound runs over
+# seeds 0-4 with the kernel's earlier SIMT conv2 (``--calibrate 5`` on an H100
+# 80GB HBM3: float32 max_abs 4.1e-5, outliers 1.4e-5, rel_median 9.0e-6,
+# rel_max 3.2e-3; bfloat16 max_abs 2.5e-3, outliers 1.1e-3, rel_median
+# 4.8e-4, rel_max 0.24), except bfloat16's rel_max, held below the 1 of a
+# skipped leaf. With conv2 on the tensor cores ``--calibrate 5`` reads (H100
+# 80GB HBM3 at 700 W): float32 max_abs 1.3e-4, outliers 3.7e-5,
+# rel_median 8.0e-6, rel_max 9.4e-3, loss 9.4e-7; bfloat16 max_abs 2.5e-3,
+# outliers 1.1e-3, rel_median 3.6e-4, rel_max 0.24, loss 6.1e-4.
+# ``check_controls`` shows that a kernel that skips the update, or one leaf's
+# update, fails them.
 TOL = {"float32": {"rtol": 2e-5, "atol": 1e-5, "outliers": 1e-4, "max_abs": 4e-4,
                    "rel_median": 1e-4, "rel_max": 0.03, "loss": 1e-4},
        "bfloat16": {"rtol": 1e-3, "atol": 2e-4, "outliers": 1e-2, "max_abs": 2.5e-2,
@@ -170,20 +176,36 @@ def flash_label(mangled: str):
     return f"{m.group(1)}<{dtype}, {m.group(3)}>", int(m.group(3))
 
 
+#: the fused epoch's tensor-core kernels (csrc/fused_sgd.cu)
+CONV2_KERNELS = ("conv2_fwd_kernel", "conv2_wgrad_kernel", "conv2_dgrad_kernel")
+
+
+def conv2_label(mangled: str):
+    """``conv2_wgrad_kernel<bfloat16>`` for a conv2 tensor-core
+    instantiation's mangled name, else None."""
+    import re
+
+    m = re.search(r"\d(conv2_(?:fwd|wgrad|dgrad)_kernel)I(f|13__nv_bfloat16)E", mangled)
+    if m is None:
+        return None
+    return f"{m.group(1)}<{'float32' if m.group(2) == 'f' else 'bfloat16'}>"
+
+
 def check_spills(kernels: dict) -> list:
-    """One line per flash instantiation of a ``ptxas_kernels`` report: its
-    registers and bytes of spill. Raises RuntimeError on a spill at
-    D <= 64; a spill at D = 128 is only marked."""
+    """One line per flash or conv2 tensor-core instantiation of a
+    ``ptxas_kernels`` report: its registers and bytes of spill. Raises
+    RuntimeError on a spill in any conv2 kernel or in a flash kernel with
+    D <= 64; a flash spill at D = 128 is only marked."""
     lines, spills = [], []
     for name, x in sorted(kernels.items()):
-        found = flash_label(name)
-        if found is None:
+        flash, conv2 = flash_label(name), conv2_label(name)
+        if flash is None and conv2 is None:
             continue
-        label, dmax = found
+        label = conv2 or flash[0]
         mark = " (SPILL)" if x["spill_bytes"] else ""
         lines.append(f"{label}: {x['registers']} registers, {x['spill_bytes']} bytes of "
                      f"spill{mark}")
-        if x["spill_bytes"] and dmax <= 64:
+        if x["spill_bytes"] and (conv2 or flash[1] <= 64):
             spills.append(f"{label} spills {x['spill_bytes']} bytes")
     if spills:
         raise RuntimeError("; ".join(spills))
@@ -401,16 +423,36 @@ def compare_fused_epoch(dtype_name, device, clients, samples, side, classes, see
     return inputs, spec, r
 
 
+def check_determinism(dtype_name: str, spec, inputs) -> None:
+    """Two epochs on the same inputs give the same bits (no atomics, split
+    sums reduced in a fixed order); a copy with one bit flipped must fail."""
+    from fedml_tpu_torch.ops import fused_sgd
+
+    (p1, m1), (p2, m2) = [fused_sgd.fused_epoch(spec, *inputs) for _ in range(2)]
+    tag = f"fused_epoch[{dtype_name}] flagship, two runs"
+    for key in p1:
+        bitwise(f"{tag}: {key}", p2[key], p1[key])
+    for key in m1:
+        bitwise(f"{tag}: metric {key}", m2[key], m1[key])
+    key = "conv2d_2.weight"
+    faulted = bits(p2[key]).clone()
+    faulted.view(-1)[0] ^= 1
+    must_fail(f"{tag}: {key} one bit off",
+              lambda: bitwise("control", faulted.view(p2[key].dtype), p1[key]))
+    log(f"{tag}: bitwise equal; a copy one bit off fails")
+
+
 def check_fused_epoch(dtype_name: str, device) -> dict:
     """The kernel against its plain version at a small shape (every element
-    within tolerance) and at the flagship shape; times both at the flagship
-    shape and computes the bound."""
+    within tolerance) and at the flagship shape, where two runs must agree
+    bit for bit; times both at the flagship shape and computes the bound."""
     from fedml_tpu_torch.ops import fused_sgd
 
     tol = TOL[dtype_name]
     compare_fused_epoch(dtype_name, device, 3, 40, 12, 5, SEED, 0.0)
     inputs, spec, readings = compare_fused_epoch(
         dtype_name, device, CLIENTS, SAMPLES, SIDE, CLASSES, SEED, tol["outliers"])
+    check_determinism(dtype_name, spec, inputs)
     max_abs = readings["max_abs"]
     ms = cuda_ms(lambda: fused_sgd.fused_epoch(spec, *inputs))
     plain_ms = cuda_ms(lambda: fused_sgd.fused_epoch_reference(spec, *inputs),
@@ -600,7 +642,7 @@ def time_attention(dtype_name, key, inputs) -> dict:
         lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True))
     out = {}
     for name, (kernel, plain) in runs.items():
-        flop_ms = flops[name] / ATTN_PEAK_FLOPS[dtype_name] * 1e3
+        flop_ms = flops[name] / PEAK_FLOPS[dtype_name] * 1e3
         byte_ms = nbytes[name] / PEAK_BYTES * 1e3
         out[name] = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
                      "bound_ms": max(flop_ms, byte_ms),
@@ -802,6 +844,8 @@ def main(argv=None) -> int:
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": None,
+        # its kernels on the tensor cores (each on mma.sync, in both types)
+        "parts": [f"fused_sgd.cu::{k}" for k in CONV2_KERNELS],
     }]
     replaces = {"flash_fwd": "fedml_tpu/ops/attention.py:142",
                 "flash_bwd_dq": "fedml_tpu/ops/attention.py:281",

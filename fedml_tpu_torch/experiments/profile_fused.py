@@ -116,6 +116,7 @@ def profile_rounds(run_round, rounds: int, label: str) -> None:
 
 # kernel kinds by a substring of the profiler's kernel name, first match wins
 KINDS = (("flash attention (csrc/flash_attention.cu)", ("flash_fwd_kernel", "flash_bwd_")),
+         ("fused epoch conv2 on the tensor cores (csrc/fused_sgd.cu)", ("conv2_",)),
          ("GEMM (cuBLAS, CUTLASS)", ("gemm", "splitKreduce")),
          ("reduction", ("reduce_kernel",)),
          ("elementwise", ("elementwise_kernel",)),

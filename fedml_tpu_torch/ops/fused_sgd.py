@@ -216,6 +216,15 @@ def _pool_route(dd, candidates, pooled):
     return routed
 
 
+def _conv2_product(equation, a, b):
+    """One of conv2's three products in the plain version (the forward, the
+    weight gradient, one offset of the input gradient): ``torch.einsum`` in
+    float32 on operands that hold compute-dtype values. The kernel takes the
+    same products on the tensor cores (3xTF32 in float32); the numerics test
+    puts that arithmetic here."""
+    return torch.einsum(equation, a, b)
+
+
 def fused_epoch_reference(spec: FusedEpochSpec, params: dict, x, y, seeds):
     """Plain PyTorch version of the fused epoch, batched over clients.
 
@@ -254,7 +263,7 @@ def fused_epoch_reference(spec: FusedEpochSpec, params: dict, x, y, seeds):
         a1 = torch.relu(R(R(torch.einsum("zbhwk,zkc->zbhwc", p1, w1))
                           + b1[:, None, None, None]))
         p2 = torch.cat([a1[:, :, di:di + H2, dj:dj + W2] for di, dj in taps], -1)
-        a2 = torch.relu(R(R(torch.einsum("zbhwk,zkn->zbhwn", p2, w2))
+        a2 = torch.relu(R(R(_conv2_product("zbhwk,zkn->zbhwn", p2, w2))
                           + b2[:, None, None, None]))
         win = a2.reshape(cl, b, Hp, 2, Wp, 2, 64)
         s00, s01 = win[:, :, :, 0, :, 0], win[:, :, :, 0, :, 1]
@@ -300,11 +309,11 @@ def fused_epoch_reference(spec: FusedEpochSpec, params: dict, x, y, seeds):
         for (u, v), r in zip(((0, 0), (0, 1), (1, 0), (1, 1)), routed):
             da2[:, :, :, u, :, v] = r
         dz2 = da2.reshape(cl, b, H2, W2, 64) * (a2 > 0).float()
-        gw2 = torch.einsum("zbhwk,zbhwn->zkn", p2, dz2)
+        gw2 = _conv2_product("zbhwk,zbhwn->zkn", p2, dz2)
         gb2 = dz2.sum((1, 2, 3))
         da1 = torch.zeros_like(a1)
         for k, (di, dj) in enumerate(taps):
-            t = R(torch.einsum("zbhwn,zcn->zbhwc", dz2, w2[:, 32 * k:32 * (k + 1)]))
+            t = R(_conv2_product("zbhwn,zcn->zbhwc", dz2, w2[:, 32 * k:32 * (k + 1)]))
             padded = torch.zeros_like(a1)
             padded[:, :, di:di + H2, dj:dj + W2] = t
             da1 = R(da1 + padded)

@@ -302,3 +302,49 @@ def test_cuda_kernel_matches_plain_version(dtype):
         torch.testing.assert_close(kp[k], pp[k], rtol=rtol, atol=atol)
     for k in km:
         torch.testing.assert_close(km[k], pm[k], rtol=mtol, atol=mtol)
+
+
+def test_chip_smoke_fails_on_any_spill_in_a_conv2_kernel():
+    """chip_smoke.py labels each conv2 tensor-core instantiation of
+    csrc/fused_sgd.cu and fails on a spill in any of them."""
+    cs = _chip_smoke()
+    prefix = "_ZN45_GLOBAL__N__b2a06293_12_fused_sgd_cu_ef83f7e9"
+    kernels = {
+        prefix + "16conv2_fwd_kernelIfEEvNS_3GeoENS_4BufsIT_EE": {"registers": 81,
+                                                                   "spill_bytes": 0},
+        prefix + "18conv2_wgrad_kernelI13__nv_bfloat16EEvNS_3GeoENS_4BufsIT_EEi":
+            {"registers": 117, "spill_bytes": 0},
+        prefix + "12sumsq_kernelEPKfiPf": {"registers": 32, "spill_bytes": 8}}
+    assert [cs.conv2_label(k) for k in sorted(kernels)] == [
+        None, "conv2_fwd_kernel<float32>", "conv2_wgrad_kernel<bfloat16>"]
+    assert cs.check_spills(kernels) == [
+        "conv2_fwd_kernel<float32>: 81 registers, 0 bytes of spill",
+        "conv2_wgrad_kernel<bfloat16>: 117 registers, 0 bytes of spill"]
+    dgrad = prefix + "18conv2_dgrad_kernelIfEEvNS_3GeoENS_4BufsIT_EE"
+    with pytest.raises(RuntimeError, match=r"conv2_dgrad_kernel<float32> spills 4 bytes"):
+        cs.check_spills({**kernels, dgrad: {"registers": 255, "spill_bytes": 4}})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chip_smoke_determinism_check_passes_equal_runs_and_rejects_others(dtype, monkeypatch):
+    """chip_smoke.py's two-run check: the plain version run twice passes;
+    a second run one ulp off in one leaf fails."""
+    cs = _chip_smoke()
+    x, y, seeds = _data()
+    _, spec = _specs(dtype)
+    inputs = (flax_to_torch(_flax_params(x)), torch.from_numpy(x), torch.from_numpy(y),
+              torch.from_numpy(seeds))
+    cs.check_determinism(dtype, spec, inputs)
+    plain, calls = fused_sgd.fused_epoch, []
+
+    def second_run_off(*args):
+        params, metrics = plain(*args)
+        calls.append(None)
+        if len(calls) == 2:
+            w = params["linear_2.bias"]
+            params["linear_2.bias"] = torch.nextafter(w, w + 1)
+        return params, metrics
+
+    monkeypatch.setattr(fused_sgd, "fused_epoch", second_run_off)
+    with pytest.raises(cs.Disagreement, match="linear_2.bias"):
+        cs.check_determinism(dtype, spec, inputs)
