@@ -51,7 +51,22 @@ Phases (any failure exits non-zero and prints no result line):
        NWPTrainer, 50 clients a round, batch 16, lr 0.3, 5 rounds;
      each checked for finite parameters, a falling training loss, and every
      kernel of the path launched (counts set to 0 just before the run, read
-     just after).
+     just after);
+  4. the server rules and client optimizers, each run through FedAvgAPI or
+     its CLI with the launch counts read as in phase 3:
+     - NWP with FedAdam (server Adam, lr 1e-2) at the widths of phase 3 for
+       5 rounds: the loss falls, all three flash kernels launch; the median
+       round, the aggregator call's device time (CUDA events around it) and
+       the server step's alone beside its bound;
+     - fused FEMNIST: FedOpt with server SGD at lr 1 against FedAvg (max
+       difference under 1e-6) and FedNova against FedAvg (equal taus; under
+       1e-4), 2 rounds, each started from the same globals; 5 rounds of
+       FedYogi (the loss falls; the server step timed as for NWP), and the
+       robust CLI (``main_fedavg_robust``) with one attacker: finite losses
+       and the backdoor metrics printed;
+     - engine FEMNIST: client momentum 0.9, wd 1e-4 and FedProx mu 0.01
+       under FedNova, then client Adam (AMSGrad, lr 1e-3), 2 rounds each:
+       finite parameters and a falling loss.
 
 The last three lines: the card's name and power limit, a JSON object of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -212,10 +227,10 @@ def check_spills(kernels: dict) -> list:
     return lines
 
 
-def device_kernels(fn) -> list:
-    """The names of the kernels that ``fn()`` runs on the card, from
-    torch.profiler (after one untraced call; a trace with no device event
-    at all is retried)."""
+def device_events(fn) -> list:
+    """The profiler's events of the kernels that ``fn()`` runs on the card
+    (after one untraced call; a trace with no device event at all is
+    retried)."""
     import torch
 
     fn()
@@ -225,11 +240,16 @@ def device_kernels(fn) -> list:
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-        if names:
+        events = [e for e in prof.events()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        if events:
             break
-    return names
+    return events
+
+
+def device_kernels(fn) -> list:
+    """The names of the kernels that ``fn()`` runs on the card."""
+    return [e.name for e in device_events(fn)]
 
 
 def check_one_launch(device) -> list:
@@ -688,67 +708,236 @@ def capped(ds, cap, test_cap=256):
         test_global=(ds.test_global[0][:test_cap], ds.test_global[1][:test_cap]))
 
 
-def run_main_path(ds, fused: bool) -> list:
-    import math
-
-    import torch
-
+def femnist_api(ds, fused: bool, aggregator: str = "fedavg", **overrides):
+    """FedAvgAPI on the card for the FEMNIST flagship (``overrides`` replace
+    FedConfig fields)."""
     from fedml_tpu_torch import ClassificationTrainer, FedAvgAPI, FedConfig, create_model
 
     cfg = FedConfig(dataset="femnist", model="cnn", client_num_in_total=FEMNIST_CLIENTS,
                     client_num_per_round=10, batch_size=BATCH, lr=0.1, grad_clip=1.0,
                     epochs=1, comm_round=ROUNDS, seed=SEED, fused_kernel=fused)
     trainer = ClassificationTrainer(create_model("cnn", output_dim=ds.class_num))
-    api = FedAvgAPI(ds, cfg, trainer, device="cuda")
-    hist = api.train()
-    for name, t in api.global_variables.items():
-        if not torch.isfinite(t).all():
-            raise RuntimeError(f"fused={fused}: global {name} is not finite")
-    losses = [h["loss_sum"] / h["total"] for h in hist]
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise RuntimeError(f"fused={fused}: training loss did not fall: {losses}")
-    for h, loss in zip(hist, losses):
-        log(f"  {'fused ' if fused else 'engine'} round {h['round']}: "
-            f"{h['round_time'] * 1e3:.2f} ms, train loss {loss:.4f}, "
-            f"Test/Acc {h['Test/Acc']:.4f}")
-    return hist
+    return FedAvgAPI(ds, cfg.replace(**overrides), trainer, aggregator_name=aggregator,
+                     device="cuda")
 
 
-def run_nwp_path() -> list:
-    """FedAvg on the StackOverflow NWP surrogate with the transformer LM at
-    full width, through FedAvgAPI on the card."""
+def check_trained(tag: str, api, hist) -> list:
+    """Finite globals and a training loss that fell; returns the losses."""
     import math
 
     import torch
 
-    from fedml_tpu_torch import FedAvgAPI, FedConfig, NWPTrainer, create_model, load_dataset
+    for name, t in api.global_variables.items():
+        if not torch.isfinite(t).all():
+            raise RuntimeError(f"{tag}: global {name} is not finite")
+    losses = [h["loss_sum"] / h["total"] for h in hist]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"{tag}: training loss did not fall: {losses}")
+    return losses
+
+
+def run_main_path(ds, fused: bool, aggregator: str = "fedavg", tag=None, **overrides):
+    tag = tag or ("fused" if fused else "engine")
+    api = femnist_api(ds, fused, aggregator, **overrides)
+    hist = api.train()
+    losses = check_trained(tag, api, hist)
+    for h, loss in zip(hist, losses):
+        log(f"  {tag} round {h['round']}: {h['round_time'] * 1e3:.2f} ms, train loss "
+            f"{loss:.4f}, Test/Acc {h['Test/Acc']:.4f}")
+    return hist
+
+
+def load_nwp():
+    from fedml_tpu_torch import load_dataset
 
     t0 = time.perf_counter()
     ds = load_dataset("stackoverflow_nwp", client_num_in_total=NWP_CLIENTS, seed=SEED)
     log(f"stackoverflow_nwp surrogate: {NWP_CLIENTS} clients, {ds.train.total_samples} "
         f"train windows of {ds.train.x.shape[2]} tokens, padded width {ds.train.n_max}, "
         f"built in {time.perf_counter() - t0:.1f} s")
+    return ds
+
+
+class TimedAggregator:
+    """An aggregator whose every call is bracketed by CUDA events."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.events = []
+
+    def init_state(self, global_variables):
+        return self.inner.init_state(global_variables)
+
+    def __call__(self, *args):
+        import torch
+
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = self.inner(*args)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end in self.events]
+
+
+def timed_aggregation(api, trainer, cfg) -> TimedAggregator:
+    """Rebuild ``api``'s round around a TimedAggregator of its aggregator."""
+    from fedml_tpu_torch.algorithms.engine import build_round_fn
+
+    timed = TimedAggregator(api.aggregator)
+    api.round_fn = build_round_fn(trainer, cfg, timed, device=api.device)
+    return timed
+
+
+def time_server_step(tag: str, api) -> dict:
+    """The FedOpt server step alone on the run's final globals and state,
+    with a mean 1e-3 away from the globals: the median of 7 calls between
+    CUDA events, the sum of its kernels' device time (torch.profiler), and
+    its bound: params, mean and each moment read, params and each moment
+    written, over the card's memory rate."""
+    import torch
+
+    gv, state = api.global_variables, api.agg_state
+    gen = torch.Generator(device=api.device).manual_seed(SEED)
+    avg = {k: v + 1e-3 * torch.randn(v.shape, generator=gen, device=api.device)
+           for k, v in gv.items()}
+    def step():
+        return api.aggregator.server_step(gv, avg, state)
+
+    ms = cuda_ms(step)
+    kernels = device_events(step)
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    n = sum(t.numel() for t in gv.values())
+    moments = sum(1 for name in ("mu", "nu", "trace", "sum") if name in state)
+    nbytes = (2 + moments) * 4 * n + (1 + moments) * 4 * n
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"{tag} server step ({n} parameters): {ms:.4f} ms between CUDA events, "
+        f"{len(kernels)} kernels busy {busy:.4f} ms (profiler); bound {bound:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB over {PEAK_BYTES / 1e12:.2f} TB/s)")
+    return {"ms": ms, "busy_ms": busy, "bound_ms": bound, "params": n}
+
+
+def run_nwp_path(ds, aggregator: str = "fedavg", tag: str = "nwp", **overrides) -> list:
+    """The StackOverflow NWP surrogate with the transformer LM at full
+    width, through FedAvgAPI on the card; with ``fedopt`` the aggregator
+    calls are timed and then the server step alone."""
+    from fedml_tpu_torch import FedAvgAPI, FedConfig, NWPTrainer, create_model
+
     cfg = FedConfig(dataset="stackoverflow_nwp", model="transformer_nwp",
                     client_num_in_total=NWP_CLIENTS, client_num_per_round=NWP_PER_ROUND,
                     batch_size=NWP_BATCH, lr=NWP_LR, grad_clip=1.0, epochs=1,
-                    comm_round=ROUNDS, seed=SEED)
-    module = create_model("transformer_nwp", output_dim=ds.class_num)
-    api = FedAvgAPI(ds, cfg, NWPTrainer(module), device="cuda")
+                    comm_round=ROUNDS, seed=SEED).replace(**overrides)
+    trainer = NWPTrainer(create_model("transformer_nwp", output_dim=ds.class_num))
+    api = FedAvgAPI(ds, cfg, trainer, aggregator_name=aggregator, device="cuda")
+    timed = timed_aggregation(api, trainer, cfg) if aggregator == "fedopt" else None
     n_params = sum(t.numel() for t in api.global_variables.values())
     hist = api.train()
-    for name, t in api.global_variables.items():
-        if not torch.isfinite(t).all():
-            raise RuntimeError(f"nwp: global {name} is not finite")
-    losses = [h["loss_sum"] / h["total"] for h in hist]
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise RuntimeError(f"nwp: training loss did not fall: {losses}")
+    losses = check_trained(tag, api, hist)
     for h, loss in zip(hist, losses):
-        log(f"  nwp round {h['round']}: {h['round_time'] * 1e3:.2f} ms, train loss "
-            f"{loss:.4f}, Test/Acc {h['Test/Acc']:.4f}, Test/Loss {h['Test/Loss']:.4f}")
-    log(f"nwp path: transformer_nwp {n_params} parameters, median round "
+        test = (f", Test/Acc {h['Test/Acc']:.4f}, Test/Loss {h['Test/Loss']:.4f}"
+                if "Test/Acc" in h else "")
+        log(f"  {tag} round {h['round']}: {h['round_time'] * 1e3:.2f} ms, train loss "
+            f"{loss:.4f}{test}")
+    log(f"{tag} path: transformer_nwp {n_params} parameters, median round "
         f"{statistics.median([h['round_time'] * 1e3 for h in hist[1:]]):.2f} ms over rounds "
         f"1-{len(hist) - 1}")
+    if timed is not None:
+        agg_ms = timed.ms()
+        log(f"{tag} aggregator call (weighted mean of {NWP_PER_ROUND} clients + server "
+            f"step), device ms a round: {[round(t, 4) for t in agg_ms]}, median of rounds "
+            f"1-{len(agg_ms) - 1} {statistics.median(agg_ms[1:]):.4f}")
+        time_server_step(tag, api)
     return hist
+
+
+def with_launches(tag: str, kernels, fn):
+    """``fn()`` with the launch counts of ``kernels`` set to 0 just before
+    and read just after; raises if one of them launched no time. Returns
+    (fn's result, {kernel: launches})."""
+    from fedml_tpu_torch.ops import attention, fused_sgd
+
+    fused_sgd.launches = 0
+    for name in attention.launches:
+        attention.launches[name] = 0
+    out = fn()
+    counts = {"fused_epoch": fused_sgd.launches, **attention.launches}
+    counts = {k: counts[k] for k in kernels}
+    missing = [k for k, c in counts.items() if c <= 0]
+    if missing:
+        raise RuntimeError(f"the {tag} path launched {missing} no time")
+    log(f"{tag} path launches: {counts}")
+    return out, counts
+
+
+def max_diff(a: dict, b: dict) -> float:
+    return max((a[k] - b[k]).abs().max().item() for k in a)
+
+
+def check_fused_server_rules(ds, launches: dict) -> None:
+    """Phase 4's fused FEMNIST runs; adds each run's launches to
+    ``launches``."""
+    import math
+
+    from fedml_tpu_torch.experiments import main_fedavg_robust
+
+    # each round of a pair starts both rules from the same globals: chained
+    # rounds of the CNN amplify the first round's 1e-10 rounding of
+    # g - (g - avg) to ~1e-6 (the plain version on the CPU, 2 rounds)
+    for name, limit, overrides in (
+            ("fedopt", 1e-6, dict(server_optimizer="sgd", server_lr=1.0)),
+            ("fednova", 1e-4, {})):
+        base, other = femnist_api(ds, True), femnist_api(ds, True, name, **overrides)
+        diffs, n_base, n_other = [], 0, 0
+        for r in range(2):
+            other.global_variables = {k: v.clone() for k, v in base.global_variables.items()}
+            _, n = with_launches(f"fused fedavg, round {r}", ["fused_epoch"],
+                                 lambda: base.train_one_round(r))
+            n_base += n["fused_epoch"]
+            _, n = with_launches(f"fused {name}, round {r}", ["fused_epoch"],
+                                 lambda: other.train_one_round(r))
+            n_other += n["fused_epoch"]
+            diffs.append(max_diff(other.global_variables, base.global_variables))
+        log(f"fused {name} {overrides} vs fedavg, 2 rounds, each from the same globals: "
+            f"max abs difference {[f'{d:.3e}' for d in diffs]} (limit {limit:.0e})")
+        if not max(diffs) < limit:
+            raise RuntimeError(f"fused {name} differs from fedavg by {max(diffs):.3e}")
+        launches[f"femnist fused fedavg ({name} pair)"] = n_base
+        launches[f"femnist fused {name}"] = n_other
+
+    def yogi():
+        api = femnist_api(ds, True, "fedopt", server_optimizer="yogi", server_lr=0.01)
+        timed = timed_aggregation(api, api.trainer, api.cfg)
+        hist = api.train()
+        losses = check_trained("fused fedyogi", api, hist)
+        log(f"fused fedyogi (server lr 0.01): train loss {[round(v, 4) for v in losses]}, "
+            f"median round {statistics.median([h['round_time'] * 1e3 for h in hist[1:]]):.2f} "
+            f"ms, aggregator call device ms {[round(t, 4) for t in timed.ms()]}")
+        time_server_step("fused fedyogi", api)
+
+    _, n = with_launches("fused fedyogi", ["fused_epoch"], yogi)
+    launches["femnist fused fedyogi"] = n["fused_epoch"]
+
+    # the robust CLI: 30 clients give a padded width of 360, a multiple of
+    # the batch, as the fused kernel needs
+    argv = ["--dataset", "femnist", "--model", "cnn", "--client_num_in_total", "30",
+            "--client_num_per_round", "10", "--batch_size", str(BATCH), "--lr", "0.1",
+            "--comm_round", "3", "--frequency_of_the_test", "3", "--fused_kernel", "1",
+            "--attacker_num", "1", "--seed", str(SEED), "--device", "cuda"]
+    hist, n = with_launches("fused robust CLI", ["fused_epoch"],
+                            lambda: main_fedavg_robust.main(argv))
+    values = [h["loss_sum"] for h in hist] + [hist[-1]["Test/Loss"]]
+    if not all(math.isfinite(v) for v in values):
+        raise RuntimeError(f"robust CLI: non-finite losses {values}")
+    log(f"fused robust CLI: train loss {[round(h['loss_sum'] / h['total'], 4) for h in hist]}, "
+        f"Test/Loss {hist[-1]['Test/Loss']:.4f}, MainTask/Acc "
+        f"{hist[-1]['MainTask/Acc']:.4f}, Backdoor/SuccessRate "
+        f"{hist[-1]['Backdoor/SuccessRate']:.4f}")
+    launches["femnist fused robust CLI"] = n["fused_epoch"]
 
 
 def main(argv=None) -> int:
@@ -803,7 +992,7 @@ def main(argv=None) -> int:
     log(f"flash_fwd on split views under the profiler: {check_one_launch(dev)}")
     log(f"flash_bwd on split views under the profiler: {check_backward_launches(dev)}")
 
-    # ---- phase 3: the main path through FedAvgAPI
+    # ---- phase 3: the main paths through FedAvgAPI
     from fedml_tpu_torch import load_dataset
 
     t0 = time.perf_counter()
@@ -811,25 +1000,33 @@ def main(argv=None) -> int:
     log(f"femnist surrogate: {FEMNIST_CLIENTS} clients (cut from 3400), capped at "
         f"{CAP} samples, padded width {ds.train.n_max}, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    fused_sgd.launches = 0
-    fused_hist = run_main_path(ds, fused=True)
-    launches = fused_sgd.launches
-    if launches <= 0:
-        raise RuntimeError("the fused main path launched the fused_sgd kernel no time")
+    fused_launches, flash_launches = {}, {}
+    fused_hist, n = with_launches("femnist fused fedavg", ["fused_epoch"],
+                                  lambda: run_main_path(ds, fused=True))
+    fused_launches["femnist fused fedavg"] = n["fused_epoch"]
     engine_hist = run_main_path(ds, fused=False)
     for name, hist in (("fused", fused_hist), ("engine", engine_hist)):
         steady = [h["round_time"] * 1e3 for h in hist[1:]]
         log(f"{name} path: median round {statistics.median(steady):.2f} ms over rounds "
             f"1-{len(hist) - 1}, final Test/Acc {hist[-1]['Test/Acc']:.4f}")
 
-    for name in attention.launches:
-        attention.launches[name] = 0
-    run_nwp_path()
-    attn_launches = dict(attention.launches)
-    missing = [n for n, c in attn_launches.items() if c <= 0]
-    if missing:
-        raise RuntimeError(f"the NWP main path launched {missing} no time")
-    log(f"nwp path launches: {attn_launches}")
+    nwp = load_nwp()
+    flash = list(attention.launches)
+    _, flash_launches["nwp fedavg"] = with_launches("nwp fedavg", flash,
+                                                    lambda: run_nwp_path(nwp))
+
+    # ---- phase 4: server rules and client optimizers
+    _, flash_launches["nwp fedadam"] = with_launches(
+        "nwp fedadam", flash,
+        lambda: run_nwp_path(nwp, "fedopt", "nwp fedadam", server_optimizer="adam",
+                             server_lr=1e-2, frequency_of_the_test=ROUNDS))
+    run_main_path(ds, False, "fednova", tag="engine fednova+momentum+wd+fedprox",
+                  comm_round=2, momentum=0.9, wd=1e-4, fedprox_mu=0.01)
+    run_main_path(ds, False, tag="engine amsgrad", comm_round=2, client_optimizer="adam",
+                  lr=1e-3)
+    check_fused_server_rules(ds, fused_launches)
+    launches = sum(fused_launches.values())
+    attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
 
     f32 = numbers["float32"]
     kernels = [{
@@ -838,6 +1035,7 @@ def main(argv=None) -> int:
         "source": "fedml_tpu_torch/csrc/fused_sgd.cu",
         "replaces": "fedml_tpu/ops/fused_sgd.py:461",
         "launches": launches,
+        "launches_by_path": fused_launches,
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -854,6 +1052,7 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": "fedml_tpu_torch/csrc/flash_attention.cu",
                         "replaces": where, "launches": attn_launches[name],
+                        "launches_by_path": {p: c[name] for p, c in flash_launches.items()},
                         **attn["float32"][name]})
     log(f"bfloat16 fused_epoch: {json.dumps(numbers['bfloat16'])}")
     log(f"bfloat16 flash attention at shape c: {json.dumps(attn['bfloat16'])}")

@@ -7,8 +7,10 @@ loop and the fused local-SGD epoch as a hand-written CUDA kernel
 (ops/fused_sgd.py, csrc/fused_sgd.cu) — and StackOverflow next-word
 prediction with the transformer LM and NWPTrainer, its attention the
 flash-attention forward and backward as hand-written CUDA kernels
-(ops/attention.py, csrc/flash_attention.cu). Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+(ops/attention.py, csrc/flash_attention.cu) — and FedML's algorithm zoo
+on both: FedOpt, FedNova and robust aggregation, FedProx, the momentum,
+weight-decay and AMSGrad clients, and their CLIs. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, client_sampling

@@ -1,10 +1,20 @@
-"""Server aggregation (PyTorch form of the FedAvg part of
+"""Server aggregation rules (PyTorch form of
 ``fedml_tpu/algorithms/aggregators.py``).
 
 An aggregator is a callable
     (global_variables, LocalResult, weights, rng, state) -> (new_global, state)
 where ``LocalResult.variables`` is a dict of client-stacked tensors [C, ...].
-Only FedAvg is ported; FedOpt, robust and FedNova are in ROADMAP.md Queue 1.
+
+  FedAvgAggregator   <- reference FedAVGAggregator.py:58-87 (weighted mean)
+  FedOptAggregator   <- reference FedOptAggregator.py:94-123 (a server
+                        optimizer on the pseudo-gradient w_global - w_avg)
+  RobustAggregator   <- reference robust_aggregation.py:32-55 (per-client
+                        delta norm clipping + weak-DP gaussian noise)
+  FedNovaAggregator  <- reference fednova.py:79-155 (normalized averaging)
+
+The port's variables are its parameters (its models keep no buffers), so
+every rule acts on every variable. ``rng`` is the round's CPU generator; an
+aggregator state is a dict of tensors on the device.
 """
 
 from __future__ import annotations
@@ -13,6 +23,9 @@ from typing import Any
 
 import torch
 
+from fedml_tpu_torch.algorithms.engine import (Optimizer, apply_updates,
+                                               bias_correction, scaled, sgd,
+                                               torch_adagrad)
 from fedml_tpu_torch.core.config import FedConfig
 from fedml_tpu_torch.utils.pytree import tree_weighted_mean
 
@@ -65,7 +78,157 @@ class FedAvgAggregator:
         return tree_weighted_mean(result.variables, weights), state
 
 
-AGGREGATORS = {"fedavg": FedAvgAggregator}
+def _scale_by_moments(b1: float, b2: float, eps: float, initial: float,
+                      second) -> Optimizer:
+    """optax's ``ScaleByAdamState`` family (eps_root 0): moments start at
+    ``initial``, the first is an EMA of g, the second ``second(g, nu)``;
+    the update is the bias-corrected mu / (sqrt(nu) + eps)."""
+
+    def init(params):
+        device = next(iter(params.values())).device
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
+                "mu": {k: torch.full_like(p, initial) for k, p in params.items()},
+                "nu": {k: torch.full_like(p, initial) for k, p in params.items()}}
+
+    def update(updates, state, params=None):
+        mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in updates.items()}
+        nu = {k: second(g, state["nu"][k]) for k, g in updates.items()}
+        t = state["count"] + 1
+        bc1, bc2 = bias_correction(b1, t), bias_correction(b2, t)
+        out = {k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps) for k in mu}
+        return out, {"count": t, "mu": mu, "nu": nu}
+
+    return Optimizer(init, update)
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
+    """optax.scale_by_adam."""
+    return _scale_by_moments(b1, b2, eps, 0.0,
+                             lambda g, v: (1 - b2) * (g * g) + b2 * v)
+
+
+def scale_by_yogi(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-3,
+                  initial: float = 1e-6) -> Optimizer:
+    """optax.scale_by_yogi: the second moment moves by
+    (1 - b2) * sign(v - g^2) * g^2, with sign(0) = 0."""
+    return _scale_by_moments(
+        b1, b2, eps, initial,
+        lambda g, v: v - (1 - b2) * torch.sign(v - g * g) * (g * g))
+
+
+def make_server_optimizer(cfg: FedConfig) -> Optimizer:
+    """The JAX package's server optimizers (reference OptRepo,
+    fedopt/optrepo.py:7-64), each with optax's numerics: ``sgd`` (with
+    ``server_momentum``), ``adam`` (torch.optim.Adam's defaults), ``yogi``
+    (Reddi et al.'s FedYogi, optax.yogi) and torch-exact ``adagrad``."""
+    name = cfg.server_optimizer.lower()
+    if name == "sgd":
+        return sgd(cfg.server_lr, cfg.server_momentum)
+    if name == "adam":
+        return scaled(scale_by_adam(), -cfg.server_lr)
+    if name == "yogi":
+        return scaled(scale_by_yogi(), -cfg.server_lr)
+    if name == "adagrad":
+        return torch_adagrad(cfg.server_lr)
+    raise ValueError(f"unknown server_optimizer {cfg.server_optimizer!r}")
+
+
+class FedOptAggregator:
+    """FedOpt family: the pseudo-gradient w_global - w_avg drives a server
+    optimizer (FedAdam, FedYogi, FedAdagrad, server SGD with momentum =
+    FedAvgM). With server SGD at lr 1.0 it reduces to FedAvg (reference
+    set_model_global_grads, FedOptAggregator.py:109)."""
+
+    def __init__(self, cfg: FedConfig):
+        self.cfg = cfg
+        self.opt = make_server_optimizer(cfg)
+
+    def init_state(self, global_variables) -> dict:
+        return self.opt.init(global_variables)
+
+    def __call__(self, global_variables, result, weights, rng, state):
+        avg = tree_weighted_mean(result.variables, weights)
+        return self.server_step(global_variables, avg, state)
+
+    def server_step(self, global_variables, avg, state):
+        """(new_global, state) from the round's weighted mean ``avg``."""
+        pseudo_grad = {k: g - avg[k] for k, g in global_variables.items()}
+        updates, state = self.opt.update(pseudo_grad, state, global_variables)
+        return apply_updates(global_variables, updates), state
+
+
+class RobustAggregator:
+    """Clip each client's delta to ``norm_bound``, take the weighted mean,
+    then add N(0, stddev^2) weak-DP noise (reference
+    robust_aggregation.py:37-55).
+
+    JAX's threefry noise cannot be reproduced, so the noise is drawn on the
+    device from a generator seeded by the round generator ``rng`` (after the
+    clients' draws): a pure function of (seed, round)."""
+
+    def __init__(self, cfg: FedConfig):
+        self.cfg = cfg
+
+    def init_state(self, global_variables):
+        return ()
+
+    def __call__(self, global_variables, result, weights, rng, state):
+        avg = tree_weighted_mean(self._clipped(global_variables, result), weights)
+        return self._add_noise(avg, rng), state
+
+    def _clipped(self, global_variables, result):
+        deltas = {k: v - global_variables[k][None] for k, v in result.variables.items()}
+        sq = sum((d * d).reshape(d.shape[0], -1).sum(1) for d in deltas.values())
+        nrm = torch.sqrt(sq + 1e-12)
+        scale = torch.clamp(self.cfg.norm_bound / nrm, max=1.0)
+        return {k: global_variables[k][None]
+                + d * scale.reshape((-1,) + (1,) * (d.dim() - 1))
+                for k, d in deltas.items()}
+
+    def _add_noise(self, avg, rng):
+        device = next(iter(avg.values())).device
+        seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=rng))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return {k: v + self.cfg.stddev * torch.randn(v.shape, generator=gen,
+                                                     device=device, dtype=v.dtype)
+                for k, v in avg.items()}
+
+
+class FedNovaAggregator:
+    """FedNova normalized averaging (Wang et al. 2020; reference
+    fednova.py:79-155): each client's delta is divided by its local step
+    count tau_i, and the weighted mean is rescaled by
+    tau_eff = sum_i w_i tau_i:
+
+        w_new = w_global - tau_eff * sum_i w_i (w_global - w_i) / tau_i
+    """
+
+    def __init__(self, cfg: FedConfig):
+        self.cfg = cfg
+
+    def init_state(self, global_variables):
+        return ()
+
+    def __call__(self, global_variables, result, weights, rng, state):
+        w = weights / weights.sum()
+        tau = torch.clamp(result.num_steps.float(), min=1.0)
+        tau_eff = (w * tau).sum()
+
+        def combine(stack, g):
+            shape = (-1,) + (1,) * (stack.dim() - 1)
+            d = (g[None] - stack) / tau.reshape(shape)
+            return g - tau_eff * (d * w.reshape(shape).to(d.dtype)).sum(0)
+
+        return {k: combine(v, global_variables[k])
+                for k, v in result.variables.items()}, state
+
+
+AGGREGATORS = {
+    "fedavg": FedAvgAggregator,
+    "fedopt": FedOptAggregator,
+    "robust": RobustAggregator,
+    "fednova": FedNovaAggregator,
+}
 
 
 def make_aggregator(name: str, cfg: FedConfig):

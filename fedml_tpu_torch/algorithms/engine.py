@@ -61,34 +61,141 @@ def draw_client_randomness(rng: torch.Generator, counts, n_max: int,
     return perms, seeds
 
 
-def make_local_optimizer(cfg: FedConfig) -> Callable:
-    """Client optimizer (reference my_model_trainer_classification.py:25-46):
-    optax's ``clip_by_global_norm`` then plain SGD, as
-    ``update(params, grads) -> new params``. Momentum, weight decay and Adam
-    are not ported yet."""
-    if cfg.client_optimizer != "sgd" or cfg.momentum or cfg.wd:
-        raise NotImplementedError(
-            "only plain SGD (momentum 0, wd 0) is ported to fedml_tpu_torch")
-    clip, lr = cfg.grad_clip, cfg.lr
+class Optimizer(NamedTuple):
+    """optax's ``GradientTransformation`` over the port's dicts of tensors:
+    ``init(params) -> state`` and ``update(updates, state, params) ->
+    (updates, state)``. A state is a flat dict named as optax's fields
+    (``count``, ``mu``, ``nu``, ``nu_max``, ``trace``; ``sum`` for
+    Adagrad's accumulator), each moment a dict of tensors beside the params
+    (``utils/convert.py::optax_state_to_torch`` reads optax's)."""
+
+    init: Callable
+    update: Callable
+
+
+def apply_updates(params: dict, updates: dict) -> dict:
+    return {k: p + updates[k] for k, p in params.items()}
+
+
+def zeros_like(params: dict) -> dict:
+    return {k: torch.zeros_like(p) for k, p in params.items()}
+
+
+def scaled(transform: Optimizer, step: float) -> Optimizer:
+    """``optax.chain(transform, optax.scale(step))``."""
+
+    def update(updates, state, params=None):
+        updates, state = transform.update(updates, state, params)
+        return {k: step * u for k, u in updates.items()}, state
+
+    return Optimizer(transform.init, update)
+
+
+def bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """1 - decay**count, the power taken in float32 as JAX takes it (a
+    float64 power drifts from it in the 7th digit)."""
+    return 1 - torch.tensor(decay, dtype=torch.float32,
+                            device=count.device) ** count.float()
+
+
+def trace(decay: float) -> Optimizer:
+    """optax.trace: t = g + decay * t from t = 0 (momentum)."""
+
+    def update(updates, state, params=None):
+        t = {k: g + decay * state["trace"][k] for k, g in updates.items()}
+        return t, {"trace": t}
+
+    return Optimizer(lambda params: {"trace": zeros_like(params)}, update)
+
+
+def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
+    """optax.sgd(lr, momentum=momentum or None)."""
+    if momentum:
+        return scaled(trace(momentum), -lr)
+    return Optimizer(lambda params: {}, lambda updates, state, params=None: (
+        {k: -lr * g for k, g in updates.items()}, state))
+
+
+def scale_by_torch_amsgrad(b1: float = 0.9, b2: float = 0.999,
+                           eps: float = 1e-8) -> Optimizer:
+    """torch.optim.Adam(amsgrad=True) numerics, exactly (JAX
+    ``engine.py::scale_by_torch_amsgrad``): the max is over the *raw*
+    second moment and the current step's bias correction applies after it,
+    where optax.amsgrad maxes bias-corrected moments."""
+
+    def init(params):
+        return {"count": torch.zeros((), dtype=torch.int32,
+                                     device=next(iter(params.values())).device),
+                "mu": zeros_like(params), "nu": zeros_like(params),
+                "nu_max": zeros_like(params)}
+
+    def update(updates, state, params=None):
+        t = state["count"] + 1
+        mu = {k: b1 * state["mu"][k] + (1 - b1) * g for k, g in updates.items()}
+        nu = {k: b2 * state["nu"][k] + (1 - b2) * g * g for k, g in updates.items()}
+        nu_max = {k: torch.maximum(state["nu_max"][k], v) for k, v in nu.items()}
+        bc1, bc2 = bias_correction(b1, t), bias_correction(b2, t)
+        out = {k: (mu[k] / bc1) / (torch.sqrt(nu_max[k] / bc2) + eps) for k in mu}
+        return out, {"count": t, "mu": mu, "nu": nu, "nu_max": nu_max}
+
+    return Optimizer(init, update)
+
+
+def torch_amsgrad(lr: float, b1: float = 0.9, b2: float = 0.999,
+                  eps: float = 1e-8) -> Optimizer:
+    return scaled(scale_by_torch_amsgrad(b1, b2, eps), -lr)
+
+
+def torch_adagrad(lr: float, eps: float = 1e-10) -> Optimizer:
+    """torch.optim.Adagrad numerics, exactly: the accumulator starts at 0
+    and eps sits outside the sqrt (p -= lr * g / (sqrt(sum) + eps))."""
+
+    def update(updates, state, params=None):
+        acc = {k: state["sum"][k] + g * g for k, g in updates.items()}
+        out = {k: -lr * g / (torch.sqrt(acc[k]) + eps) for k, g in updates.items()}
+        return out, {"sum": acc}
+
+    return Optimizer(lambda params: {"sum": zeros_like(params)}, update)
+
+
+def make_local_optimizer(cfg: FedConfig) -> Optimizer:
+    """Client optimizer (reference my_model_trainer_classification.py:25-46:
+    SGD(lr, momentum) or Adam(lr, wd, amsgrad=True)) as the JAX package's
+    optax chain: ``clip_by_global_norm``, then ``add_decayed_weights(wd)``,
+    then SGD with momentum or ``torch_amsgrad``. Weight decay joins after
+    the clip, so its term is never clipped (torch's L2, added before the
+    adaptive scaling: not AdamW's decoupled decay)."""
+    if cfg.client_optimizer == "sgd":
+        inner = sgd(cfg.lr, cfg.momentum)
+    elif cfg.client_optimizer == "adam":
+        inner = torch_amsgrad(cfg.lr)
+    else:
+        raise ValueError(f"unknown client_optimizer {cfg.client_optimizer!r}")
+    clip, wd = cfg.grad_clip, cfg.wd
 
     @torch.no_grad()
-    def update(params: dict, grads: dict) -> dict:
+    def update(grads, state, params):
         if clip is not None:
             norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
             # unchanged below the bound, else g / ||g|| * clip
             grads = {k: torch.where(norm < clip, g, g / norm * clip)
                      for k, g in grads.items()}
-        return {k: p + (-lr) * grads[k] for k, p in params.items()}
+        if wd:
+            grads = {k: g + wd * params[k] for k, g in grads.items()}
+        return inner.update(grads, state, params)
 
-    return update
+    return Optimizer(inner.init, update)
 
 
-def _build_epoch_fn(trainer, cfg: FedConfig, opt) -> Callable:
-    """epoch_fn(params, x, y, count, generator, perm) -> (params, steps,
-    metric sums) — one local epoch of minibatch SGD over one client."""
+def _build_epoch_fn(trainer, cfg: FedConfig, opt: Optimizer) -> Callable:
+    """epoch_fn(params, opt_state, global_params, x, y, count, generator,
+    perm) -> (params, opt_state, steps, metric sums): one local epoch of
+    minibatch steps over one client. With ``cfg.fedprox_mu`` the loss gains
+    FedProx's 0.5 * mu * sum ||p - g||^2 against the round's globals."""
     full = cfg.assume_full_clients
+    mu = cfg.fedprox_mu
 
-    def epoch_fn(params, x, y, count, generator, perm):
+    def epoch_fn(params, opt_state, global_params, x, y, count, generator, perm):
         n_max = x.shape[0]
         b = n_max if cfg.batch_size <= 0 else min(cfg.batch_size, n_max)
         nb = math.ceil(n_max / b)
@@ -111,19 +218,23 @@ def _build_epoch_fn(trainer, cfg: FedConfig, opt) -> Callable:
         keys = list(params)
         for i in range(nb):
             if not valid[i].any():
-                continue  # an all-padding batch is no step
+                continue  # an all-padding batch is no step: params and state stay
             batch = {"x": xe[i], "y": ye[i],
                      "mask": valid[i].to(x.device, torch.float32)}
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
             loss, aux = trainer.loss_fn(leaves, batch, generator, True)
-            grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
-            params = opt(params, dict(zip(keys, grads)))
+            if mu > 0.0:
+                sq = sum(((leaves[k] - global_params[k]) ** 2).sum() for k in keys)
+                loss = loss + 0.5 * mu * sq
+            grads = dict(zip(keys, torch.autograd.grad(loss, [leaves[k] for k in keys])))
+            updates, opt_state = opt.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
             steps += 1
             sums = aux if sums is None else {k: sums[k] + aux[k] for k in aux}
         if sums is None:
             zero = torch.zeros((), device=x.device)
             sums = {"loss_sum": zero, "correct": zero, "total": zero}
-        return params, steps, sums
+        return params, opt_state, steps, sums
 
     return epoch_fn
 
@@ -131,18 +242,22 @@ def _build_epoch_fn(trainer, cfg: FedConfig, opt) -> Callable:
 def build_local_update(trainer, cfg: FedConfig) -> Callable:
     """local_update(global_variables, x, y, count, generator, perms) ->
     LocalResult for one client. x: [n_max, ...]; count: valid rows (int);
-    perms: [epochs, n_max] or None (stored order). Runs cfg.epochs epochs;
-    the metrics are those of the last one."""
+    perms: [epochs, n_max] or None (stored order). Runs cfg.epochs epochs
+    with one optimizer state, made here and carried across batches and
+    epochs; the metrics are those of the last epoch."""
     if cfg.epochs < 1:
         raise ValueError(f"cfg.epochs must be >= 1, got {cfg.epochs}")
-    epoch_fn = _build_epoch_fn(trainer, cfg, make_local_optimizer(cfg))
+    opt = make_local_optimizer(cfg)
+    epoch_fn = _build_epoch_fn(trainer, cfg, opt)
 
     def local_update(global_variables, x, y, count, generator, perms=None):
         params = dict(global_variables)
+        opt_state = opt.init(params)
         steps = 0
         for e in range(cfg.epochs):
             perm = perms[e] if perms is not None else None
-            params, n, metrics = epoch_fn(params, x, y, count, generator, perm)
+            params, opt_state, n, metrics = epoch_fn(
+                params, opt_state, global_variables, x, y, count, generator, perm)
             steps += n
         return LocalResult(params, steps, metrics)
 

@@ -1,8 +1,9 @@
 """Typed run configuration for the PyTorch port.
 
 A mirror of ``fedml_tpu/core/config.py::FedConfig`` holding the fields the
-FedAvg main path reads, with the same names and defaults so experiment
-configs transfer verbatim. The switches of features the port does not run
+ported paths read (FedAvg, FedOpt, FedNova, robust aggregation, FedProx and
+the stateful client optimizers), with the same names and defaults so
+experiment configs transfer verbatim. The switches of features the port does not run
 yet (codecs, LoRA, buffered aggregation, superstep, sharding,
 personalization, pipelining) are kept so that ``validate`` can reject one
 that is on with ``NotImplementedError``; other keys of a JAX config land in
@@ -50,7 +51,17 @@ class FedConfig:
     comm_round: int = 10
     frequency_of_the_test: int = 1
 
-    fedprox_mu: float = 0.0  # only 0 runs in the port
+    # server optimizer (FedOpt; reference main_fedopt.py:54-60)
+    server_optimizer: str = "sgd"
+    server_lr: float = 1.0
+    server_momentum: float = 0.0
+
+    # FedProx / FedNova
+    fedprox_mu: float = 0.0
+
+    # robust aggregation (reference robust_aggregation.py:32-55)
+    norm_bound: float = 5.0
+    stddev: float = 0.025
 
     # systems
     seed: int = 0
@@ -93,10 +104,6 @@ class FedConfig:
             "rounds_per_dispatch > 1": self.rounds_per_dispatch > 1,
             "buffer_size > 0": self.buffer_size > 0,
             "update_codec": self.update_codec != "none",
-            "client_optimizer != 'sgd'": self.client_optimizer != "sgd",
-            "momentum": bool(self.momentum),
-            "wd": bool(self.wd),
-            "fedprox_mu": bool(self.fedprox_mu),
         }
         for name, on in unported.items():
             if on:
@@ -106,6 +113,11 @@ class FedConfig:
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown dtype {self.dtype!r}")
         if self.fused_kernel:
+            if not (self.client_optimizer == "sgd" and not self.momentum
+                    and not self.wd and not self.fedprox_mu):
+                raise ValueError(
+                    "the fused kernel implements plain SGD with global-norm "
+                    "clip — sgd, momentum 0, wd 0, fedprox_mu 0 required")
             if self.epochs != 1:
                 raise ValueError("the fused kernel runs exactly one local epoch")
             if self.grad_clip is None:

@@ -49,6 +49,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--frequency_of_the_test", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ci", type=int, default=0)
+    parser.add_argument("--fedprox_mu", type=float, default=0.0)
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--fused_kernel", type=int, default=0,
@@ -81,10 +82,16 @@ def setup_run(args):
     return cfg, ds, ClassificationTrainer(module)
 
 
-def main(argv=None):
-    args = add_args(argparse.ArgumentParser()).parse_args(argv)
+def main(argv=None, aggregator_name: str = "fedavg", extra_args=None):
+    """Parse ``argv`` (with the flags ``extra_args(parser)`` adds), train
+    with ``aggregator_name`` and return the history."""
+    parser = add_args(argparse.ArgumentParser())
+    if extra_args:
+        extra_args(parser)
+    args = parser.parse_args(argv)
     cfg, ds, trainer = setup_run(args)
-    api = FedAvgAPI(ds, cfg, trainer, device=args.device)
+    api = FedAvgAPI(ds, cfg, trainer, aggregator_name=aggregator_name,
+                    device=args.device)
     return api.train()
 
 

@@ -85,3 +85,38 @@ def torch_to_flax(state: dict, module: nn.Module | None = None) -> dict:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(a)
     return {"params": params}
+
+
+#: optax state fields that hold a tree of moments beside the params
+_MOMENT_FIELDS = ("mu", "nu", "nu_max", "trace")
+
+
+def optax_state_to_torch(state, device="cpu") -> dict:
+    """An optax optimizer state (numpy or jax leaves) -> the port's flat
+    state dict (``algorithms/engine.py::Optimizer``).
+
+    Walks the chain's tuple of states: ``count`` becomes an int32 scalar
+    tensor, the moment trees (``mu``, ``nu``, ``nu_max``, ``trace``) convert
+    as parameter trees, and a bare parameter tree (``torch_adagrad``'s
+    accumulator) becomes ``sum``. Empty states add nothing."""
+    out: dict = {}
+
+    def walk(node):
+        if hasattr(node, "_fields"):  # an optax NamedTuple state
+            for name in node._fields:
+                value = getattr(node, name)
+                if name == "count":
+                    out["count"] = torch.tensor(np.asarray(value), dtype=torch.int32,
+                                                device=device)
+                elif name in _MOMENT_FIELDS:
+                    out[name] = flax_to_torch(value, device=device)
+                else:
+                    walk(value)
+        elif hasattr(node, "items"):
+            out["sum"] = flax_to_torch(node, device=device)
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+
+    walk(state)
+    return out

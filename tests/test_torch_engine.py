@@ -134,7 +134,11 @@ def test_shuffle_permutes_only_the_valid_prefix():
 def test_unported_options_raise():
     _, _, _, tcfg, _, tt, _ = _setup()
     with pytest.raises(NotImplementedError):
-        build_round_fn(tt, tcfg.replace(client_optimizer="adam"),
+        build_round_fn(tt, tcfg.replace(update_codec="int8"),
                        make_aggregator("fedavg", tcfg), device="cpu")
     with pytest.raises(NotImplementedError):
-        make_aggregator("fedopt", tcfg)
+        build_round_fn(tt, tcfg.replace(fast_sampling=True),
+                       make_aggregator("fedavg", tcfg), device="cpu")
+    with pytest.raises(NotImplementedError):
+        build_round_fn(tt, tcfg.replace(buffer_size=4),
+                       make_aggregator("fedavg", tcfg), device="cpu")
