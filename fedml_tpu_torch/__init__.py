@@ -9,7 +9,10 @@ prediction with the transformer LM and NWPTrainer, its attention the
 flash-attention forward and backward as hand-written CUDA kernels
 (ops/attention.py, csrc/flash_attention.cu) — and FedML's algorithm zoo
 on both: FedOpt, FedNova and robust aggregation, FedProx, the momentum,
-weight-decay and AMSGrad clients, and their CLIs. Entry points run on
+weight-decay and AMSGrad clients, and their CLIs — and FedML's benchmark
+rows beyond FEMNIST: the MNIST, CIFAR, fed_CIFAR-100, synthetic and
+Shakespeare data, the linear models, CNNs, ResNets (BatchNorm running
+statistics carried as model state) and LSTMs. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

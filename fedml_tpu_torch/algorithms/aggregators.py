@@ -12,9 +12,14 @@ where ``LocalResult.variables`` is a dict of client-stacked tensors [C, ...].
                         delta norm clipping + weak-DP gaussian noise)
   FedNovaAggregator  <- reference fednova.py:79-155 (normalized averaging)
 
-The port's variables are its parameters (its models keep no buffers), so
-every rule acts on every variable. ``rng`` is the round's CPU generator; an
-aggregator state is a dict of tensors on the device.
+FedAvg averages every variable. The other rules act on the parameters
+only and plain-average the model state (a BatchNorm's running statistics),
+as the JAX rules act on the ``params`` collection and the reference's
+robust rule skips what ``is_weight_param`` rejects: FedOpt's pseudo-gradient
+and server optimizer state, the robust rule's clip and noise and FedNova's
+tau normalisation see parameters only (``utils/pytree.py::split_variables``).
+``rng`` is the round's CPU generator; an aggregator state is a dict of
+tensors on the device.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from fedml_tpu_torch.algorithms.engine import (Optimizer, apply_updates,
                                                bias_correction, scaled, sgd,
                                                torch_adagrad)
 from fedml_tpu_torch.core.config import FedConfig
-from fedml_tpu_torch.utils.pytree import tree_weighted_mean
+from fedml_tpu_torch.utils.pytree import split_variables, tree_weighted_mean
 
 
 def client_finite_mask(stacked: dict) -> torch.Tensor:
@@ -144,23 +149,27 @@ class FedOptAggregator:
         self.opt = make_server_optimizer(cfg)
 
     def init_state(self, global_variables) -> dict:
-        return self.opt.init(global_variables)
+        return self.opt.init(split_variables(global_variables)[0])
 
     def __call__(self, global_variables, result, weights, rng, state):
         avg = tree_weighted_mean(result.variables, weights)
         return self.server_step(global_variables, avg, state)
 
     def server_step(self, global_variables, avg, state):
-        """(new_global, state) from the round's weighted mean ``avg``."""
-        pseudo_grad = {k: g - avg[k] for k, g in global_variables.items()}
-        updates, state = self.opt.update(pseudo_grad, state, global_variables)
-        return apply_updates(global_variables, updates), state
+        """(new_global, state) from the round's weighted mean ``avg``: the
+        server optimizer steps the parameters; the model state is the
+        mean's."""
+        params = split_variables(global_variables)[0]
+        pseudo_grad = {k: g - avg[k] for k, g in params.items()}
+        updates, state = self.opt.update(pseudo_grad, state, params)
+        return {**avg, **apply_updates(params, updates)}, state
 
 
 class RobustAggregator:
-    """Clip each client's delta to ``norm_bound``, take the weighted mean,
-    then add N(0, stddev^2) weak-DP noise (reference
-    robust_aggregation.py:37-55).
+    """Clip each client's parameter delta to ``norm_bound``, take the
+    weighted mean, then add N(0, stddev^2) weak-DP noise to the parameters
+    (reference robust_aggregation.py:37-55); the model state is averaged,
+    never clipped or noised.
 
     JAX's threefry noise cannot be reproduced, so the noise is drawn on the
     device from a generator seeded by the round generator ``rng`` (after the
@@ -177,21 +186,25 @@ class RobustAggregator:
         return self._add_noise(avg, rng), state
 
     def _clipped(self, global_variables, result):
-        deltas = {k: v - global_variables[k][None] for k, v in result.variables.items()}
+        params = split_variables(result.variables)[0]
+        deltas = {k: v - global_variables[k][None] for k, v in params.items()}
         sq = sum((d * d).reshape(d.shape[0], -1).sum(1) for d in deltas.values())
         nrm = torch.sqrt(sq + 1e-12)
         scale = torch.clamp(self.cfg.norm_bound / nrm, max=1.0)
-        return {k: global_variables[k][None]
-                + d * scale.reshape((-1,) + (1,) * (d.dim() - 1))
-                for k, d in deltas.items()}
+        clipped = {k: global_variables[k][None]
+                   + d * scale.reshape((-1,) + (1,) * (d.dim() - 1))
+                   for k, d in deltas.items()}
+        return {k: clipped.get(k, v) for k, v in result.variables.items()}
 
     def _add_noise(self, avg, rng):
+        params = split_variables(avg)[0]
         device = next(iter(avg.values())).device
         seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=rng))
         gen = torch.Generator(device=device).manual_seed(seed)
-        return {k: v + self.cfg.stddev * torch.randn(v.shape, generator=gen,
-                                                     device=device, dtype=v.dtype)
-                for k, v in avg.items()}
+        noisy = {k: v + self.cfg.stddev * torch.randn(v.shape, generator=gen,
+                                                      device=device, dtype=v.dtype)
+                 for k, v in params.items()}
+        return {**avg, **noisy}
 
 
 class FedNovaAggregator:
@@ -201,6 +214,8 @@ class FedNovaAggregator:
     tau_eff = sum_i w_i tau_i:
 
         w_new = w_global - tau_eff * sum_i w_i (w_global - w_i) / tau_i
+
+    over the parameters; the model state is plainly averaged.
     """
 
     def __init__(self, cfg: FedConfig):
@@ -219,7 +234,9 @@ class FedNovaAggregator:
             d = (g[None] - stack) / tau.reshape(shape)
             return g - tau_eff * (d * w.reshape(shape).to(d.dtype)).sum(0)
 
-        return {k: combine(v, global_variables[k])
+        params, rest = split_variables(result.variables)
+        mean = tree_weighted_mean(rest, weights)
+        return {k: combine(v, global_variables[k]) if k in params else mean[k]
                 for k, v in result.variables.items()}, state
 
 

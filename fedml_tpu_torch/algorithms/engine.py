@@ -21,6 +21,13 @@ Epoch semantics follow the JAX engine (torch DataLoader(shuffle=True,
 drop_last=False)): a shuffle permutes the valid prefix of a client's rows
 and leaves the padding after it, batches are full except the last, which is
 masked, and a batch holding only padding is no step at all.
+
+Model state (a BatchNorm's running statistics) is carried through the local
+steps beside the parameters: each step's train-mode forward returns the new
+state, which replaces the old one; the optimizer, the clip, weight decay
+and FedProx see the parameters only (``utils/pytree.py::split_variables``).
+An all-padding batch updates neither. The state returns in
+``LocalResult.variables`` with the parameters.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from fedml_tpu_torch.core.config import FedConfig
 from fedml_tpu_torch.utils.device import resolve_device
+from fedml_tpu_torch.utils.pytree import split_variables
 
 
 class LocalResult(NamedTuple):
@@ -188,14 +196,15 @@ def make_local_optimizer(cfg: FedConfig) -> Optimizer:
 
 
 def _build_epoch_fn(trainer, cfg: FedConfig, opt: Optimizer) -> Callable:
-    """epoch_fn(params, opt_state, global_params, x, y, count, generator,
-    perm) -> (params, opt_state, steps, metric sums): one local epoch of
-    minibatch steps over one client. With ``cfg.fedprox_mu`` the loss gains
-    FedProx's 0.5 * mu * sum ||p - g||^2 against the round's globals."""
+    """epoch_fn(params, state, opt_state, global_params, x, y, count,
+    generator, perm) -> (params, state, opt_state, steps, metric sums): one
+    local epoch of minibatch steps over one client. With ``cfg.fedprox_mu``
+    the loss gains FedProx's 0.5 * mu * sum ||p - g||^2 against the round's
+    global parameters."""
     full = cfg.assume_full_clients
     mu = cfg.fedprox_mu
 
-    def epoch_fn(params, opt_state, global_params, x, y, count, generator, perm):
+    def epoch_fn(params, state, opt_state, global_params, x, y, count, generator, perm):
         n_max = x.shape[0]
         b = n_max if cfg.batch_size <= 0 else min(cfg.batch_size, n_max)
         nb = math.ceil(n_max / b)
@@ -222,19 +231,21 @@ def _build_epoch_fn(trainer, cfg: FedConfig, opt: Optimizer) -> Callable:
             batch = {"x": xe[i], "y": ye[i],
                      "mask": valid[i].to(x.device, torch.float32)}
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            loss, aux = trainer.loss_fn(leaves, batch, generator, True)
+            loss, (new_state, aux) = trainer.loss_fn({**leaves, **state}, batch, generator,
+                                                     True)
             if mu > 0.0:
                 sq = sum(((leaves[k] - global_params[k]) ** 2).sum() for k in keys)
                 loss = loss + 0.5 * mu * sq
             grads = dict(zip(keys, torch.autograd.grad(loss, [leaves[k] for k in keys])))
             updates, opt_state = opt.update(grads, opt_state, params)
             params = apply_updates(params, updates)
+            state = {**state, **new_state}
             steps += 1
             sums = aux if sums is None else {k: sums[k] + aux[k] for k in aux}
         if sums is None:
             zero = torch.zeros((), device=x.device)
             sums = {"loss_sum": zero, "correct": zero, "total": zero}
-        return params, opt_state, steps, sums
+        return params, state, opt_state, steps, sums
 
     return epoch_fn
 
@@ -243,23 +254,25 @@ def build_local_update(trainer, cfg: FedConfig) -> Callable:
     """local_update(global_variables, x, y, count, generator, perms) ->
     LocalResult for one client. x: [n_max, ...]; count: valid rows (int);
     perms: [epochs, n_max] or None (stored order). Runs cfg.epochs epochs
-    with one optimizer state, made here and carried across batches and
-    epochs; the metrics are those of the last epoch."""
+    with one optimizer state over the parameters, made here and carried
+    across batches and epochs; the metrics are those of the last epoch."""
     if cfg.epochs < 1:
         raise ValueError(f"cfg.epochs must be >= 1, got {cfg.epochs}")
     opt = make_local_optimizer(cfg)
     epoch_fn = _build_epoch_fn(trainer, cfg, opt)
 
     def local_update(global_variables, x, y, count, generator, perms=None):
-        params = dict(global_variables)
+        params, state = split_variables(global_variables)
+        global_params = params
         opt_state = opt.init(params)
         steps = 0
         for e in range(cfg.epochs):
             perm = perms[e] if perms is not None else None
-            params, opt_state, n, metrics = epoch_fn(
-                params, opt_state, global_variables, x, y, count, generator, perm)
+            params, state, opt_state, n, metrics = epoch_fn(
+                params, state, opt_state, global_params, x, y, count, generator, perm)
             steps += n
-        return LocalResult(params, steps, metrics)
+        variables = {k: params[k] if k in params else state[k] for k in global_variables}
+        return LocalResult(variables, steps, metrics)
 
     return local_update
 
@@ -296,13 +309,13 @@ def _batched_update(trainer, cfg: FedConfig) -> Callable:
 
 
 def cohort_stats(global_variables: dict, result: LocalResult) -> dict:
-    """Per-client health rows for a client ledger: update L2 norm,
-    finiteness, loss_sum and total, each [C], computed from the raw
-    (pre-quarantine) results."""
+    """Per-client health rows for a client ledger: update L2 norm (over
+    the parameters), finiteness, loss_sum and total, each [C], computed
+    from the raw (pre-quarantine) results."""
     from fedml_tpu_torch.algorithms.aggregators import client_finite_mask
 
     total_sq = None
-    for k, p in result.variables.items():
+    for k, p in split_variables(result.variables)[0].items():
         if not p.is_floating_point():
             continue
         d = (p - global_variables[k][None]).float()

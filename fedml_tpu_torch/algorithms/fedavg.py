@@ -54,7 +54,10 @@ def round_generator(seed: int, round_idx: int, salt: int = 0) -> torch.Generator
 
 class FedAvgAPI:
     """Single-controller federated simulator on one device (``cuda`` unless
-    the caller passes ``device="cpu"``)."""
+    the caller passes ``device="cpu"``). ``global_variables`` holds the
+    model's parameters and its state (a BatchNorm's running statistics);
+    the rounds carry both, and the evaluations read the running
+    statistics (eval mode)."""
 
     def __init__(self, dataset: FederatedDataset, config: FedConfig,
                  model_trainer, aggregator_name: str = "fedavg",

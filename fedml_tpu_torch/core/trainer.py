@@ -1,17 +1,27 @@
 """Trainers — PyTorch form of ``fedml_tpu/core/trainer.py``'s
 ``ClassificationTrainer`` and ``NWPTrainer``.
 
-A trainer is a bundle of functions over a parameter dict (the port's
-"variables": ``{"layer.weight": tensor, ...}``), evaluated with
-``torch.func.functional_call`` so one module serves every client's
-parameters:
+A trainer is a bundle of functions over a variables dict (the port's
+"variables": ``{"layer.weight": tensor, ...}``, a model's parameters and
+its state), evaluated with ``torch.func.functional_call`` so one module
+serves every client's variables:
 
   - ``init(generator, device)``                   -> variables
-  - ``loss_fn(variables, batch, generator, train)`` -> (loss, aux)
+  - ``apply(variables, x, generator, train)``     -> (output, new_state)
+  - ``loss_fn(variables, batch, generator, train)`` -> (loss, (new_state, aux))
   - ``eval_fn(variables, batch)``                 -> dict of metric sums
 
+Model state is what flax keeps outside ``params``: a BatchNorm's running
+``mean`` and ``var``, buffers of the module. ``utils/pytree.py::is_param``
+is the one rule that tells a parameter's key from state's. A train-mode
+``apply`` returns the updated state (every BatchNorm's new running
+statistics), as the JAX package's ``_module_apply`` does with the non-param
+collections mutable; an eval-mode one reads the running statistics and
+returns ``{}``.
+
 A batch is a dict with ``x``, ``y`` and a float ``mask`` of per-sample
-validity (padding rows have mask 0). An eval batch may also carry
+validity (padding rows have mask 0; they still enter a BatchNorm's batch
+statistics, as in the JAX engine). An eval batch may also carry
 ``clients``: its rows are then that many equal consecutive blocks, one per
 client, as the JAX drive evaluates one client per vmapped call.
 """
@@ -29,15 +39,21 @@ from fedml_tpu_torch.models.cnn import lecun_normal_
 
 
 def flax_default_init(module: nn.Module, generator: torch.Generator, device) -> dict:
-    """flax's default initialisers by layer kind, drawn in parameter order:
-    Embed normal with std 1/sqrt(features), LayerNorm scale 1 and bias 0,
-    every other weight (Dense, Conv) lecun-normal, biases 0."""
+    """flax's default initialisers by layer kind, drawn in parameter order,
+    then the state buffers: Embed normal with std 1/sqrt(features),
+    LayerNorm scale 1 and bias 0, every other weight (Dense, Conv)
+    lecun-normal, biases 0. A module with a ``flax_init_(leaf, tensor,
+    generator)`` method fills its own leaves (norm scales and the BatchNorm
+    state, the LSTM's kernels)."""
     kinds = dict(module.named_modules())
     out = {}
-    for name, p in module.named_parameters():
-        owner = kinds[name.rpartition(".")[0]]
+    for name, p in list(module.named_parameters()) + list(module.named_buffers()):
+        owner_name, _, leaf = name.rpartition(".")
+        owner = kinds[owner_name]
         t = torch.zeros(p.shape, dtype=torch.float32)
-        if name.endswith("weight"):
+        if hasattr(owner, "flax_init_"):
+            owner.flax_init_(leaf, t, generator)
+        elif leaf == "weight":
             if isinstance(owner, nn.LayerNorm):
                 t.fill_(1.0)
             elif isinstance(owner, nn.Embedding):
@@ -53,13 +69,22 @@ class ModelTrainer:
 
     def __init__(self, module):
         self.module = module
+        # the modules that leave updated state behind a train-mode call
+        self._stateful = [(name, m) for name, m in module.named_modules()
+                          if hasattr(m, "updated")]
 
     def init(self, generator: torch.Generator, device) -> dict:
         return flax_default_init(self.module, generator, device)
 
     def apply(self, variables, x, generator=None, train: bool = False):
-        return functional_call(self.module, variables, (x,),
-                               {"train": train, "generator": generator})
+        out = functional_call(self.module, variables, (x,),
+                              {"train": train, "generator": generator})
+        state = {}
+        for name, m in self._stateful:
+            if m.updated is not None:
+                state.update({f"{name}.{leaf}": t for leaf, t in m.updated.items()})
+                m.updated = None
+        return out, state
 
 
 class ClassificationTrainer(ModelTrainer):
@@ -68,7 +93,7 @@ class ClassificationTrainer(ModelTrainer):
     index (``torch.argmax`` returns the first maximal index)."""
 
     def loss_fn(self, variables, batch, generator, train: bool = True):
-        logits = self.apply(variables, batch["x"], generator, train)
+        logits, state = self.apply(variables, batch["x"], generator, train)
         per = F.cross_entropy(logits, batch["y"].long(), reduction="none")
         mask = batch["mask"].to(per.dtype)
         loss = (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -77,11 +102,11 @@ class ClassificationTrainer(ModelTrainer):
             correct = ((logits.argmax(-1) == batch["y"]).float() * mask32).sum()
             aux = {"loss_sum": (per.detach().float() * mask32).sum(),
                    "correct": correct, "total": mask32.sum()}
-        return loss, aux
+        return loss, (state, aux)
 
     @torch.no_grad()
     def eval_fn(self, variables, batch):
-        logits = self.apply(variables, batch["x"], None, False)
+        logits, _ = self.apply(variables, batch["x"], None, False)
         per = F.cross_entropy(logits, batch["y"].long(), reduction="none")
         mask = batch["mask"].to(per.dtype)
         correct = ((logits.argmax(-1) == batch["y"]).to(per.dtype) * mask).sum()
@@ -102,22 +127,23 @@ class NWPTrainer(ModelTrainer):
         self.pad_id = pad_id
 
     def _masked_ce(self, variables, batch, generator, train):
-        """Per-token CE [b, T], the token mask [b, T] and the logits."""
-        logits = self.apply(variables, batch["x"], generator, train)
+        """Per-token CE [b, T], the token mask [b, T], the logits and the
+        new state."""
+        logits, state = self.apply(variables, batch["x"], generator, train)
         y = batch["y"].long()
         per = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]), y.reshape(-1),
                               reduction="none").reshape(y.shape)
         mask = (y != self.pad_id).float() * batch["mask"].float()[:, None]
-        return per, mask, logits
+        return per, mask, logits, state
 
     def loss_fn(self, variables, batch, generator, train: bool = True):
-        per, mask, logits = self._masked_ce(variables, batch, generator, train)
+        per, mask, logits, state = self._masked_ce(variables, batch, generator, train)
         loss_sum = (per * mask).sum()
         loss = loss_sum / torch.clamp(mask.sum(), min=1.0)
         with torch.no_grad():
             correct = ((logits.argmax(-1) == batch["y"]).float() * mask).sum()
             aux = {"loss_sum": loss_sum.detach(), "correct": correct, "total": mask.sum()}
-        return loss, aux
+        return loss, (state, aux)
 
     @torch.no_grad()
     def eval_fn(self, variables, batch):
@@ -125,7 +151,7 @@ class NWPTrainer(ModelTrainer):
         72-80): each client's batch adds its mean CE over non-pad tokens
         times its sample count, later divided by test_total (non-pad
         tokens)."""
-        per, mask, logits = self._masked_ce(variables, batch, None, False)
+        per, mask, logits, _ = self._masked_ce(variables, batch, None, False)
         clients = batch.get("clients", 1)
         loss = (per * mask).sum(1).reshape(clients, -1).sum(1)
         tokens = mask.sum(1).reshape(clients, -1).sum(1)

@@ -1,18 +1,185 @@
-"""Raw data sources (the FEMNIST and StackOverflow NWP parts of
+"""Raw data sources (the MNIST, CIFAR, fed_CIFAR-100, FEMNIST, FedProx
+synthetic, Shakespeare and StackOverflow NWP parts of
 ``fedml_tpu/data/sources.py``).
 
-Only the seeded surrogates are ported: with the same seed they produce
-arrays byte-identical to the JAX package's, from the same numpy
-``RandomState`` draws in the same order."""
+Each ``load_*`` reads the real files from ``data_dir`` when they are there
+and otherwise makes a seeded surrogate of the same shape. The surrogates
+are byte-identical to the JAX package's, from the same numpy
+``RandomState`` draws in the same order. The readers ported are the plain
+ones: MNIST's IDX files, the CIFAR python pickles and LEAF Shakespeare's
+json. Where the real files are HDF5 (FEMNIST, StackOverflow,
+fed_CIFAR-100) the port raises ``NotImplementedError`` naming the file: the
+h5 readers are not ported yet."""
 
 from __future__ import annotations
 
+import gzip
+import json
 import logging
 import os
+import pickle
+import struct
 
 import numpy as np
 
 log = logging.getLogger(__name__)
+
+
+def _h5_unported(*paths) -> None:
+    """Raise when the real h5 files are present: reading them is not
+    ported."""
+    if all(os.path.exists(p) for p in paths):
+        raise NotImplementedError(
+            f"reading {', '.join(paths)} is not ported to fedml_tpu_torch yet; "
+            f"only the seeded surrogate is")
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """Parse an IDX (MNIST-format) file, gzipped or raw."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        _, dtype_code, ndim = struct.unpack(">HBB", f.read(4))
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        dtype = {8: np.uint8, 9: np.int8, 11: np.int16, 12: np.int32, 13: np.float32,
+                 14: np.float64}[dtype_code]
+        data = np.frombuffer(f.read(), dtype=np.dtype(dtype).newbyteorder(">"))
+        return data.reshape(dims)
+
+
+def _find(data_dir: str, names: list[str]) -> str | None:
+    for name in names:
+        for root in (data_dir, os.path.join(data_dir, "MNIST", "raw"),
+                     os.path.join(data_dir, "raw")):
+            p = os.path.join(root, name)
+            if os.path.exists(p):
+                return p
+    return None
+
+
+def synthetic_image_classes(n: int, class_num: int, shape: tuple[int, ...], seed: int,
+                            noise: float = 0.35, proto_seed: int | None = None):
+    """Seeded surrogate image dataset: each class a random prototype plus
+    gaussian noise. ``proto_seed`` fixes the prototypes apart from the
+    sample draw, so train and test splits share a distribution."""
+    proto_rng = np.random.RandomState(seed if proto_seed is None else proto_seed)
+    protos = proto_rng.normal(0.0, 1.0, size=(class_num,) + shape).astype(np.float32)
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, class_num, size=n).astype(np.int32)
+    x = protos[y] * 0.6 + rng.normal(0.0, noise, size=(n,) + shape).astype(np.float32)
+    return x.astype(np.float32), y
+
+
+def load_mnist_arrays(data_dir: str = "./data", flatten: bool = False, seed: int = 0):
+    """(x_train, y_train, x_test, y_test), normalised as torchvision's MNIST
+    (mean 0.1307, std 0.3081), NHWC [n, 28, 28, 1] or flat [n, 784]."""
+    paths = [_find(data_dir, [f"{stem}.gz", stem]) for stem in (
+        "train-images-idx3-ubyte", "train-labels-idx1-ubyte",
+        "t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte")]
+    if all(p is not None for p in paths):
+        tr_img, tr_lab, te_img, te_lab = paths
+        xtr = (_read_idx(tr_img).astype(np.float32) / 255.0 - 0.1307) / 0.3081
+        xte = (_read_idx(te_img).astype(np.float32) / 255.0 - 0.1307) / 0.3081
+        ytr = _read_idx(tr_lab).astype(np.int32)
+        yte = _read_idx(te_lab).astype(np.int32)
+        xtr, xte = xtr[..., None], xte[..., None]
+    else:
+        log.warning("MNIST files not found under %s — using seeded surrogate", data_dir)
+        xtr, ytr = synthetic_image_classes(6000, 10, (28, 28, 1), seed, proto_seed=seed + 9999)
+        xte, yte = synthetic_image_classes(1000, 10, (28, 28, 1), seed + 1,
+                                           proto_seed=seed + 9999)
+    if flatten:
+        xtr = xtr.reshape(len(xtr), -1)
+        xte = xte.reshape(len(xte), -1)
+    return xtr, ytr, xte, yte
+
+
+def fedprox_synthetic(alpha: float = 1.0, beta: float = 1.0, client_num: int = 30,
+                      dim: int = 60, class_num: int = 10, seed: int = 0):
+    """FedProx's synthetic(alpha, beta) generator (reference
+    data_preprocessing/synthetic_1_1): per-client softmax-regression tasks,
+    W_k ~ N(u_k, 1), u_k ~ N(0, alpha); x_k ~ N(v_k, Sigma),
+    v_k ~ N(B_k, 1), B_k ~ N(0, beta); lognormal sizes."""
+    rng = np.random.RandomState(seed)
+    sizes = (rng.lognormal(4, 2, client_num).astype(int) + 50).clip(50, 2000)
+    sigma = np.diag(np.arange(1, dim + 1) ** -1.2)
+    xs, ys = [], []
+    for k in range(client_num):
+        u_k = rng.normal(0, alpha)
+        b_k = rng.normal(0, beta)
+        w = rng.normal(u_k, 1, size=(dim, class_num))
+        b = rng.normal(u_k, 1, size=class_num)
+        v_k = rng.normal(b_k, 1, size=dim)
+        x = rng.multivariate_normal(v_k, sigma, size=int(sizes[k])).astype(np.float32)
+        xs.append(x)
+        ys.append(np.argmax(x @ w + b, axis=1).astype(np.int32))
+    return xs, ys
+
+
+def _read_cifar_pickles(name: str, data_dir: str):
+    """The CIFAR python pickles as (xtr, ytr, xte, yte) of raw rows, or None
+    when the directory is absent."""
+    if name == "cifar10":
+        base = os.path.join(data_dir, "cifar-10-batches-py")
+        train, test, label = [f"data_batch_{i}" for i in range(1, 6)], "test_batch", b"labels"
+    else:
+        base = os.path.join(data_dir, "cifar-100-python")
+        train, test, label = ["train"], "test", b"fine_labels"
+    if not os.path.isdir(base):
+        return None
+
+    def read(fn):
+        with open(os.path.join(base, fn), "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        return np.asarray(d[b"data"]), np.asarray(d[label])
+
+    parts = [read(fn) for fn in train]
+    xte, yte = read(test)
+    return (np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts]),
+            xte, yte)
+
+
+def load_cifar_arrays(name: str = "cifar10", data_dir: str = "./data", seed: int = 0):
+    """CIFAR-10/100 as NHWC float32 [n, 32, 32, 3], normalised by the
+    reference's per-channel mean and std (cifar10/data_loader.py), from the
+    python pickles when present, else a seeded surrogate (5,000 train and
+    1,000 test rows)."""
+    class_num = 100 if name == "cifar100" else 10
+    loaded = None
+    try:
+        loaded = _read_cifar_pickles(name, data_dir)
+    except Exception as e:  # corrupt files -> surrogate
+        log.warning("failed reading %s from %s (%s) — using surrogate", name, data_dir, e)
+    if loaded is not None:
+        xtr, ytr, xte, yte = loaded
+        xtr = xtr.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).astype(np.float32) / 255.0
+        xte = xte.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).astype(np.float32) / 255.0
+        mean = np.array([0.4914, 0.4822, 0.4465], np.float32)
+        std = np.array([0.247, 0.243, 0.262], np.float32)
+        return ((xtr - mean) / std, ytr.astype(np.int32),
+                (xte - mean) / std, yte.astype(np.int32))
+    log.warning("%s files not found under %s — using seeded surrogate", name, data_dir)
+    xtr, ytr = synthetic_image_classes(5000, class_num, (32, 32, 3), seed, proto_seed=seed + 777)
+    xte, yte = synthetic_image_classes(1000, class_num, (32, 32, 3), seed + 1,
+                                       proto_seed=seed + 777)
+    return xtr, ytr, xte, yte
+
+
+def load_fed_cifar100_clients(data_dir: str = "./data", client_num: int = 500, seed: int = 0):
+    """fed_CIFAR-100: TFF's natural split, 500 clients of 100 train and 20
+    test images, 24x24 center crops (reference fed_cifar100/data_loader.py).
+    Returns (xtr, ytr, xte, yte), lists of per-client arrays."""
+    _h5_unported(os.path.join(data_dir, "fed_cifar100_train.h5"),
+                 os.path.join(data_dir, "fed_cifar100_test.h5"))
+    log.warning("fed_cifar100 h5 not found under %s — using seeded surrogate", data_dir)
+    rng = np.random.RandomState(seed)
+    protos = rng.normal(0.0, 1.0, size=(100, 24, 24, 3)).astype(np.float32)
+    xtr, ytr, xte, yte = [], [], [], []
+    for _ in range(client_num):
+        y_i = rng.randint(0, 100, size=120).astype(np.int32)
+        x_i = protos[y_i] * 0.6 + rng.normal(0, 0.35, size=(120, 24, 24, 3)).astype(np.float32)
+        xtr.append(x_i[:100]); ytr.append(y_i[:100])
+        xte.append(x_i[100:]); yte.append(y_i[100:])
+    return xtr, ytr, xte, yte
 
 
 def load_femnist_arrays(data_dir: str = "./data", client_num: int = 3400, seed: int = 0):
@@ -20,11 +187,8 @@ def load_femnist_arrays(data_dir: str = "./data", client_num: int = 3400, seed: 
 
     Returns (xtr, ytr, xte, yte), lists of per-client arrays
     [n_i, 28, 28, 1] float32 / [n_i] int32."""
-    if (os.path.exists(os.path.join(data_dir, "fed_emnist_train.h5"))
-            and os.path.exists(os.path.join(data_dir, "fed_emnist_test.h5"))):
-        raise NotImplementedError(
-            "reading the TFF FEMNIST h5 files is not ported to "
-            "fedml_tpu_torch yet; only the seeded surrogate is")
+    _h5_unported(os.path.join(data_dir, "fed_emnist_train.h5"),
+                 os.path.join(data_dir, "fed_emnist_test.h5"))
     log.warning("FEMNIST h5 not found under %s — using seeded surrogate", data_dir)
     rng = np.random.RandomState(seed)
     protos = rng.normal(0.0, 1.0, size=(62, 28, 28, 1)).astype(np.float32)
@@ -47,10 +211,11 @@ def load_femnist_arrays(data_dir: str = "./data", client_num: int = 3400, seed: 
 STACKOVERFLOW_VOCAB, STACKOVERFLOW_SEQ = 10004, 20
 
 
-def _markov_text_clients(client_num, vocab, seq_len, per_client, test_frac, seed):
+def _markov_text_clients(client_num, vocab, seq_len, per_client, test_frac, seed,
+                         per_position=True):
     """Surrogate language data: a shared seeded 2-gram transition table (so
-    next-token structure is learnable) with per-client start states, and
-    per-position next-token targets."""
+    next-token structure is learnable) with per-client start states;
+    per-position next-token targets, or the window's next token alone."""
     rng = np.random.RandomState(seed)
     # sparse transition table: each token has 4 likely successors, stored as
     # [vocab, 4] successor ids + cumulative probabilities
@@ -67,7 +232,7 @@ def _markov_text_clients(client_num, vocab, seq_len, per_client, test_frac, seed
             toks[i] = succ[t, np.searchsorted(cum[t], draws[i])]
         windows = np.lib.stride_tricks.sliding_window_view(toks, seq_len + 1)[:n_i]
         x = windows[:, :seq_len].astype(np.int32)
-        y = windows[:, 1:].astype(np.int32)
+        y = windows[:, 1:].astype(np.int32) if per_position else windows[:, -1].astype(np.int32)
         k = max(1, int(n_i * (1 - test_frac)))
         xtr.append(x[:k]); ytr.append(y[:k]); xte.append(x[k:]); yte.append(y[k:])
     return xtr, ytr, xte, yte
@@ -79,11 +244,69 @@ def load_stackoverflow_nwp_clients(data_dir: str = "./data", client_num: int = 2
     20-token windows over the extended vocab, per-position targets.
 
     Returns (xtr, ytr, xte, yte), lists of per-client [n_i, seq_len] int32."""
-    if (os.path.exists(os.path.join(data_dir, "stackoverflow_train.h5"))
-            and os.path.exists(os.path.join(data_dir, "stackoverflow_test.h5"))):
-        raise NotImplementedError(
-            "reading the TFF StackOverflow h5 files is not ported to "
-            "fedml_tpu_torch yet; only the seeded surrogate is")
+    _h5_unported(os.path.join(data_dir, "stackoverflow_train.h5"),
+                 os.path.join(data_dir, "stackoverflow_test.h5"))
     log.warning("stackoverflow h5 not found under %s — using seeded surrogate", data_dir)
     return _markov_text_clients(client_num, STACKOVERFLOW_VOCAB, STACKOVERFLOW_SEQ,
                                 per_client=64, test_frac=0.15, seed=seed)
+
+
+SHAKESPEARE_VOCAB = 90  # reference shakespeare/language_utils.py ALL_LETTERS
+SHAKESPEARE_SEQ = 80  # McMahan et al. (fed_shakespeare/utils.py:15)
+ALL_LETTERS = ("\n !\"&'(),-.0123456789:;>?ABCDEFGHIJKLMNOPQRSTUVWXYZ[]"
+               "abcdefghijklmnopqrstuvwxyz}")
+
+
+def letter_to_index(letter: str) -> int:
+    """A character's id (reference language_utils.letter_to_index); a
+    character outside ALL_LETTERS maps to the last id, 89."""
+    return ALL_LETTERS.find(letter) % SHAKESPEARE_VOCAB
+
+
+def _read_leaf_json(directory: str):
+    """A LEAF split: (users in file order, {user: {"x": [...], "y": [...]}})."""
+    users, data = [], {}
+    for fn in sorted(os.listdir(directory)):
+        if not fn.endswith(".json"):
+            continue
+        with open(os.path.join(directory, fn)) as f:
+            j = json.load(f)
+        users += j["users"]
+        data.update(j["user_data"])
+    return users, data
+
+
+def load_shakespeare_clients(data_dir: str = "./data", client_num: int = 715,
+                             seed: int = 0, per_position: bool = False):
+    """LEAF Shakespeare (reference shakespeare/data_loader.py:11-50): one
+    client per role, 80-character windows; the target is the next
+    character, or with ``per_position`` the window shifted by one with the
+    next character last (fed_shakespeare). Reads LEAF's train/test json
+    when present. Returns (xtr, ytr, xte, yte), lists of per-client int32
+    arrays."""
+    tr_dir = os.path.join(data_dir, "shakespeare", "train")
+    te_dir = os.path.join(data_dir, "shakespeare", "test")
+    if not (os.path.isdir(tr_dir) and os.path.isdir(te_dir)):
+        log.warning("shakespeare LEAF json not found under %s — using seeded surrogate",
+                    data_dir)
+        return _markov_text_clients(client_num, SHAKESPEARE_VOCAB, SHAKESPEARE_SEQ,
+                                    per_client=48, test_frac=0.15, seed=seed,
+                                    per_position=per_position)
+
+    def to_ids(s):
+        return np.array([letter_to_index(ch) for ch in s], np.int32)
+
+    users, tr = _read_leaf_json(tr_dir)
+    _, te = _read_leaf_json(te_dir)
+    xtr, ytr, xte, yte = [], [], [], []
+    for u in users:
+        for data, xs, ys in ((tr[u], xtr, ytr), (te.get(u, {"x": [], "y": []}), xte, yte)):
+            if data["x"]:
+                x = np.stack([to_ids(s)[:SHAKESPEARE_SEQ] for s in data["x"]])
+                nxt = np.array([to_ids(s)[0] for s in data["y"]], np.int32)
+                y = np.concatenate([x[:, 1:], nxt[:, None]], axis=1) if per_position else nxt
+            else:
+                x = np.zeros((0, SHAKESPEARE_SEQ), np.int32)
+                y = np.zeros((0, SHAKESPEARE_SEQ) if per_position else (0,), np.int32)
+            xs.append(x); ys.append(y)
+    return xtr, ytr, xte, yte

@@ -12,6 +12,18 @@ kernels):
   python -m fedml_tpu_torch.experiments.main_fedavg --dataset stackoverflow_nwp \
       --model transformer_nwp --client_num_in_total 200 \
       --client_num_per_round 50 --batch_size 16 --lr 0.3 --comm_round 100
+
+FedML's benchmark rows beyond FEMNIST (``fedml_tpu/experiments/configs/``):
+  cross-silo CIFAR-10 ResNet-56 (BatchNorm state carried and averaged):
+      --dataset cifar10 --model resnet56 --partition_method hetero \
+      --client_num_in_total 10 --client_num_per_round 10 --comm_round 100 \
+      --epochs 20 --batch_size 64 --lr 0.001 --momentum 0.9 --wd 0.0001
+  fed_CIFAR-100 ResNet-18-GN: --dataset fed_cifar100 --model resnet18_gn \
+      --client_num_in_total 500 --client_num_per_round 10 --batch_size 20 --lr 0.1
+  Shakespeare LSTM: --dataset shakespeare --model rnn --client_num_in_total 715 \
+      --client_num_per_round 10 --batch_size 10 --lr 0.8
+  (``--dataset fed_shakespeare`` trains it per position with NWPTrainer)
+With no flags but ``--device cpu`` it runs MNIST logistic regression.
 """
 
 from __future__ import annotations
@@ -71,15 +83,41 @@ def setup_run(args):
          if k not in ("data_dir", "device") and v is not None}
     d["fused_kernel"] = bool(d.get("fused_kernel", 0))
     cfg = FedConfig.from_dict(d)
+    extra_load = {}
+    if args.dataset == "mnist":
+        # the reference feeds lr a flat 784 vector and the CNNs 28x28
+        # images (standalone main_fedavg.py:318-325)
+        extra_load["flatten"] = args.model in ("lr", "mlp")
     ds = load_dataset(args.dataset, data_dir=args.data_dir,
                       client_num_in_total=args.client_num_in_total,
                       partition_method=args.partition_method,
-                      partition_alpha=args.partition_alpha, seed=args.seed)
-    module = create_model(args.model, output_dim=ds.class_num, dtype=cfg.dtype)
+                      partition_alpha=args.partition_alpha, seed=args.seed, **extra_load)
+    name, model_kwargs = contextual_model(args)
+    module = create_model(name, output_dim=ds.class_num, dtype=cfg.dtype,
+                          input_shape=ds.train.x.shape[2:], **model_kwargs)
     # task trainer by dataset (reference FedAvgAPI.py:33-39)
-    if ds.meta.get("task") == "nwp":
+    if ds.meta.get("task") == "nwp" or args.dataset in ("fed_shakespeare",
+                                                       "stackoverflow_nwp"):
         return cfg, ds, NWPTrainer(module, pad_id=0)
     return cfg, ds, ClassificationTrainer(module)
+
+
+def contextual_model(args) -> tuple[str, dict]:
+    """(model name, model kwargs) by dataset, as the JAX CLI dispatches
+    (``fedml_tpu/experiments/common.py:316-331``; reference standalone
+    main_fedavg.py:315-340): Shakespeare gets the 90-character vocab and
+    per-position logits for fed_shakespeare; ``cnn`` on har is HAR_CNN and
+    on cifar10 CNNCifar."""
+    kwargs = {}
+    if args.dataset in ("shakespeare", "fed_shakespeare"):
+        kwargs = {"vocab_size": 90, "per_position": args.dataset == "fed_shakespeare"}
+    name = args.model
+    if name == "cnn":
+        if args.dataset in ("har", "har_subject"):
+            name = "har_cnn"
+        elif args.dataset == "cifar10":
+            name = "cnn_cifar"
+    return name, kwargs
 
 
 def main(argv=None, aggregator_name: str = "fedavg", extra_args=None):

@@ -60,7 +60,7 @@ def main(argv=None):
     # the poisoned-task eval (reference test(..., mode="targetted-task"))
     def predict(x):
         return trainer.apply(api.global_variables,
-                             torch.from_numpy(np.ascontiguousarray(x)).to(api.device))
+                             torch.from_numpy(np.ascontiguousarray(x)).to(api.device))[0]
 
     xte, yte = ds.test_global
     n = min(len(yte), 2048)

@@ -72,10 +72,10 @@ def main(argv=None):
     profile_rounds(run, args.rounds, args.dtype)
 
 
-def profile_rounds(run_round, rounds: int, label: str) -> None:
+def measure_rounds(run_round, rounds: int) -> dict:
     """Profile ``run_round(r)`` for r in range(rounds) (after the caller's
-    warm-up) and print the wall and device-busy time per round and each
-    kernel's device time, share and launches per round."""
+    warm-up): {"wall_ms", "busy_ms", "launches"} per round, "rows" (device
+    us, count, kernel name) for the window and "kinds" {kind: [us, count]}."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -93,23 +93,33 @@ def profile_rounds(run_round, rounds: int, label: str) -> None:
         raise RuntimeError("the profiler recorded no device time; time with "
                            "CUDA events instead")
     rows.sort(reverse=True)
-    busy = sum(us for us, _, _ in rows)
-    print(f"{rounds} rounds, {label}: wall {wall_us / 1e3 / rounds:.3f} ms/round, "
-          f"device busy {busy / 1e3 / rounds:.3f} ms/round "
-          f"({100 * busy / wall_us:.1f}% of wall), "
-          f"{sum(c for _, c, _ in rows) / rounds:.1f} launches/round")
     kinds: dict = {}
     for us, count, key in rows:
         kind = next((k for k, marks in KINDS if any(m in key for m in marks)), "other")
         total = kinds.setdefault(kind, [0.0, 0])
         total[0] += us
         total[1] += count
+    busy = sum(us for us, _, _ in rows)
+    return {"wall_ms": wall_us / 1e3 / rounds, "busy_ms": busy / 1e3 / rounds,
+            "launches": sum(c for _, c, _ in rows) / rounds, "rows": rows, "kinds": kinds}
+
+
+def profile_rounds(run_round, rounds: int, label: str) -> None:
+    """Profile ``run_round(r)`` for r in range(rounds) (after the caller's
+    warm-up) and print the wall and device-busy time per round and each
+    kernel's device time, share and launches per round."""
+    m = measure_rounds(run_round, rounds)
+    busy = m["busy_ms"] * 1e3 * rounds
+    print(f"{rounds} rounds, {label}: wall {m['wall_ms']:.3f} ms/round, "
+          f"device busy {m['busy_ms']:.3f} ms/round "
+          f"({100 * m['busy_ms'] / m['wall_ms']:.1f}% of wall), "
+          f"{m['launches']:.1f} launches/round")
     print(f"{'ms/round':>10} {'share':>7} {'launches/round':>15}  kind")
-    for kind, (us, count) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+    for kind, (us, count) in sorted(m["kinds"].items(), key=lambda kv: -kv[1][0]):
         print(f"{us / 1e3 / rounds:10.3f} {100 * us / busy:6.1f}% "
               f"{count / rounds:15.1f}  {kind}")
     print(f"{'ms/round':>10} {'share':>7} {'launches/round':>15}  kernel")
-    for us, count, key in rows:
+    for us, count, key in m["rows"]:
         print(f"{us / 1e3 / rounds:10.3f} {100 * us / busy:6.1f}% "
               f"{count / rounds:15.1f}  {key[:110]}")
 
@@ -117,6 +127,9 @@ def profile_rounds(run_round, rounds: int, label: str) -> None:
 # kernel kinds by a substring of the profiler's kernel name, first match wins
 KINDS = (("flash attention (csrc/flash_attention.cu)", ("flash_fwd_kernel", "flash_bwd_")),
          ("fused epoch conv2 on the tensor cores (csrc/fused_sgd.cu)", ("conv2_",)),
+         ("LSTM (cuDNN RNN)", ("RNN_", "LSTM_", "lstm", "rnn")),
+         ("convolution (cuDNN)", ("xmma", "cudnn", "implicit_convolve", "implicit_gemm",
+                                  "wgrad", "dgrad", "fprop", "winograd", "conv2d")),
          ("GEMM (cuBLAS, CUTLASS)", ("gemm", "splitKreduce")),
          ("reduction", ("reduce_kernel",)),
          ("elementwise", ("elementwise_kernel",)),

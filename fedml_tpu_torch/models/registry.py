@@ -1,20 +1,80 @@
-"""Model registry (mirror of ``fedml_tpu/models/registry.py::create_model``).
+"""Model registry (mirror of ``fedml_tpu/models/registry.py::create_model``
+and the factories of ``fedml_tpu/models/zoo.py``, with their defaults).
 
-Ported so far: the FedAvg flagship's ``cnn`` (CNN_DropOut) and the NWP
-``transformer_nwp`` (TransformerLM); the rest of the zoo is listed in
-ROADMAP.md Queue 1."""
+Ported: ``lr``, ``mlp``, ``purchasemlp``, ``texasmlp``, ``cnn`` (CNN_DropOut),
+``cnn_fedavg``, ``cnn_cifar``, ``har_cnn``, the ResNets (``resnet20/32/44/
+56/56_s2d/110``, ``resnet18/34/50``, ``resnet18_gn``), ``rnn``,
+``rnn_stackoverflow`` and ``transformer_nwp``; the rest of the zoo is listed
+in ROADMAP.md Queue 1.
+
+``input_shape`` is one sample's shape (flax infers it at init; a PyTorch
+layer needs it when it is built). Where it is not given, each factory
+assumes its reference dataset's: MNIST 784 for ``lr``/``mlp``, 28x28 for
+the FEMNIST CNNs, 32x32 for ``cnn_cifar``, 128 steps of 9 channels for
+``har_cnn``, 600 and 6169 for the Purchase and Texas MLPs.
+"""
 
 from __future__ import annotations
 
-from fedml_tpu_torch.models.cnn import CNN_DropOut
+import math
+
+from fedml_tpu_torch.models import resnet
+from fedml_tpu_torch.models.cnn import CNN_DropOut, CNN_OriginalFedAvg, CNNCifar, HAR_CNN
+from fedml_tpu_torch.models.linear import DenseMLP, LogisticRegression, ReferenceMLP
+from fedml_tpu_torch.models.rnn import RNN_OriginalFedAvg, RNN_StackOverFlow
 from fedml_tpu_torch.models.transformer import TransformerLM
 
+_RESNETS = ("resnet20", "resnet32", "resnet44", "resnet56", "resnet56_s2d",
+            "resnet110", "resnet18", "resnet34", "resnet50")
 
-def create_model(model_name: str, output_dim: int, dtype="float32", **kwargs):
+
+def _width(input_shape, default: int) -> int:
+    return default if input_shape is None else int(math.prod(input_shape))
+
+
+def _side(input_shape, default: int) -> int:
+    return default if input_shape is None else int(input_shape[0])
+
+
+def create_model(model_name: str, output_dim: int, dtype="float32", input_shape=None,
+                 **kwargs):
     """Build a module by reference model name. ``dtype`` is the compute
     dtype ("float32" or "bfloat16"); parameters stay float32."""
+    shape = None if input_shape is None else tuple(input_shape)
+    if model_name == "lr":
+        return LogisticRegression(_width(shape, 784), output_dim,
+                                  flatten=kwargs.get("flatten", True), dtype=dtype)
+    if model_name == "mlp":
+        return DenseMLP(_width(shape, 784), output_dim,
+                        hidden=tuple(kwargs.get("hidden", (1024, 512, 256, 128))), dtype=dtype)
+    if model_name == "purchasemlp":
+        return ReferenceMLP(_width(shape, 600), output_dim, hidden=(256,), dtype=dtype)
+    if model_name == "texasmlp":
+        return ReferenceMLP(_width(shape, 6169), output_dim, hidden=(1024, 512), dtype=dtype)
     if model_name == "cnn":
+        if shape is not None:
+            kwargs.setdefault("input_hw", _side(shape, 28))
         return CNN_DropOut(output_dim=output_dim, dtype=dtype, **kwargs)
+    if model_name == "cnn_fedavg":
+        return CNN_OriginalFedAvg(output_dim, dtype, input_hw=_side(shape, 28))
+    if model_name == "cnn_cifar":
+        return CNNCifar(output_dim, dtype, input_hw=_side(shape, 32))
+    if model_name == "har_cnn":
+        seq, channels = (128, 9) if shape is None else shape
+        return HAR_CNN(output_dim, dtype, seq_len=seq, channels=channels)
+    if model_name in _RESNETS:
+        return getattr(resnet, model_name)(output_dim=output_dim,
+                                           group_norm=kwargs.get("group_norm", 0), dtype=dtype)
+    if model_name == "resnet18_gn":
+        # the fed_cifar100 model: GroupNorm of 2 channels per group
+        return resnet.resnet18(output_dim=output_dim, group_norm=kwargs.get("group_norm", 2),
+                               dtype=dtype)
+    if model_name == "rnn":
+        # the shakespeare next-char model
+        return RNN_OriginalFedAvg(vocab_size=kwargs.get("vocab_size", output_dim),
+                                  per_position=kwargs.get("per_position", False), dtype=dtype)
+    if model_name == "rnn_stackoverflow":
+        return RNN_StackOverFlow(vocab_size=kwargs.get("vocab_size", 10000), dtype=dtype)
     if model_name == "transformer_nwp":
         # models/zoo.py::_transformer_nwp's defaults
         return TransformerLM(vocab_size=kwargs.get("vocab_size", output_dim),
@@ -24,4 +84,4 @@ def create_model(model_name: str, output_dim: int, dtype="float32", **kwargs):
                              max_len=kwargs.get("max_len", 512), dtype=dtype)
     raise NotImplementedError(
         f"model {model_name!r} is not ported to fedml_tpu_torch yet "
-        f"(ported: 'cnn', 'transformer_nwp')")
+        f"(see ROADMAP.md Queue 1)")

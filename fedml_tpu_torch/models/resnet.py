@@ -1,0 +1,301 @@
+"""CIFAR and ImageNet-style ResNets, PyTorch form of
+``fedml_tpu/models/resnet.py``.
+
+  resnet20/32/44    BasicBlock, layers 3/5/7 per stage, stem 16, stages
+                    16/32/64 (reference resnet_cifar.py:164-208)
+  resnet56/110      Bottleneck, layers 6/12 per stage (reference
+                    resnet.py:218,241): the cross-silo CIFAR-10 models
+  resnet56_s2d      resnet56 on a 2x2 space-to-depth input
+  resnet18/34/50    ImageNet-style, 7x7/2 stem 64, 3x3/2 max-pool, stages
+                    64/128/256/512 (reference resnet_gn.py:109-135); with
+                    ``group_norm`` > 0 GroupNorm replaces BatchNorm
+                    (``resnet18_gn``, the fed_CIFAR-100 model)
+
+Inputs are NHWC, as in the JAX package; the module moves channels first
+once. Module names are flax's (``conv1``, ``_Norm_0.BatchNorm_0``,
+``Bottleneck_3.Conv_1``, ``fc``), so the converter maps the trees one to
+one.
+
+Normalisation follows flax, not ``torch.nn.BatchNorm2d``:
+
+  - the running statistics are updated from float32 batch statistics with
+    the biased variance, where torch would blend the unbiased one;
+    momentum 0.9 keeps 0.9 of the old statistic; epsilon 1e-5. The
+    normalisation is one ``F.batch_norm`` call (batch statistics, biased
+    variance, as flax normalises); the same call hands the batch's
+    statistics out, and the blend is two ``_foreach`` launches;
+  - GroupNorm's ``group_norm`` is channels per group, its epsilon 1e-6
+    (torch's default is 1e-5);
+  - the result is float32, whatever the compute dtype (flax promotes
+    against the float32 parameters).
+
+``F.batch_norm`` and ``F.group_norm`` take their variance in another order
+of summation than flax's fast variance E[x^2] - E[x]^2, a difference of
+rounding (``tests/test_torch_zoo.py`` holds both against flax); each is
+one kernel a way where the spelled-out formula took about twenty small
+launches.
+
+A BatchNorm in train mode leaves its updated statistics in ``updated``;
+``core/trainer.py::ModelTrainer.apply`` collects them as the new model
+state. The running statistics are buffers named ``mean`` and ``var``
+(``utils/pytree.py::STATE_LEAVES``).
+
+dtype rule: parameters stay float32; convolutions and the head run in the
+compute dtype (inputs and weights cast to it), normalisation in float32, so
+the residual trunk is float32 and the logits come out in the compute dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fedml_tpu_torch.models.cnn import compute_dtype, dense
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW."""
+
+    flax_leaf = "scale"  # the weight's flax leaf name
+
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+        self.updated = None
+
+    def flax_init_(self, leaf: str, t: torch.Tensor, generator) -> None:
+        t.fill_(1.0 if leaf in ("weight", "var") else 0.0)
+
+    def forward(self, x, train: bool = False):
+        x = x.float()
+        if train:
+            # the batch's statistics come out of the normalising call itself:
+            # at momentum 1 it writes the batch mean and unbiased variance
+            # into these zeroed buffers; flax blends the biased variance
+            c = x.shape[1]
+            n = x.numel() // c
+            batch = x.new_zeros(2, c)
+            y = F.batch_norm(x, batch[0], batch[1], self.weight, self.bias, True, 1.0,
+                             self.eps)
+            with torch.no_grad():
+                m = self.momentum
+                mean, var = torch._foreach_mul([self.mean, self.var], m)
+                torch._foreach_add_([mean, var], [batch[0], batch[1] * ((n - 1) / n)],
+                                    alpha=1 - m)
+                self.updated = {"mean": mean, "var": var}
+            return y
+        return F.batch_norm(x, self.mean, self.var, self.weight, self.bias, False, 0.0,
+                            self.eps)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups)`` (epsilon 1e-6) over NCHW."""
+
+    flax_leaf = "scale"
+
+    def __init__(self, channels: int, groups: int, eps: float = 1e-6):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def flax_init_(self, leaf: str, t: torch.Tensor, generator) -> None:
+        t.fill_(1.0 if leaf == "weight" else 0.0)
+
+    def forward(self, x, train: bool = False):
+        return F.group_norm(x.float(), self.groups, self.weight, self.bias, self.eps)
+
+
+class _Norm(nn.Module):
+    """BatchNorm (``group_norm`` 0) or GroupNorm with ``group_norm``
+    channels per group, under flax's submodule name."""
+
+    def __init__(self, channels: int, group_norm: int = 0):
+        super().__init__()
+        if group_norm > 0:
+            self.GroupNorm_0 = GroupNorm(channels, max(1, channels // group_norm))
+        else:
+            self.BatchNorm_0 = BatchNorm(channels)
+
+    def forward(self, x, train: bool = False):
+        norm = self.GroupNorm_0 if hasattr(self, "GroupNorm_0") else self.BatchNorm_0
+        return norm(x, train)
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0) -> nn.Conv2d:
+    """A bias-free convolution (flax ``nn.Conv(use_bias=False)``)."""
+    return nn.Conv2d(cin, cout, k, stride, padding, bias=False)
+
+
+def _norms(module: nn.Module, channels) -> None:
+    for i, c in enumerate(channels):
+        module.add_module(f"_Norm_{i}", _Norm(c, module.group_norm))
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, group_norm: int = 0,
+                 dtype=torch.float32):
+        super().__init__()
+        self.stride, self.group_norm, self.dtype = stride, group_norm, dtype
+        self.Conv_0 = _conv(cin, planes, 3, stride, 1)
+        self.Conv_1 = _conv(planes, planes, 3, 1, 1)
+        self.shortcut = stride != 1 or cin != planes
+        if self.shortcut:
+            self.Conv_2 = _conv(cin, planes, 1, stride)
+        _norms(self, [planes] * (3 if self.shortcut else 2))
+
+    def forward(self, x, train: bool = False):
+        cd = self.dtype
+        out = F.relu(self._Norm_0(_apply_conv(self.Conv_0, x, cd), train))
+        out = self._Norm_1(_apply_conv(self.Conv_1, out, cd), train)
+        identity = x
+        if self.shortcut:
+            identity = self._Norm_2(_apply_conv(self.Conv_2, x, cd), train)
+        return F.relu(out + identity)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, group_norm: int = 0,
+                 dtype=torch.float32):
+        super().__init__()
+        self.stride, self.group_norm, self.dtype = stride, group_norm, dtype
+        cout = planes * self.expansion
+        self.Conv_0 = _conv(cin, planes, 1)
+        self.Conv_1 = _conv(planes, planes, 3, stride, 1)
+        self.Conv_2 = _conv(planes, cout, 1)
+        self.shortcut = stride != 1 or cin != cout
+        if self.shortcut:
+            self.Conv_3 = _conv(cin, cout, 1, stride)
+        _norms(self, [planes, planes, cout] + ([cout] if self.shortcut else []))
+
+    def forward(self, x, train: bool = False):
+        cd = self.dtype
+        out = F.relu(self._Norm_0(_apply_conv(self.Conv_0, x, cd), train))
+        out = F.relu(self._Norm_1(_apply_conv(self.Conv_1, out, cd), train))
+        out = self._Norm_2(_apply_conv(self.Conv_2, out, cd), train)
+        identity = x
+        if self.shortcut:
+            identity = self._Norm_3(_apply_conv(self.Conv_3, x, cd), train)
+        return F.relu(out + identity)
+
+
+def _apply_conv(layer: nn.Conv2d, x, cd):
+    return F.conv2d(x.to(cd), layer.weight.to(cd), None, layer.stride, layer.padding)
+
+
+def _stages(module: nn.Module, block, cin: int, widths, layers, group_norm, dtype) -> int:
+    """Add the residual stages under flax's block names; returns the output
+    channels."""
+    i = 0
+    for stage, (planes, blocks) in enumerate(zip(widths, layers)):
+        for b in range(blocks):
+            stride = 2 if (stage > 0 and b == 0) else 1
+            module.add_module(f"{block.__name__}_{i}",
+                              block(cin, planes, stride, group_norm, dtype))
+            cin = planes * block.expansion
+            i += 1
+    module.num_blocks = i
+    return cin
+
+
+class ResNetCifar(nn.Module):
+    """3-stage CIFAR ResNet: 3x3 stem conv -> stages -> global average pool
+    -> fc. ``widths`` sets the stage widths, ``s2d`` a 2x2 space-to-depth
+    input transform (32x32x3 -> 16x16x12)."""
+
+    def __init__(self, block, layers, output_dim: int = 10, group_norm: int = 0,
+                 widths=(16, 32, 64), s2d: bool = False, in_channels: int = 3,
+                 dtype="float32"):
+        super().__init__()
+        self.block, self.s2d = block, s2d
+        self.dtype = compute_dtype(dtype)
+        self.group_norm = group_norm
+        cin = in_channels * (4 if s2d else 1)
+        self.conv1 = _conv(cin, widths[0], 3, 1, 1)
+        _norms(self, [widths[0]])
+        cout = _stages(self, block, widths[0], widths, layers, group_norm, self.dtype)
+        self.fc = nn.Linear(cout, output_dim)
+
+    def forward(self, x, train: bool = False, generator=None):
+        if self.s2d:
+            b, h, w, c = x.shape
+            x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+            x = x.reshape(b, h // 2, w // 2, 4 * c)
+        x = x.permute(0, 3, 1, 2)
+        x = F.relu(self._Norm_0(_apply_conv(self.conv1, x, self.dtype), train))
+        name = self.block.__name__
+        for i in range(self.num_blocks):
+            x = getattr(self, f"{name}_{i}")(x, train)
+        return dense(self.fc, x.mean((2, 3)), self.dtype)
+
+
+class ResNetImageNet(nn.Module):
+    """4-stage ImageNet-style ResNet: 7x7/2 stem 64, 3x3/2 max-pool, stages
+    64/128/256/512, global average pool, fc."""
+
+    def __init__(self, block, layers, output_dim: int = 1000, group_norm: int = 0,
+                 in_channels: int = 3, dtype="float32"):
+        super().__init__()
+        self.block = block
+        self.dtype = compute_dtype(dtype)
+        self.group_norm = group_norm
+        self.conv1 = _conv(in_channels, 64, 7, 2, 3)
+        _norms(self, [64])
+        cout = _stages(self, block, 64, (64, 128, 256, 512), layers, group_norm, self.dtype)
+        self.fc = nn.Linear(cout, output_dim)
+
+    def forward(self, x, train: bool = False, generator=None):
+        x = x.permute(0, 3, 1, 2)
+        x = F.relu(self._Norm_0(_apply_conv(self.conv1, x, self.dtype), train))
+        x = F.max_pool2d(x, 3, 2, 1)
+        name = self.block.__name__
+        for i in range(self.num_blocks):
+            x = getattr(self, f"{name}_{i}")(x, train)
+        return dense(self.fc, x.mean((2, 3)), self.dtype)
+
+
+def resnet20(output_dim=10, group_norm=0, dtype="float32"):
+    return ResNetCifar(BasicBlock, (3, 3, 3), output_dim, group_norm, dtype=dtype)
+
+
+def resnet32(output_dim=10, group_norm=0, dtype="float32"):
+    return ResNetCifar(BasicBlock, (5, 5, 5), output_dim, group_norm, dtype=dtype)
+
+
+def resnet44(output_dim=10, group_norm=0, dtype="float32"):
+    return ResNetCifar(BasicBlock, (7, 7, 7), output_dim, group_norm, dtype=dtype)
+
+
+def resnet56(output_dim=10, group_norm=0, s2d=False, dtype="float32"):
+    return ResNetCifar(Bottleneck, (6, 6, 6), output_dim, group_norm, s2d=s2d, dtype=dtype)
+
+
+def resnet56_s2d(output_dim=10, group_norm=0, dtype="float32"):
+    """ResNet-56 on a space-to-depth input: an architecture variant of the
+    reference model, not the model itself."""
+    return resnet56(output_dim, group_norm, s2d=True, dtype=dtype)
+
+
+def resnet110(output_dim=10, group_norm=0, dtype="float32"):
+    return ResNetCifar(Bottleneck, (12, 12, 12), output_dim, group_norm, dtype=dtype)
+
+
+def resnet18(output_dim=1000, group_norm=0, dtype="float32"):
+    return ResNetImageNet(BasicBlock, (2, 2, 2, 2), output_dim, group_norm, dtype=dtype)
+
+
+def resnet34(output_dim=1000, group_norm=0, dtype="float32"):
+    return ResNetImageNet(BasicBlock, (3, 4, 6, 3), output_dim, group_norm, dtype=dtype)
+
+
+def resnet50(output_dim=1000, group_norm=0, dtype="float32"):
+    return ResNetImageNet(Bottleneck, (3, 4, 6, 3), output_dim, group_norm, dtype=dtype)

@@ -1,21 +1,30 @@
-"""Parameters of the JAX package <-> parameters of the port.
+"""Variables of the JAX package <-> variables of the port.
 
-The JAX package holds a model's parameters as a nested flax tree
-``{"params": {module: {submodule: {leaf: array}}}}``. The port holds them as
-a flat dict of tensors keyed like a ``state_dict``
+The JAX package holds a model's variables as a nested flax tree
+``{"params": {module: {submodule: {leaf: array}}}, "batch_stats": {...}}``.
+The port holds them as a flat dict of tensors keyed like a ``state_dict``
 (``"module.submodule.weight"``) in PyTorch's layout. The leaves map by
 kind:
 
-  - Dense/Conv ``kernel`` <-> ``weight``: conv kernels HWIO <-> OIHW, dense
-    kernels [in, out] <-> [out, in];
+  - Dense/Conv ``kernel`` <-> ``weight``: 2-D conv kernels HWIO <-> OIHW,
+    1-D conv kernels WIO <-> OIW, dense kernels [in, out] <-> [out, in];
   - ``bias`` <-> ``bias``, as is;
-  - LayerNorm ``scale`` <-> ``weight``, as is;
+  - LayerNorm, GroupNorm and BatchNorm ``scale`` <-> ``weight``, as is;
   - Embed ``embedding`` <-> ``weight``, as is ([num, features] on both
-    sides).
+    sides);
+  - ``batch_stats``' ``mean`` and ``var`` <-> the state buffers ``mean``
+    and ``var`` under the same path (``utils/pytree.py::STATE_LEAVES``);
+  - an ``OptimizedLSTMCell``'s eight gate kernels (input ``ii, if, ig, io``
+    [in, H], no bias; hidden ``hi, hf, hg, ho`` [H, H] with bias) <->
+    ``weight_ih`` [4H, in], ``weight_hh`` [4H, H] and ``bias`` [4H], each
+    the gates' transposed kernels or biases stacked in the order i, f, g, o.
 
 Both functions accept leading batch axes (a client-stacked tree converts
-leaf by leaf). The port's ``CNN_DropOut`` flattens its pooled activations
-channels-last, as flax does, so the rows of ``linear_1`` keep their order.
+leaf by leaf). Without ``module`` a kernel of 4 or more axes is a 2-D conv
+kernel and any other a dense one; with it, each kernel's own rank comes from
+the module's parameter, which 1-D convs and stacked trees need. The port's
+CNNs flatten their pooled activations channels-last, as flax does, so
+dense rows keep their order.
 """
 
 from __future__ import annotations
@@ -24,39 +33,84 @@ import numpy as np
 import torch
 from torch import nn
 
+from fedml_tpu_torch.utils.pytree import STATE_LEAVES
 
-def flax_to_torch(tree, device="cpu", dtype=torch.float32) -> dict:
-    """flax params tree (numpy or jax arrays) -> {"module.weight": tensor}."""
+_GATES = ("i", "f", "g", "o")
+
+
+def _kernel_to_torch(a: np.ndarray, rank: int) -> np.ndarray:
+    """flax kernel [..., *spatial, I, O] -> [..., O, I, *spatial] (rank 3
+    or 4), or [..., in, out] -> [..., out, in]."""
+    n = a.ndim
+    lead = tuple(range(n - rank))
+    if rank >= 3:
+        spatial = tuple(range(n - rank, n - 2))
+        return a.transpose(lead + (n - 1, n - 2) + spatial)
+    return np.swapaxes(a, -1, -2)
+
+
+def _kernel_to_flax(a: np.ndarray, rank: int) -> np.ndarray:
+    """The inverse of ``_kernel_to_torch``."""
+    n = a.ndim
+    lead = tuple(range(n - rank))
+    if rank >= 3:
+        spatial = tuple(range(n - rank + 2, n))
+        return a.transpose(lead + spatial + (n - rank + 1, n - rank))
+    return np.swapaxes(a, -1, -2)
+
+
+def _param_ranks(module: nn.Module | None) -> dict:
+    if module is None:
+        return {}
+    named = dict(module.named_parameters())
+    named.update(module.named_buffers())
+    return {k: v.dim() for k, v in named.items()}
+
+
+def flax_to_torch(tree, device="cpu", dtype=torch.float32, module=None) -> dict:
+    """flax variables tree (numpy or jax arrays; ``params`` and
+    ``batch_stats``) -> {"module.weight": tensor}."""
+    ranks = _param_ranks(module)
     out = {}
 
+    def put(key, a):
+        out[key] = torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
     def walk(node, prefix):
+        if set(node) == {f"{d}{g}" for d in "ih" for g in _GATES}:  # an LSTM cell
+            put(f"{prefix}weight_ih", np.concatenate(
+                [np.swapaxes(np.asarray(node[f"i{g}"]["kernel"]), -1, -2) for g in _GATES], -2))
+            put(f"{prefix}weight_hh", np.concatenate(
+                [np.swapaxes(np.asarray(node[f"h{g}"]["kernel"]), -1, -2) for g in _GATES], -2))
+            put(f"{prefix}bias", np.concatenate(
+                [np.asarray(node[f"h{g}"]["bias"]) for g in _GATES], -1))
+            return
         for name, value in node.items():
             if hasattr(value, "items"):  # a module's subtree (dict or FrozenDict)
                 walk(value, f"{prefix}{name}.")
                 continue
             a = np.asarray(value)
+            key = name if name in ("bias",) + tuple(STATE_LEAVES) else "weight"
             if name == "kernel":
-                n = a.ndim
-                if n >= 4:  # [..., H, W, I, O] -> [..., O, I, H, W]
-                    lead = tuple(range(n - 4))
-                    a = a.transpose(lead + (n - 1, n - 2, n - 4, n - 3))
-                else:  # [..., in, out] -> [..., out, in]
-                    a = np.swapaxes(a, -1, -2)
-            key = "bias" if name == "bias" else "weight"
-            out[f"{prefix}{key}"] = torch.tensor(np.ascontiguousarray(a), dtype=dtype,
-                                                 device=device)
+                rank = ranks.get(f"{prefix}weight", 4 if a.ndim >= 4 else 2)
+                a = _kernel_to_torch(a, rank)
+            put(f"{prefix}{key}", a)
 
-    walk(tree.get("params", tree), "")
+    if "params" in tree or "batch_stats" in tree:
+        walk(tree.get("params", {}), "")
+        walk(tree.get("batch_stats", {}), "")
+    else:
+        walk(tree, "")
     return out
 
 
 def leaf_kinds(module: nn.Module) -> dict:
     """{"module.weight": flax leaf name} for the weights that are not a
-    Dense/Conv ``kernel``: LayerNorm ``scale`` and Embed ``embedding``."""
+    Dense/Conv ``kernel``: a norm's ``scale`` and Embed's ``embedding``."""
     kinds = {}
     for name, mod in module.named_modules():
         prefix = f"{name}." if name else ""
-        if isinstance(mod, nn.LayerNorm):
+        if isinstance(mod, nn.LayerNorm) or getattr(mod, "flax_leaf", None) == "scale":
             kinds[f"{prefix}weight"] = "scale"
         elif isinstance(mod, nn.Embedding):
             kinds[f"{prefix}weight"] = "embedding"
@@ -64,27 +118,40 @@ def leaf_kinds(module: nn.Module) -> dict:
 
 
 def torch_to_flax(state: dict, module: nn.Module | None = None) -> dict:
-    """{"module.weight": tensor} -> {"params": nested tree} of numpy arrays
-    (the inverse of ``flax_to_torch``). A weight is a ``kernel`` unless
-    ``module`` makes it a LayerNorm ``scale`` or an Embed ``embedding``."""
+    """{"module.weight": tensor} -> {"params": nested tree[, "batch_stats":
+    nested tree]} of numpy arrays (the inverse of ``flax_to_torch``). A
+    weight is a ``kernel`` unless ``module`` makes it a norm's ``scale`` or
+    an Embed ``embedding``."""
     kinds = leaf_kinds(module) if module is not None else {}
-    params: dict = {}
+    ranks = _param_ranks(module)
+    trees: dict = {"params": {}}
+
+    def node_at(collection, path):
+        node = trees.setdefault(collection, {})
+        for part in path.split("."):
+            node = node.setdefault(part, {})
+        return node
+
     for key, value in state.items():
         path, kind = key.rsplit(".", 1)
         a = value.detach().float().cpu().numpy()
+        if kind in STATE_LEAVES:
+            node_at("batch_stats", path)[kind] = np.ascontiguousarray(a)
+            continue
+        node = node_at("params", path)
+        if kind in ("weight_ih", "weight_hh", "bias") and f"{path}.weight_hh" in state:
+            side = {"weight_ih": "i", "weight_hh": "h", "bias": "h"}[kind]
+            leaf = "bias" if kind == "bias" else "kernel"
+            for g, part in zip(_GATES, np.split(a, 4, axis=-1 if kind == "bias" else -2)):
+                if leaf == "kernel":
+                    part = np.swapaxes(part, -1, -2)
+                node.setdefault(f"{side}{g}", {})[leaf] = np.ascontiguousarray(part)
+            continue
         leaf = kinds.get(key, "kernel") if kind == "weight" else "bias"
         if leaf == "kernel":
-            n = a.ndim
-            if n >= 4:  # [..., O, I, H, W] -> [..., H, W, I, O]
-                lead = tuple(range(n - 4))
-                a = a.transpose(lead + (n - 2, n - 1, n - 3, n - 4))
-            else:
-                a = np.swapaxes(a, -1, -2)
-        node = params
-        for part in path.split("."):
-            node = node.setdefault(part, {})
+            a = _kernel_to_flax(a, ranks.get(key, 4 if a.ndim >= 4 else 2))
         node[leaf] = np.ascontiguousarray(a)
-    return {"params": params}
+    return trees
 
 
 #: optax state fields that hold a tree of moments beside the params

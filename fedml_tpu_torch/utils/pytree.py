@@ -22,3 +22,22 @@ def tree_weighted_mean(stacked: dict, weights: torch.Tensor) -> dict:
 def tree_where(pred: torch.Tensor, a: dict, b: dict) -> dict:
     """Select dict ``a`` where scalar bool ``pred`` else ``b``."""
     return {k: torch.where(pred, a[k], b[k]) for k in a}
+
+
+#: The leaf names of model state (flax's ``batch_stats`` collection: a
+#: BatchNorm's running ``mean`` and ``var``). Every other key of a variables
+#: dict is a parameter. The engine, the aggregators and the converter all
+#: split a variables dict by this rule, and the models name their state
+#: buffers by it.
+STATE_LEAVES = frozenset({"mean", "var"})
+
+
+def is_param(key: str) -> bool:
+    """True for a parameter's key, False for model state."""
+    return key.rpartition(".")[2] not in STATE_LEAVES
+
+
+def split_variables(variables: dict) -> tuple[dict, dict]:
+    """(params, state): a variables dict split by ``is_param``."""
+    params = {k: v for k, v in variables.items() if is_param(k)}
+    return params, {k: v for k, v in variables.items() if not is_param(k)}

@@ -51,7 +51,7 @@ def test_backdoor_metrics_match_jax():
         return jt.apply(gv, jnp.asarray(a), train=False)[0]
 
     def tpredict(a):
-        return tt.apply(tv, torch.from_numpy(np.ascontiguousarray(a)))
+        return tt.apply(tv, torch.from_numpy(np.ascontiguousarray(a)))[0]
 
     want = jax_backdoor.backdoor_metrics(jpredict, xc, yc, target_label=2)
     got = backdoor.backdoor_metrics(tpredict, xc, yc, target_label=2)

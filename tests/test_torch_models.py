@@ -81,7 +81,7 @@ def test_trainer_loss_and_eval_match_jax_with_padding_mask():
     batch_t = {"x": torch.from_numpy(x), "y": torch.from_numpy(y),
                "mask": torch.from_numpy(mask)}
     jloss, (_, jaux) = jt.loss_fn(gv, batch_j, None, False)
-    tloss, taux = tt.loss_fn(flax_to_torch(gv), batch_t, None, False)
+    tloss, (_, taux) = tt.loss_fn(flax_to_torch(gv), batch_t, None, False)
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
     for k in jaux:
         np.testing.assert_allclose(float(taux[k]), float(jaux[k]), rtol=1e-5,
@@ -96,7 +96,7 @@ def test_trainer_loss_and_eval_match_jax_with_padding_mask():
 def test_argmax_ties_go_to_the_first_index():
     tt = ClassificationTrainer(create_model("cnn", output_dim=C, input_hw=H))
     logits = torch.tensor([[1.0, 3.0, 3.0, 0.0, 0.0]])
-    tt.apply = lambda variables, x, generator=None, train=False: logits
+    tt.apply = lambda variables, x, generator=None, train=False: (logits, {})
     m = tt.eval_fn({}, {"x": None, "y": torch.tensor([1]),
                         "mask": torch.ones(1)})
     assert float(m["test_correct"]) == 1.0
@@ -104,4 +104,4 @@ def test_argmax_ties_go_to_the_first_index():
 
 def test_unported_model_raises():
     with pytest.raises(NotImplementedError):
-        create_model("resnet56", output_dim=10)
+        create_model("mobilenet", output_dim=10)

@@ -126,8 +126,8 @@ def test_nwp_loss_and_gradients_match_jax():
 
     (jl, (_, jaux)), jgrads = jax.value_and_grad(jloss, has_aux=True)(gv["params"])
     leaves = {k: v.requires_grad_(True) for k, v in flax_to_torch(gv).items()}
-    tl, taux = tt.loss_fn(leaves, {"x": torch.from_numpy(x), "y": torch.from_numpy(y),
-                                   "mask": torch.from_numpy(mask)}, None, True)
+    tl, (_, taux) = tt.loss_fn(leaves, {"x": torch.from_numpy(x), "y": torch.from_numpy(y),
+                                        "mask": torch.from_numpy(mask)}, None, True)
     tl.backward()
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=2e-5)
     for k in jaux:
@@ -160,7 +160,7 @@ def test_nwp_argmax_ties_go_to_the_first_index():
     tt = NWPTrainer(create_model("transformer_nwp", output_dim=4, d_model=8, heads=2,
                                  num_layers=1, max_len=4))
     logits = torch.tensor([[[1.0, 3.0, 3.0, 0.0]]])
-    tt.apply = lambda variables, x, generator=None, train=False: logits
+    tt.apply = lambda variables, x, generator=None, train=False: (logits, {})
     m = tt.eval_fn({}, {"x": None, "y": torch.tensor([[1]]), "mask": torch.ones(1)})
     assert float(m["test_correct"]) == 1.0
 
