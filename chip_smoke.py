@@ -96,7 +96,26 @@ Phases (any failure exits non-zero and prints no result line):
        (MNIST logistic regression, 10 clients, 10 rounds);
      each with its median round, its training loss per round and, for one
      more round under ``torch.profiler``, the device's busy share and its
-     largest kinds of kernel.
+     largest kinds of kernel;
+  6. the drive (``FedAvgAPI.train`` as the CLI drives it), each run's
+     launches counted as in phase 3, with the tracer's phase spans
+     (``stage``, ``h2d``, ``dispatch``, ``device_wait``, ``metrics_fetch``)
+     printed as medians beside the median round and the wall per round:
+     - fused FEMNIST, 5 rounds at depth 0 (the eager loop) and at
+       PIPE_DEPTH (2, the CLI's default): the globals and server state bit
+       for bit equal and the kernel launched once a round in each; 3 rounds
+       with a checkpoint, then a new ``FedAvgAPI`` restored from it for 2
+       more: bit for bit the 5 straight rounds; a pipelined run with one
+       staged byte flipped must differ;
+     - engine FEMNIST through the CLI with ``--chaos 1 --chaos_drop_rate
+       0.3 --chaos_nan_rate 0.3 --guard 1`` (the chaos seed the first that
+       NaN-faults a client in the last round): ``quarantined_count >= 1``
+       in ``wandb-summary.json``, a ``guard_verdict`` event a round in
+       ``TRACE.jsonl``, finite globals in the final checkpoint;
+     - NWP at full width, 3 rounds at depth 0 and at PIPE_DEPTH, round 1
+       NaN-faulting one client (out-of-range token ids): that client is
+       quarantined and no other, no device assert, the loss falls and the
+       three flash kernels launch.
 
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
@@ -116,6 +135,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -173,6 +193,14 @@ ATTN_SHAPES = {"a": (16, 20, 4, 32), "b": (2, 333, 2, 64), "c": (8, 2048, 4, 32)
 ATTN_TOL = {"float32": {"o": (2e-5, 2e-5), "lse": (2e-5, 2e-5), "grad": (2e-4, 2e-4)},
             "bfloat16": {"o": (1e-2, 1e-4), "lse": (2e-5, 2e-5), "grad": (1e-2, 2e-4)}}
 NWP_CLIENTS, NWP_PER_ROUND, NWP_BATCH, NWP_LR = 200, 50, 16, 0.3
+# Phase 6: the CLI's default pipeline depth, and the tracer's phase spans
+PIPE_DEPTH = 2
+DRIVE_SPANS = ("stage_wait", "stage", "h2d", "dispatch", "device_wait", "metrics_fetch",
+               "eval")
+# the fused timing pair runs longer than ROUNDS, so that the pipeline
+# reaches its steady state between the evaluations of its first and last
+# round
+TIME_ROUNDS = 20
 # Cross-silo ResNet-56: the config's 20 local epochs cut to XS_EPOCHS, the
 # most whose round stayed within XS_ROUND_S on the H100 hosts measured (E = 3:
 # 28.6-29.9 s on the slowest); a longer round is reported, not re-cut. The
@@ -970,12 +998,14 @@ def check_fused_server_rules(ds, launches: dict) -> None:
 
     # the robust CLI: 30 clients give a padded width of 360, a multiple of
     # the batch, as the fused kernel needs
-    argv = ["--dataset", "femnist", "--model", "cnn", "--client_num_in_total", "30",
-            "--client_num_per_round", "10", "--batch_size", str(BATCH), "--lr", "0.1",
-            "--comm_round", "3", "--frequency_of_the_test", "3", "--fused_kernel", "1",
-            "--attacker_num", "1", "--seed", str(SEED), "--device", "cuda"]
-    hist, n = with_launches("fused robust CLI", ["fused_epoch"],
-                            lambda: main_fedavg_robust.main(argv))
+    with tempfile.TemporaryDirectory() as run_dir:
+        argv = ["--dataset", "femnist", "--model", "cnn", "--client_num_in_total", "30",
+                "--client_num_per_round", "10", "--batch_size", str(BATCH), "--lr", "0.1",
+                "--comm_round", "3", "--frequency_of_the_test", "3", "--fused_kernel", "1",
+                "--attacker_num", "1", "--seed", str(SEED), "--device", "cuda",
+                "--run_dir", run_dir]
+        hist, n = with_launches("fused robust CLI", ["fused_epoch"],
+                                lambda: main_fedavg_robust.main(argv))
     values = [h["loss_sum"] for h in hist] + [hist[-1]["Test/Loss"]]
     if not all(math.isfinite(v) for v in values):
         raise RuntimeError(f"robust CLI: non-finite losses {values}")
@@ -1180,7 +1210,9 @@ def run_zoo_paths() -> dict:
                  lambda: check_zoo_run(f"{path} rnn ({rounds} rounds, cut from 1200)", api,
                                        hist))
 
-    hist = zoo_path("cli defaults (mnist lr)", launches, lambda: main_fedavg.main([]))
+    with tempfile.TemporaryDirectory() as run_dir:
+        hist = zoo_path("cli defaults (mnist lr)", launches,
+                        lambda: main_fedavg.main(["--run_dir", run_dir]))
     losses = [h["loss_sum"] / h["total"] for h in hist]
     if not losses[-1] < losses[0] or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"cli defaults: training loss did not fall: {losses}")
@@ -1188,6 +1220,228 @@ def run_zoo_paths() -> dict:
         f"{statistics.median([h['round_time'] * 1e3 for h in hist]):.2f} ms, train loss "
         f"{[round(v, 4) for v in losses]}, final Test/Acc {hist[-1]['Test/Acc']:.4f}")
     return launches
+
+
+def same_bits(tag: str, got, want) -> None:
+    """Every tensor of the tree ``got`` holds the bits of ``want``'s (any
+    dtype); raises Disagreement."""
+    import torch
+
+    from fedml_tpu_torch.utils.pytree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    if [p for p, _ in a] != [p for p, _ in b]:
+        raise Disagreement(f"{tag}: the trees hold other leaves")
+    for (path, x), (_, y) in zip(a, b):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)):
+            raise Disagreement(f"{tag}: {path} not bitwise equal")
+
+
+def round_numbers(tracer) -> dict:
+    """The drive's per-round timings from the tracer's spans, over the
+    rounds 1..R-2 (round 0 and the last evaluate): the median round span;
+    the median spacing between the starts of consecutive rounds (the wall
+    a round costs in steady state at any depth: a pipelined round span
+    ends before the card finishes it); and each phase's median per-round
+    total (a round may hold two ``metrics_fetch`` spans: the round's own
+    and its record flush)."""
+    rounds = sorted({s["round"] for s in tracer.find_spans("round")})
+    steady = rounds[1:-1] or rounds
+    starts = {s["round"]: s["t0"] for s in tracer.find_spans("round")}
+    totals: dict = {}
+    for s in tracer.spans:
+        if s["name"] in DRIVE_SPANS and s["round"] in steady:
+            per_round = totals.setdefault(s["name"], dict.fromkeys(steady, 0.0))
+            per_round[s["round"]] += s["dur_s"] * 1e3
+    gaps = [(starts[r + 1] - starts[r]) * 1e3 for r in steady if r + 1 in starts]
+    return {"median_round_ms": statistics.median(
+                s["dur_s"] * 1e3 for s in tracer.find_spans("round") if s["round"] in steady),
+            "round_spacing_ms": statistics.median(gaps) if gaps else None,
+            "phase_ms": {k: statistics.median(v.values()) for k, v in totals.items()},
+            "rounds": [steady[0], steady[-1]]}
+
+
+def drive(tag: str, api, **train_kw) -> tuple:
+    """``api.train`` under a fresh Tracer; logs ``round_numbers``. Returns
+    (history, tracer, numbers)."""
+    from fedml_tpu_torch.telemetry import Tracer
+
+    tracer = Tracer()
+    hist = api.train(tracer=tracer, **train_kw)
+    numbers = round_numbers(tracer)
+    log(f"{tag}: rounds {numbers['rounds'][0]}-{numbers['rounds'][1]}: median round "
+        f"{numbers['median_round_ms']:.3f} ms, round spacing "
+        f"{numbers['round_spacing_ms'] or float('nan'):.3f} ms, per-round phase medians ms "
+        f"{ {k: round(v, 3) for k, v in numbers['phase_ms'].items()} }")
+    return hist, tracer, numbers
+
+
+def flip_staged_byte(api, round_idx: int) -> None:
+    """A faulted control: ``api.stage_fn`` flips one byte (bits 16-23 of
+    the first sample's largest pixel) of round ``round_idx``'s cohort after
+    its copy to the card."""
+    import torch
+
+    stage = api.stage_fn
+
+    def flipped(r, **kw):
+        staged = stage(r, **kw)
+        if r == round_idx:
+            staged.ready.synchronize()
+            flat = staged.x.reshape(-1)
+            i = int(flat[: staged.x[0, 0].numel()].abs().argmax())
+            flat.view(torch.uint8)[4 * i + 2: 4 * i + 3].bitwise_xor_(0xFF)
+            torch.cuda.synchronize()
+        return staged
+
+    api.stage_fn = flipped
+
+
+def check_fused_drives(ds, launches: dict) -> dict:
+    """Phase 6, FEMNIST through the fused kernel: 5 rounds at depth 0 and
+    at PIPE_DEPTH, 3 rounds + checkpoint + a new api restored for 2 more,
+    all bit for bit equal; a depth-PIPE_DEPTH run with one staged byte
+    flipped must differ; then the timing pair, TIME_ROUNDS rounds at each
+    depth (also bit for bit equal). Each run launches the kernel once a
+    round. Returns the timing pair's numbers."""
+
+    def run(tag, depth, rounds=ROUNDS, run_rounds=None, **train_kw):
+        api = femnist_api(ds, True, pipeline_depth=depth, comm_round=rounds,
+                          frequency_of_the_test=rounds)
+        (hist, _, numbers), n = with_launches(tag, ["fused_epoch"],
+                                              lambda: drive(tag, api, **train_kw))
+        launches[tag] = n["fused_epoch"]
+        if n["fused_epoch"] != (run_rounds or rounds):
+            raise RuntimeError(f"{tag}: {n['fused_epoch']} fused launches in "
+                               f"{run_rounds or rounds} rounds")
+        check_trained(tag, api, hist)
+        return api, numbers
+
+    eager, _ = run("femnist fused depth 0", 0)
+    piped, _ = run(f"femnist fused depth {PIPE_DEPTH}", PIPE_DEPTH)
+    same_bits("fused depth 2 vs depth 0 globals", piped.global_variables,
+              eager.global_variables)
+    same_bits("fused depth 2 vs depth 0 state", piped.agg_state, eager.agg_state)
+    with tempfile.TemporaryDirectory() as ckpt:
+        run("femnist fused resumed, first 3 rounds", PIPE_DEPTH, 3, ckpt_dir=ckpt,
+            ckpt_every=100)
+        resumed, _ = run("femnist fused resumed, rounds 3-4", PIPE_DEPTH, run_rounds=2,
+                         ckpt_dir=ckpt, ckpt_every=100)
+    same_bits("fused resumed vs 5 straight rounds", resumed.global_variables,
+              eager.global_variables)
+    faulted = femnist_api(ds, True, pipeline_depth=PIPE_DEPTH, frequency_of_the_test=ROUNDS)
+    flip_staged_byte(faulted, 2)
+    faulted.train()
+    must_fail("fused depth 2 with a flipped staged byte",
+              lambda: same_bits("faulted", faulted.global_variables, eager.global_variables))
+    apis, numbers = {}, {}
+    for depth in (0, PIPE_DEPTH):
+        apis[depth], numbers[f"depth {depth}"] = run(
+            f"femnist fused depth {depth}, {TIME_ROUNDS} rounds", depth, TIME_ROUNDS)
+    same_bits(f"fused depth 2 vs depth 0, {TIME_ROUNDS} rounds",
+              apis[PIPE_DEPTH].global_variables, apis[0].global_variables)
+    log(f"fused drives: depth {PIPE_DEPTH} ({ROUNDS} and {TIME_ROUNDS} rounds) and 3 + 2 "
+        f"resumed rounds bit for bit depth 0's; a run with one staged byte flipped differs")
+    return numbers
+
+
+def chaos_seed(rounds: int, clients: int, round_idx: int, **rates) -> int:
+    """The first chaos seed whose plan NaN-faults a client in ``round_idx``
+    (plans are pure in their seed: the choice is the same on every run)."""
+    from fedml_tpu_torch.robustness.chaos import FaultPlan
+
+    return next(s for s in range(1000)
+                if FaultPlan(seed=s, **rates).events(round_idx, clients).nan_mask.any())
+
+
+def check_chaos_cli(run_dir: str) -> None:
+    """Phase 6, FEMNIST on the engine path through the CLI with chaos and
+    the guard: quarantined_count >= 1 in wandb-summary.json (the last
+    round's), guard_verdict events in TRACE.jsonl, finite globals in the
+    final checkpoint."""
+    import math
+    import os
+
+    import torch
+
+    from fedml_tpu_torch.experiments import main_fedavg
+
+    rounds = 3
+    seed = chaos_seed(rounds, 10, rounds - 1, drop_rate=0.3, nan_rate=0.3)
+    run, ckpt = os.path.join(run_dir, "chaos"), os.path.join(run_dir, "chaos_ckpt")
+    argv = ["--dataset", "femnist", "--model", "cnn", "--client_num_in_total",
+            str(FEMNIST_CLIENTS), "--client_num_per_round", "10", "--batch_size", str(BATCH),
+            "--lr", "0.1", "--comm_round", str(rounds), "--frequency_of_the_test",
+            str(rounds), "--seed", str(SEED), "--chaos", "1", "--chaos_seed", str(seed),
+            "--chaos_drop_rate", "0.3", "--chaos_nan_rate", "0.3", "--guard", "1",
+            "--run_dir", run, "--ckpt_dir", ckpt, "--device", "cuda"]
+    hist, n = count_launches(lambda: main_fedavg.main(argv))
+    if any(n.values()):
+        raise RuntimeError(f"the engine chaos CLI launched a kernel: {n}")
+    with open(os.path.join(run, "wandb-summary.json")) as f:
+        summary = json.load(f)
+    with open(os.path.join(run, "TRACE.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    verdicts = [e for e in events if e.get("kind") == "guard_verdict"]
+    tree = torch.load(os.path.join(ckpt, f"ckpt_{rounds}", "tree.pt"), weights_only=True)
+    finite = all(torch.isfinite(v).all() for v in tree["variables"].values())
+    if not (summary.get("quarantined_count", 0) >= 1 and len(verdicts) >= rounds and finite
+            and math.isfinite(hist[-1]["Test/Loss"])):
+        raise RuntimeError(f"engine chaos CLI: summary {summary}, {len(verdicts)} verdicts, "
+                           f"finite globals {finite}")
+    log(f"engine chaos CLI (chaos seed {seed}, drop 0.3, NaN 0.3, guard on, depth "
+        f"{PIPE_DEPTH}): quarantined {[h['quarantined_count'] for h in hist]}, dropped "
+        f"{[h['chaos_dropped'] for h in hist]}, guard verdicts "
+        f"{[e['ok'] for e in verdicts]}, median round "
+        f"{statistics.median(h['round_time'] * 1e3 for h in hist):.2f} ms, "
+        f"Test/Acc {hist[-1]['Test/Acc']:.4f}; globals finite")
+
+
+def check_nwp_drives(nwp, launches: dict) -> dict:
+    """Phase 6, NWP at full width for 3 rounds at depth 0 and at
+    PIPE_DEPTH, round 1 NaN-faulting one client (out-of-range token ids):
+    the client is quarantined with no device assert, the loss falls and
+    the three flash kernels launch."""
+    from fedml_tpu_torch import FedAvgAPI, FedConfig, NWPTrainer, create_model
+    from fedml_tpu_torch.ops import attention
+    from fedml_tpu_torch.robustness.chaos import FaultPlan
+
+    rounds = 3
+    rates = dict(nan_rate=0.0, overrides={1: {"nan_rate": 0.02}})
+    seed = chaos_seed(rounds, NWP_PER_ROUND, 1, **rates)
+    numbers = {}
+    for depth in (0, PIPE_DEPTH):
+        cfg = FedConfig(dataset="stackoverflow_nwp", model="transformer_nwp",
+                        client_num_in_total=NWP_CLIENTS, client_num_per_round=NWP_PER_ROUND,
+                        batch_size=NWP_BATCH, lr=NWP_LR, grad_clip=1.0, epochs=1,
+                        comm_round=rounds, frequency_of_the_test=rounds, seed=SEED,
+                        pipeline_depth=depth)
+        trainer = NWPTrainer(create_model("transformer_nwp", output_dim=nwp.class_num))
+        api = FedAvgAPI(nwp, cfg, trainer, device="cuda")
+        tag = f"nwp depth {depth}"
+        (hist, _, numbers[f"depth {depth}"]), launches[tag] = with_launches(
+            tag, list(attention.launches),
+            lambda: drive(tag, api, chaos=FaultPlan(seed=seed, **rates)))
+        losses = check_trained(tag, api, hist)
+        quarantined = [h["quarantined_count"] for h in hist]
+        if quarantined[1] < 1 or quarantined[0] or quarantined[2]:
+            raise RuntimeError(f"{tag}: quarantined {quarantined}, wanted round 1 only")
+        log(f"{tag}: chaos seed {seed}, quarantined {quarantined}, participated "
+            f"{[h['participated_count'] for h in hist]}, train loss "
+            f"{[round(v, 4) for v in losses]}")
+    return numbers
+
+
+def run_drives(ds, nwp, fused_launches: dict, flash_launches: dict) -> dict:
+    """Phase 6: the JAX CLI's drive on the card (the pipelined loop, resume,
+    chaos with the guard, the tracer's spans). Returns the depth-0 and
+    depth-PIPE_DEPTH numbers of the fused and NWP paths."""
+    numbers = {"femnist fused": check_fused_drives(ds, fused_launches)}
+    with tempfile.TemporaryDirectory() as run_dir:
+        check_chaos_cli(run_dir)
+    numbers["nwp"] = check_nwp_drives(nwp, flash_launches)
+    return numbers
 
 
 def main(argv=None) -> int:
@@ -1276,13 +1530,16 @@ def main(argv=None) -> int:
     run_main_path(ds, False, tag="engine amsgrad", comm_round=2, client_optimizer="adam",
                   lr=1e-3)
     check_fused_server_rules(ds, fused_launches)
-    del ds, nwp
 
     # ---- phase 5: FedML's benchmark rows beyond FEMNIST (no kernel runs)
     zoo_launches = run_zoo_paths()
     for path, counts in zoo_launches.items():
         fused_launches[path] = counts["fused_epoch"]
         flash_launches[path] = {k: counts[k] for k in flash}
+
+    # ---- phase 6: the drive (pipelined loop, resume, chaos and the guard)
+    drive_numbers = run_drives(ds, nwp, fused_launches, flash_launches)
+    del ds, nwp
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
 
@@ -1314,6 +1571,7 @@ def main(argv=None) -> int:
                         **attn["float32"][name]})
     log(f"bfloat16 fused_epoch: {json.dumps(numbers['bfloat16'])}")
     log(f"bfloat16 flash attention at shape c: {json.dumps(attn['bfloat16'])}")
+    log(f"drive depth 0 vs {PIPE_DEPTH}: {json.dumps(drive_numbers)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -12,8 +12,10 @@ on both: FedOpt, FedNova and robust aggregation, FedProx, the momentum,
 weight-decay and AMSGrad clients, and their CLIs — and FedML's benchmark
 rows beyond FEMNIST: the MNIST, CIFAR, fed_CIFAR-100, synthetic and
 Shakespeare data, the linear models, CNNs, ResNets (BatchNorm running
-statistics carried as model state) and LSTMs. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+statistics carried as model state) and LSTMs — and the JAX CLI's drive:
+the pipelined round loop, the tracer and metrics logger, checkpoints and
+resume, the chaos harness and the round guard. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, client_sampling

@@ -35,6 +35,7 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.core.config import FedConfig
@@ -395,6 +396,44 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
                     counts.to(device), rng, participation, seeds, perms)
 
     return round_fn
+
+
+def stage_to_device(x, y, counts, participation, device, stream=None) -> tuple:
+    """The stage seam's copy to the device, shared by the eager and the
+    pipelined drive (``FedAvgAPI._stage_cohort``): every cohort reaches the
+    device through this one call, so the two drives feed the round the
+    same bytes.
+
+    On the CPU: ``torch.from_numpy`` of each array. On the card: each array
+    is copied into a pinned host buffer, then to the card with a
+    ``non_blocking`` copy on ``stream`` (a side stream, so the copies of
+    round t+1 overlap round t), and an event is recorded on that stream
+    after them. The caller must have the reading stream wait for the event
+    and keep the pinned buffers until it has passed
+    (``data/prefetch.py::StagedCohort``). A pinning or copy failure raises:
+    there is no synchronous fallback.
+
+    Returns (tensors, ready, pinned): the four tensors (participation None
+    when not given), the event (None on the CPU) and the pinned sources
+    (None on the CPU)."""
+    device = torch.device(device)
+    arrays = [np.ascontiguousarray(a) for a in (x, y, counts)]
+    if participation is not None:
+        arrays.append(np.ascontiguousarray(participation))
+    if device.type == "cpu":
+        out = [torch.from_numpy(a) for a in arrays]
+        ready = pinned = None
+    else:
+        if stream is None:
+            raise ValueError("stage_to_device on the card needs its side stream")
+        pinned = tuple(torch.from_numpy(a).pin_memory() for a in arrays)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            out = [p.to(device, non_blocking=True) for p in pinned]
+            ready = torch.cuda.Event()
+            ready.record(stream)
+    if participation is None:
+        out.append(None)
+    return tuple(out), ready, pinned
 
 
 def build_eval_fn(trainer) -> Callable:

@@ -5,7 +5,7 @@ ported paths read (FedAvg, FedOpt, FedNova, robust aggregation, FedProx and
 the stateful client optimizers), with the same names and defaults so
 experiment configs transfer verbatim. The switches of features the port does not run
 yet (codecs, LoRA, buffered aggregation, superstep, sharding,
-personalization, pipelining) are kept so that ``validate`` can reject one
+personalization) are kept so that ``validate`` can reject one
 that is on with ``NotImplementedError``; other keys of a JAX config land in
 ``extra``.
 """
@@ -87,14 +87,15 @@ class FedConfig:
     def replace(self, **kw) -> "FedConfig":
         return dataclasses.replace(self, **kw)
 
-    def validate(self) -> "FedConfig":
+    def validate(self, chaos: bool = False) -> "FedConfig":
         """Raise ``NotImplementedError`` for a feature the port has not
         ported yet, and ``ValueError`` for a fused-kernel exclusion or
         requirement of ``fedml_tpu/core/spec.py`` (the subset that can arise
-        among the features the port runs). Returns self."""
+        among the features the port runs). ``chaos`` says whether the drive
+        arms a fault plan, which is not a config field (the JAX package's
+        ``validate(chaos="on")`` overlay). Returns self."""
         unported = {
             "backend='shard_map'": self.backend != "vmap",
-            "pipeline_depth > 0": self.pipeline_depth > 0,
             "silo_threshold > 0": self.silo_threshold > 0,
             "tensor_shards > 0": self.tensor_shards > 0,
             "shard_step": self.shard_step,
@@ -112,6 +113,10 @@ class FedConfig:
                     f"(see ROADMAP.md Queue 1)")
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown dtype {self.dtype!r}")
+        if self.pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth must be >= 0 (0 = the eager drive), got "
+                f"{self.pipeline_depth}")
         if self.fused_kernel:
             if not (self.client_optimizer == "sgd" and not self.momentum
                     and not self.wd and not self.fedprox_mu):
@@ -124,6 +129,12 @@ class FedConfig:
                 raise ValueError(
                     "the fused kernel clips unconditionally (reference "
                     "semantics) — grad_clip must be set")
+            if chaos:
+                # spec.py's (fused, chaos) exclusion, its reason verbatim
+                raise ValueError(
+                    "the fused kernel round has no participation/quarantine "
+                    "stage — run without chaos faults or cohort padding, or "
+                    "drop --fused_kernel")
         return self
 
     @classmethod

@@ -9,7 +9,9 @@ The attackers, the first ``--attacker_num`` clients, poison
 ``--poison_frac`` of their samples with the pixel trigger (the reference's
 edge-case pickles apply to CIFAR-shaped data, which no loader of the port
 serves yet). After training, the final model's main-task accuracy and
-backdoor success rate are logged and merged into the last history record.
+backdoor success rate go through the metrics logger into the run
+directory's ``wandb-summary.json`` (as in the JAX CLI) and are merged into
+the last history record.
 
 Usage (the FEMNIST flagship through the fused kernel):
   python -m fedml_tpu_torch.experiments.main_fedavg_robust --dataset femnist \
@@ -28,6 +30,7 @@ import torch
 from fedml_tpu_torch.algorithms.backdoor import backdoor_metrics, poison_client_data
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
 from fedml_tpu_torch.experiments.main_fedavg import add_args, setup_run
+from fedml_tpu_torch.utils.logging import MetricsLogger
 
 log = logging.getLogger(__name__)
 
@@ -46,6 +49,7 @@ def main(argv=None):
     _extra(parser)
     args = parser.parse_args(argv)
     cfg, ds, trainer = setup_run(args)
+    logger = MetricsLogger(run_dir=args.run_dir, config=vars(args))
 
     # poison the attackers' packed rows (reference load_poisoned_dataset)
     rng = np.random.RandomState(cfg.seed)
@@ -55,7 +59,7 @@ def main(argv=None):
             args.target_label, args.poison_frac, args.trigger_size, rng)
 
     api = FedAvgAPI(ds, cfg, trainer, aggregator_name="robust", device=args.device)
-    history = api.train()
+    history = api.train(ckpt_dir=args.ckpt_dir, metrics_logger=logger)
 
     # the poisoned-task eval (reference test(..., mode="targetted-task"))
     def predict(x):
@@ -67,6 +71,8 @@ def main(argv=None):
     metrics = backdoor_metrics(predict, xte[:n], yte[:n], args.target_label,
                                args.trigger_size)
     log.info("backdoor eval after round %d: %s", cfg.comm_round - 1, metrics)
+    logger.log(metrics, step=cfg.comm_round)
+    logger.finish()
     history[-1].update(metrics)
     return history
 

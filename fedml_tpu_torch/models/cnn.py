@@ -39,6 +39,21 @@ def dense(layer, x, cd):
     return F.linear(x.to(cd), layer.weight.to(cd)) + layer.bias.to(cd)
 
 
+def embed(ids, weight):
+    """flax ``nn.Embed``: rows of ``weight`` gathered at ``ids``, as
+    ``jnp.take``'s fill mode gathers: an id in [-V, 0) counts from the end,
+    and an id outside [-V, V) gives a NaN row and no gradient
+    (``F.embedding`` alone raises on the CPU and asserts on the card).
+    Ids in [0, V) give ``F.embedding``'s bits."""
+    n = weight.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + n, ids)
+    valid = (ids >= 0) & (ids < n)
+    rows = F.embedding(torch.where(valid, ids, 0), weight)
+    return torch.where(valid[..., None], rows,
+                       torch.full((), float("nan"), dtype=rows.dtype, device=rows.device))
+
+
 def conv2d(layer, x, cd):
     """A flax Conv (with bias) in the compute dtype, as ``dense``."""
     return (F.conv2d(x.to(cd), layer.weight.to(cd), None, layer.stride, layer.padding)

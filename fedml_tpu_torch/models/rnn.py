@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedml_tpu_torch.models.cnn import compute_dtype, dense, lecun_normal_
+from fedml_tpu_torch.models.cnn import compute_dtype, dense, embed, lecun_normal_
 
 
 def orthogonal_(t: torch.Tensor, generator) -> None:
@@ -115,7 +115,7 @@ class RNN_OriginalFedAvg(nn.Module):
 
     def forward(self, x, train: bool = False, generator=None):
         cd = self.dtype
-        h = F.embedding(x.long(), self.embeddings.weight.to(cd))
+        h = embed(x, self.embeddings.weight.to(cd))
         h = self.OptimizedLSTMCell_1(self.OptimizedLSTMCell_0(h))
         if not self.per_position:
             h = h[:, -1]
@@ -142,7 +142,7 @@ class RNN_StackOverFlow(nn.Module):
 
     def forward(self, x, train: bool = False, generator=None):
         cd = self.dtype
-        h = F.embedding(x.long(), self.word_embeddings.weight.to(cd))
+        h = embed(x, self.word_embeddings.weight.to(cd))
         for i in range(self.num_layers):
             h = getattr(self, f"OptimizedLSTMCell_{i}")(h)
         return dense(self.fc2, dense(self.fc1, h, cd), cd)

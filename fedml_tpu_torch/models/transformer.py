@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedml_tpu_torch.models.cnn import compute_dtype
+from fedml_tpu_torch.models.cnn import compute_dtype, embed
 from fedml_tpu_torch.ops.attention import flash_attention
 
 LN_EPS = 1e-6  # flax's LayerNorm default
@@ -89,7 +89,7 @@ class TransformerLM(nn.Module):
             raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}; "
                              f"raise max_len")
         cd = self.dtype
-        x = (F.embedding(tokens.long(), self.tok_emb.weight.to(cd))
+        x = (embed(tokens, self.tok_emb.weight.to(cd))
              + self.pos_emb.weight[:t].to(cd)[None])
         for i in range(self.num_layers):
             x = getattr(self, f"block{i}")(x)

@@ -41,3 +41,24 @@ def split_variables(variables: dict) -> tuple[dict, dict]:
     """(params, state): a variables dict split by ``is_param``."""
     params = {k: v for k, v in variables.items() if is_param(k)}
     return params, {k: v for k, v in variables.items() if not is_param(k)}
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a tree of dicts, lists and tuples
+    (an aggregator state, a checkpoint); other leaves pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return tree
+
+
+def tree_leaves(tree, path: str = "") -> list:
+    """[(path, leaf)] of a tree of dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in tree_leaves(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in tree_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]

@@ -1,6 +1,8 @@
 """The port's backdoor tooling against the JAX package's, and the FedOpt,
 FedNova and robust entry points run on the CPU."""
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -80,18 +82,22 @@ ARGS = ["--dataset", "femnist", "--model", "cnn", "--client_num_in_total", "3",
     (main_fednova.main, ["--fedprox_mu", "0.01", "--momentum", "0.9", "--wd", "1e-4"]),
     (main_fedavg_robust.main, ["--attacker_num", "1", "--stddev", "0.01"]),
 ], ids=["fedopt", "fednova", "robust"])
-def test_entry_point_runs_two_rounds_on_cpu(main, extra):
-    hist = main(ARGS + extra)
+def test_entry_point_runs_two_rounds_on_cpu(main, extra, tmp_path):
+    hist = main(ARGS + extra + ["--run_dir", str(tmp_path)])
     assert [h["round"] for h in hist] == [0, 1]
     assert all(np.isfinite(h["Test/Loss"]) and np.isfinite(h["loss_sum"]) for h in hist)
     if main is main_fedavg_robust.main:
         assert 0.0 <= hist[-1]["MainTask/Acc"] <= 1.0
         assert 0.0 <= hist[-1]["Backdoor/SuccessRate"] <= 1.0
+        # the backdoor metrics reach wandb-summary.json, as in the JAX CLI
+        summary = json.loads((tmp_path / "wandb-summary.json").read_text())
+        assert summary["MainTask/Acc"] == hist[-1]["MainTask/Acc"]
+        assert summary["Backdoor/SuccessRate"] == hist[-1]["Backdoor/SuccessRate"]
 
 
-def test_entry_points_raise_without_a_gpu():
+def test_entry_points_raise_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for main in (main_fedopt.main, main_fednova.main, main_fedavg_robust.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            main(ARGS[:-2])
+            main(ARGS[:-2] + ["--run_dir", str(tmp_path)])

@@ -27,6 +27,7 @@ from fedml_tpu_torch.data import sources
 from fedml_tpu_torch.data.packing import PackedClients
 from fedml_tpu_torch.experiments import main_fedavg
 from fedml_tpu_torch.models.cnn import CNN_DropOut
+from fedml_tpu_torch.robustness.chaos import FaultPlan
 from fedml_tpu_torch.utils.convert import flax_to_torch, torch_to_flax
 from fedml_tpu_torch.utils.device import resolve_device
 
@@ -118,7 +119,9 @@ def test_port_imports_no_jax_or_reference_package():
         "import fedml_tpu_torch, fedml_tpu_torch.ops.fused_sgd, "
         "fedml_tpu_torch.ops._build, fedml_tpu_torch.experiments.main_fedavg, "
         "fedml_tpu_torch.ops.attention, fedml_tpu_torch.models.transformer, "
-        "fedml_tpu_torch.experiments.profile_nwp\n"
+        "fedml_tpu_torch.experiments.profile_nwp, fedml_tpu_torch.telemetry.records, "
+        "fedml_tpu_torch.robustness.guard, fedml_tpu_torch.utils.checkpoint, "
+        "fedml_tpu_torch.utils.logging, fedml_tpu_torch.data.prefetch\n"
         "new = [m for m in set(sys.modules) - before "
         f"if m.split('.')[0] in {_FORBIDDEN!r}]\n"
         "print(sorted(new)); sys.exit(1 if new else 0)\n")
@@ -141,7 +144,7 @@ def test_no_static_import_of_jax_or_reference_package():
                 assert name.split(".")[0] not in _FORBIDDEN, f"{path}: imports {name}"
 
 
-def test_cuda_without_a_gpu_raises(monkeypatch):
+def test_cuda_without_a_gpu_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
@@ -156,23 +159,35 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
         build_round_fn(trainer, cfg, make_aggregator("fedavg", cfg))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main_fedavg.main(["--dataset", "femnist", "--model", "cnn",
-                          "--client_num_in_total", "2"])
+                          "--client_num_in_total", "2", "--run_dir", str(tmp_path)])
 
 
-def test_cli_runs_a_round_on_cpu():
+def test_cli_runs_a_round_on_cpu(tmp_path):
     hist = main_fedavg.main([
         "--dataset", "femnist", "--model", "cnn", "--client_num_in_total", "3",
         "--client_num_per_round", "2", "--comm_round", "1", "--batch_size", "32",
-        "--lr", "0.1", "--device", "cpu"])
+        "--lr", "0.1", "--device", "cpu", "--run_dir", str(tmp_path)])
     assert len(hist) == 1 and np.isfinite(hist[0]["Test/Loss"])
 
 
 def test_unported_drive_options_raise():
+    """The drive's unported options raise NotImplementedError (the client
+    ledger, the adapter bank, the superstep and buffered drives); the
+    fused kernel under chaos and a negative pipeline depth raise
+    ValueError."""
     ds = _capped(load_dataset("femnist", client_num_in_total=2, seed=0),
                  PackedClients, 20, 32)
     trainer = ClassificationTrainer(CNN_DropOut(output_dim=62))
-    with pytest.raises(NotImplementedError):
-        FedAvgAPI(ds, FedConfig(pipeline_depth=2), trainer, device="cpu")
+    for kw in (dict(rounds_per_dispatch=2), dict(buffer_size=4)):
+        with pytest.raises(NotImplementedError):
+            FedAvgAPI(ds, FedConfig(**kw), trainer, device="cpu")
     api = FedAvgAPI(ds, FedConfig(client_num_in_total=2), trainer, device="cpu")
-    with pytest.raises(NotImplementedError):
-        api.train(chaos=object())
+    for kw in (dict(ledger=object()), dict(bank=object())):
+        with pytest.raises(NotImplementedError):
+            api.train(**kw)
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        FedAvgAPI(ds, FedConfig(pipeline_depth=-1), trainer, device="cpu")
+    fused = FedAvgAPI(ds, FedConfig(client_num_in_total=2, batch_size=20, fused_kernel=True),
+                      trainer, device="cpu")
+    with pytest.raises(ValueError, match="no participation/quarantine stage"):
+        fused.train(chaos=FaultPlan(seed=0, drop_rate=0.5))

@@ -225,12 +225,12 @@ def test_mnist_lr_round_matches_jax():
                                    rtol=2e-5, atol=1e-5, err_msg=k)
 
 
-def test_cli_defaults_run_on_cpu():
+def test_cli_defaults_run_on_cpu(tmp_path):
     """The CLI with its defaults (MNIST, logistic regression, hetero
     split) and only small counts: finite losses, learning."""
     hist = main_fedavg.main(["--device", "cpu", "--client_num_in_total", "3",
                              "--client_num_per_round", "2", "--comm_round", "2",
-                             "--batch_size", "64"])
+                             "--batch_size", "64", "--run_dir", str(tmp_path)])
     assert len(hist) == 2 and all(np.isfinite(h["Test/Loss"]) for h in hist)
     assert hist[-1]["Test/Acc"] > 0.5
 
