@@ -117,6 +117,36 @@ Phases (any failure exits non-zero and prints no result line):
        quarantined and no other, no device assert, the loss falls and the
        three flash kernels launch.
 
+  7. the FEMNIST flagship at its configured size (``fedavg_femnist.yaml``:
+     3400 clients, 10 a round, batch 20, E = 1, SGD lr 0.1, clip 1.0,
+     float32), its train and test splits in mmap shard stores
+     (``data/packed_store.py``) in a temporary directory:
+     - the disk's free space checked and printed; the uncapped surrogate
+       (seed 0) written a chunk of STORE_CHUNK clients at a time by a
+       spawned process, never as the padded 5.12 GB array; the build's
+       seconds, the store's bytes and the build's peak RSS printed;
+     - the fused path through ``FedAvgAPI.train`` at PIPE_DEPTH for
+       FLAGSHIP_ROUNDS rounds (cut from the config's 1500; evaluated at
+       round 0, as every drive is, and at the last): the kernel launched
+       once a round, finite globals, a falling loss; the round spacing and
+       the spans printed;
+     - the kernel against its plain version at the store's padded width,
+       10 x 480 rows (24 steps), float32 within TOL_480 with its faulted
+       copies and a one-bit fault rejected, bfloat16 read; both timed with
+       their bound;
+     - the engine path from the same store at PIPE_DEPTH with
+       ``fast_sampling``, FLAGSHIP_ENGINE_ROUNDS rounds (cut from 1500),
+       evaluated at round 0 and the last;
+     - the sync check: one round each of the fused path, the engine path
+       with a chaos participation mask (a client NaN-faulted) and NWP at
+       phase 3's widths, dispatched under
+       ``torch.cuda.set_sync_debug_mode("error")``: any host sync inside
+       the round fails;
+     - ``experiments/scale_rss.py`` at 10k, 100k and 1M clients: each
+       point's peak RSS and rounds per second, and the ratio of the last
+       point's peak to the one before, which must stay within
+       SCALE_RSS_RATIO.
+
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
 "device": {...}}``.
@@ -179,6 +209,21 @@ TOL = {"float32": {"rtol": 2e-5, "atol": 1e-5, "outliers": 1e-4, "max_abs": 4e-4
                    "rel_median": 1e-4, "rel_max": 0.03, "loss": 1e-4},
        "bfloat16": {"rtol": 1e-3, "atol": 2e-4, "outliers": 1e-2, "max_abs": 2.5e-2,
                     "rel_median": 5e-3, "rel_max": 0.6, "loss": 5e-3}}
+# Phase 7 holds the kernel at the flagship store's padded width, 10 x 480
+# rows: 24 SGD steps a client, where TOL's shape runs 10. A flipped ReLU or
+# max-pool decision grows step by step (lr 0.1), so after 24 steps a client
+# can drift far from the plain version's: ``--calibrate 5`` at 10 x 480
+# (H100 80GB HBM3 at 700 W) read float32 max_abs 8.9e-3, outliers 8.8e-2
+# (a fraction of elements: whole clients that drifted), rel_median 2.8e-3,
+# rel_max 0.43, loss 8.5e-4; bfloat16 rel_median up to 0.34 and rel_max
+# 0.88. TOL_480 holds float32 (the flagship's type) at about 10x those
+# readings, except rel_max, held below the 1 of a skipped leaf as TOL's
+# bfloat16 is; ``check_controls`` and a one-bit fault show that it still
+# rejects a kernel that skips an update. bfloat16 at 24 steps has no limit
+# under that 1 with room over its readings: it is timed and its readings are
+# printed, and phase 2 holds it at 10 x 200.
+TOL_480 = {"rtol": 2e-5, "atol": 1e-5, "outliers": 0.9, "max_abs": 0.09,
+           "rel_median": 0.028, "rel_max": 0.9, "loss": 8.5e-3}
 
 
 # Flash attention: check shapes (B, T, H, D) and elementwise (rtol, atol)
@@ -206,6 +251,17 @@ TIME_ROUNDS = 20
 # 28.6-29.9 s on the slowest); a longer round is reported, not re-cut. The
 # FedAvgM/FedAvg pair checks the aggregator, not local depth: 1 epoch.
 XS_EPOCHS, XS_ROUND_S, XS_PAIR_EPOCHS = 3, 30.0, 1
+# Phase 7: the FEMNIST flagship at its configured 3400 clients, from an mmap
+# shard store. The surrogate's largest client has 480 samples (its clip), so
+# the padded width is 480 rows: 24 SGD steps a client through the fused
+# kernel. FLAGSHIP_ROUNDS fused rounds, FLAGSHIP_ENGINE_ROUNDS engine rounds;
+# the store is written STORE_CHUNK clients at a time.
+FLAGSHIP_CLIENTS, FLAGSHIP_SAMPLES = 3400, 480
+FLAGSHIP_ROUNDS, FLAGSHIP_ENGINE_ROUNDS, STORE_CHUNK = 12, 3, 64
+# experiments/scale_rss.py's points (the JAX tools/bench_scale.py sweep); a
+# peak RSS of the last point over 1.25x the one before fails the phase:
+# staging is O(cohort), so the curve must be flat
+SCALE_POINTS, SCALE_RSS_RATIO = (10_000, 100_000, 1_000_000), 1.25
 
 
 class Disagreement(RuntimeError):
@@ -469,10 +525,11 @@ def check_controls(tag: str, plain: dict, global_params: dict, tol: dict,
 
 
 def compare_fused_epoch(dtype_name, device, clients, samples, side, classes, seed,
-                        outliers, strict=True):
+                        outliers, strict=True, tol=None):
     """fused_epoch (kernel) vs fused_epoch_reference (plain) on the same
-    inputs. Raises on a mismatch unless ``strict`` is false. Returns
-    (inputs, spec, readings)."""
+    inputs, held to ``tol`` (``TOL[dtype_name]`` unless given). Raises on a
+    mismatch unless ``strict`` is false. Returns (inputs, spec, readings,
+    (kernel params, plain params))."""
     import torch
 
     from fedml_tpu_torch.ops import fused_sgd
@@ -488,7 +545,7 @@ def compare_fused_epoch(dtype_name, device, clients, samples, side, classes, see
     torch.cuda.synchronize()
     tag = (f"fused_epoch[{dtype_name}] {clients}x{samples} {side}x{side} C={classes} "
            f"seed {seed}")
-    tol = TOL[dtype_name]
+    tol = tol or TOL[dtype_name]
     r = agreement(kp, pp, inputs[0], tol)
     r["loss_rel"] = ((km["loss_sum"] - pm["loss_sum"]).abs()
                      / pm["loss_sum"].abs()).max().item()
@@ -505,7 +562,7 @@ def compare_fused_epoch(dtype_name, device, clients, samples, side, classes, see
             raise Disagreement(f"{tag}: metrics differ: kernel {km} plain {pm}")
         controls = check_controls(tag, pp, inputs[0], tol, outliers)
         log(f"{tag}: the check rejected all {controls} faulted copies of the result")
-    return inputs, spec, r
+    return inputs, spec, r, (kp, pp)
 
 
 def check_determinism(dtype_name: str, spec, inputs) -> None:
@@ -535,27 +592,38 @@ def check_fused_epoch(dtype_name: str, device) -> dict:
 
     tol = TOL[dtype_name]
     compare_fused_epoch(dtype_name, device, 3, 40, 12, 5, SEED, 0.0)
-    inputs, spec, readings = compare_fused_epoch(
+    inputs, spec, readings, _ = compare_fused_epoch(
         dtype_name, device, CLIENTS, SAMPLES, SIDE, CLASSES, SEED, tol["outliers"])
     check_determinism(dtype_name, spec, inputs)
-    max_abs = readings["max_abs"]
+    return time_fused_epoch(dtype_name, "flagship", spec, inputs, readings["max_abs"])
+
+
+def time_fused_epoch(dtype_name: str, tag: str, spec, inputs, max_abs: float) -> dict:
+    """The kernel's and the plain version's time on ``inputs`` (CUDA
+    events) and the bound: the larger of the epoch's FLOP over the card's
+    peak for the type and its bytes (inputs read once, outputs written
+    once) over the memory rate."""
+    from fedml_tpu_torch.ops import fused_sgd
+
     ms = cuda_ms(lambda: fused_sgd.fused_epoch(spec, *inputs))
     plain_ms = cuda_ms(lambda: fused_sgd.fused_epoch_reference(spec, *inputs),
                        warmup=1, reps=5)
     params, x, y, seeds = inputs
-    flops = spec.flops_per_round(CLIENTS)
+    clients = x.shape[0]
+    flops = spec.flops_per_round(clients)
     nbytes = (x.numel() * 4 + y.numel() * 4 + seeds.numel() * 4   # inputs read once
               + spec.NP * 4                                        # global weights
-              + CLIENTS * spec.NP * 4 + CLIENTS * 3 * 4)           # outputs
+              + clients * spec.NP * 4 + clients * 3 * 4)           # outputs
     flop_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
     byte_ms = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(flop_ms, byte_ms)
     bound_by = "operations" if flop_ms >= byte_ms else "bytes"
-    log(f"fused_epoch[{dtype_name}] flagship: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
-        f"{max(flop_ms, byte_ms):.3f} ms ({bound_by}); "
+    log(f"fused_epoch[{dtype_name}] {tag} ({clients} x {spec.n}): kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
+        f"{bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.1%} of it; "
         f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(flop_ms, byte_ms), "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def close(tag: str, got, want, rtol: float, atol: float) -> dict:
@@ -1241,11 +1309,13 @@ def same_bits(tag: str, got, want) -> None:
 def round_numbers(tracer) -> dict:
     """The drive's per-round timings from the tracer's spans, over the
     rounds 1..R-2 (round 0 and the last evaluate): the median round span;
-    the median spacing between the starts of consecutive rounds (the wall
-    a round costs in steady state at any depth: a pipelined round span
-    ends before the card finishes it); and each phase's median per-round
-    total (a round may hold two ``metrics_fetch`` spans: the round's own
-    and its record flush)."""
+    the median and the mean spacing between the starts of consecutive
+    rounds (the wall a round costs in steady state at any depth: a
+    pipelined round span ends before the card finishes it; where the
+    record flush every few rounds waits for the card, the median spacing
+    misses that wait and the mean holds it); and each phase's median
+    per-round total (a round may hold two ``metrics_fetch`` spans: the
+    round's own and its record flush)."""
     rounds = sorted({s["round"] for s in tracer.find_spans("round")})
     steady = rounds[1:-1] or rounds
     starts = {s["round"]: s["t0"] for s in tracer.find_spans("round")}
@@ -1258,6 +1328,7 @@ def round_numbers(tracer) -> dict:
     return {"median_round_ms": statistics.median(
                 s["dur_s"] * 1e3 for s in tracer.find_spans("round") if s["round"] in steady),
             "round_spacing_ms": statistics.median(gaps) if gaps else None,
+            "mean_spacing_ms": statistics.mean(gaps) if gaps else None,
             "phase_ms": {k: statistics.median(v.values()) for k, v in totals.items()},
             "rounds": [steady[0], steady[-1]]}
 
@@ -1271,8 +1342,9 @@ def drive(tag: str, api, **train_kw) -> tuple:
     hist = api.train(tracer=tracer, **train_kw)
     numbers = round_numbers(tracer)
     log(f"{tag}: rounds {numbers['rounds'][0]}-{numbers['rounds'][1]}: median round "
-        f"{numbers['median_round_ms']:.3f} ms, round spacing "
-        f"{numbers['round_spacing_ms'] or float('nan'):.3f} ms, per-round phase medians ms "
+        f"{numbers['median_round_ms']:.3f} ms, round spacing median "
+        f"{numbers['round_spacing_ms'] or float('nan'):.3f} ms, mean "
+        f"{numbers['mean_spacing_ms'] or float('nan'):.3f} ms, per-round phase medians ms "
         f"{ {k: round(v, 3) for k, v in numbers['phase_ms'].items()} }")
     return hist, tracer, numbers
 
@@ -1444,6 +1516,270 @@ def run_drives(ds, nwp, fused_launches: dict, flash_launches: dict) -> dict:
     return numbers
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+def build_femnist_store(root: str, clients: int, seed: int = SEED,
+                        chunk: int = STORE_CHUNK) -> dict:
+    """The FEMNIST surrogate (``sources.femnist_surrogate_clients``: the
+    draws of ``load_dataset("femnist")``) written chunk by chunk of clients:
+    the train split into the shard store ``root/train``, the test split into
+    ``root/test``, the flat test set into ``root/test_global.npz``. The
+    padded federation is never built in RAM. Runs in a process of its own,
+    whose peak RSS (sampled, not the ``ru_maxrss`` a child inherits:
+    ``scale_rss.PeakRss``) is the build's. Returns the build's numbers."""
+    import os
+
+    import numpy as np
+
+    from fedml_tpu_torch.data import sources
+    from fedml_tpu_torch.data.packed_store import ShardWriter
+    from fedml_tpu_torch.data.packing import pack_client_lists
+    from fedml_tpu_torch.experiments.scale_rss import PeakRss
+
+    with PeakRss() as rss:
+        t0 = time.perf_counter()
+        widths = {"train": sources.FEMNIST_MAX_SAMPLES,
+                  "test": sources.FEMNIST_MAX_SAMPLES // 9}
+        writers = {split: ShardWriter(os.path.join(root, split)) for split in widths}
+        pending = {split: ([], []) for split in widths}
+        largest = dict.fromkeys(widths, 0)
+        test_global = ([], [])
+
+        def flush():
+            for split, (xs, ys) in pending.items():
+                if xs:
+                    packed = pack_client_lists(xs, ys, n_max=widths[split])
+                    writers[split].append(packed.x, packed.y, packed.counts)
+                    largest[split] = max(largest[split], int(packed.counts.max()))
+                    xs.clear()
+                    ys.clear()
+
+        for i, (x, y, tx, ty) in enumerate(sources.femnist_surrogate_clients(clients, seed)):
+            for (xs, ys), a, b in ((pending["train"], x, y), (pending["test"], tx, ty),
+                                   (test_global, tx, ty)):
+                xs.append(a)
+                ys.append(b)
+            if (i + 1) % chunk == 0:
+                flush()
+        flush()
+        for w in writers.values():
+            w.close()
+        np.savez(os.path.join(root, "test_global.npz"), x=np.concatenate(test_global[0]),
+                 y=np.concatenate(test_global[1]))
+        seconds = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(root) for f in files)
+    return {"seconds": seconds, "bytes": nbytes, "largest": largest, "widths": widths,
+            "peak_rss_mb": rss.peak_mb, "start_rss_mb": rss.start_mb}
+
+
+def check_store_widths(built: dict) -> None:
+    """The store's padded widths are its largest clients' sizes, as
+    ``load_dataset``'s in-RAM packing pads them (at 3400 clients the train
+    split reaches the surrogate's clip, 480)."""
+    if built["largest"] != built["widths"]:
+        raise RuntimeError(f"the store's padded widths {built['widths']} are not its largest "
+                           f"clients' {built['largest']}: in-RAM packing would differ")
+
+
+def flagship_store(root: str, clients: int):
+    """Phase 7, step 1: check the disk, build the store in a spawned process
+    and open it as a FederatedDataset whose train and test splits are
+    MmapPackedStores. ``train_global`` is empty: no path of the port reads
+    it, and the flat copy would take 1.2 GB. Returns (dataset, build
+    numbers)."""
+    import multiprocessing
+    import os
+    import shutil
+
+    import numpy as np
+
+    from fedml_tpu_torch.data import sources
+    from fedml_tpu_torch.data.packed_store import MmapPackedStore
+    from fedml_tpu_torch.data.registry import FederatedDataset
+
+    rows = sources.FEMNIST_MAX_SAMPLES + sources.FEMNIST_MAX_SAMPLES // 9
+    need = clients * rows * (SIDE * SIDE * 4 + 4)  # float32 x, int32 y
+    free = shutil.disk_usage(root).free
+    log(f"flagship store: {free / 1e9:.2f} GB free under {root}, the store needs "
+        f"{need / 1e9:.2f} GB")
+    if free < 1.2 * need:
+        raise RuntimeError(f"not enough disk for the {clients}-client store under {root}")
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        built = pool.apply(build_femnist_store, (root, clients))
+    check_store_widths(built)
+    with np.load(os.path.join(root, "test_global.npz")) as f:
+        test_global = (f["x"], f["y"])
+    train = MmapPackedStore(os.path.join(root, "train"))
+    ds = FederatedDataset(name="femnist", train=train,
+                          test=MmapPackedStore(os.path.join(root, "test")),
+                          train_global=(np.zeros((0, SIDE, SIDE, 1), np.float32),
+                                        np.zeros(0, np.int32)),
+                          test_global=test_global, class_num=CLASSES)
+    log(f"flagship store: {clients} clients, {train.total_samples} train samples, padded "
+        f"width {train.n_max} (test {ds.test.n_max}), {len(test_global[1])} global test "
+        f"samples; built in {built['seconds']:.1f} s, {built['bytes'] / 1e9:.3f} GB on disk, "
+        f"the build's peak RSS {built['peak_rss_mb']:.1f} MB (from "
+        f"{built['start_rss_mb']:.1f} MB before it)")
+    return ds, built
+
+
+def sync_control(device) -> None:
+    """A faulted control of the sync check: under the mode, a ``.item()``
+    of a tensor on the card must raise."""
+    import torch
+
+    try:
+        torch.zeros((), device=device).item()
+    except RuntimeError:
+        return
+    raise RuntimeError("the sync check passed a .item() on the card")
+
+
+def dispatch_without_sync(tag: str, api, round_idx: int, chaos=None) -> dict:
+    """Stage round ``round_idx`` of ``api`` and wait for its copies, then
+    dispatch it under ``torch.cuda.set_sync_debug_mode("error")``: any
+    synchronising call inside the round raises, and so must a ``.item()``
+    after it (``sync_control``). Returns its train metrics, which must be
+    finite."""
+    import torch
+
+    staged = api.stage_fn(round_idx, chaos=chaos)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = api._dispatch(staged, 0)
+        sync_control(api.device)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    metrics = api._fetch(metrics)
+    staged.release()
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"{tag}: the checked round's metrics are not finite: {metrics}")
+    log(f"sync check, {tag}: round {round_idx} dispatched with no host sync; metrics "
+        f"{ {k: round(v, 4) for k, v in metrics.items()} }")
+    return metrics
+
+
+def check_flagship_kernel(device) -> dict:
+    """Phase 7, step 3: the fused epoch against its plain version at the
+    flagship's padded width (CLIENTS x FLAGSHIP_SAMPLES: 24 steps), float32
+    within TOL_480 (its faulted copies must fail, and so must a copy of the
+    kernel's result with one exponent bit of one element flipped), bfloat16
+    read and not held (see TOL_480); each type timed with its bound.
+    Returns each type's numbers."""
+    import torch
+
+    numbers = {}
+    for d in ("float32", "bfloat16"):
+        held = d == "float32"
+        inputs, spec, readings, (kp, pp) = compare_fused_epoch(
+            d, device, CLIENTS, FLAGSHIP_SAMPLES, SIDE, CLASSES, SEED, TOL_480["outliers"],
+            strict=held, tol=TOL_480 if held else None)
+        if held:
+            key = "linear_1.weight"
+            faulted = kp[key].clone()
+            faulted.view(-1)[:1].view(torch.int32).bitwise_xor_(1 << 30)
+            must_fail(f"fused_epoch[{d}] {CLIENTS}x{FLAGSHIP_SAMPLES}: {key} one bit off",
+                      lambda: check_agreement("control", {**kp, key: faulted}, pp, inputs[0],
+                                              TOL_480, TOL_480["outliers"]))
+        numbers[d] = time_fused_epoch(d, f"at {FLAGSHIP_SAMPLES} rows", spec, inputs,
+                                      readings["max_abs"])
+    return numbers
+
+
+def run_scale_rss() -> dict:
+    """Phase 7, step 6: ``experiments/scale_rss.py`` at SCALE_POINTS (each
+    point a process of its own, training on the card); the last point's
+    peak RSS must stay within SCALE_RSS_RATIO of the one before."""
+    import os
+
+    cmd = [sys.executable, "-m", "fedml_tpu_torch.experiments.scale_rss", "--points",
+           ",".join(str(n) for n in SCALE_POINTS)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise RuntimeError(f"scale_rss failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    points, summary = lines[:-1], lines[-1]
+    for p in points:
+        log(f"scale_rss {p['clients']} clients: peak RSS {p['peak_rss_mb']:.1f} MB (from "
+            f"{p['start_rss_mb']:.1f} MB at the point's start; ru_maxrss "
+            f"{p['ru_maxrss_mb']:.1f} MB), "
+            f"{p['rounds_per_sec']:.3f} rounds/s, store {p['store_logical_mb']:.1f} MB "
+            f"logical / {p['store_physical_mb']:.2f} MB on disk, on {p['device']}")
+    ratio = summary["rss_ratio_last_over_prev"]
+    log(f"scale_rss: peak RSS of {points[-1]['clients']} clients over {points[-2]['clients']}: "
+        f"{ratio:.4f}")
+    if ratio > SCALE_RSS_RATIO:
+        raise RuntimeError(f"scale_rss: peak RSS grew {ratio:.3f}x from "
+                           f"{points[-2]['clients']} to {points[-1]['clients']} clients")
+    return {"points": points, "ratio": ratio}
+
+
+def run_flagship(nwp, device, fused_launches: dict) -> dict:
+    """Phase 7: the FEMNIST flagship at its configured 3400 clients from an
+    mmap shard store, fused and engine, at depth PIPE_DEPTH; the kernel at
+    the store's padded width; one round each of the fused, the masked
+    engine and the NWP path under the sync check; scale_rss. Returns its
+    numbers."""
+    from fedml_tpu_torch import FedAvgAPI, FedConfig, NWPTrainer, create_model
+    from fedml_tpu_torch.robustness.chaos import FaultPlan
+
+    started = time.perf_counter()
+    numbers = {}
+    flagship = dict(client_num_in_total=FLAGSHIP_CLIENTS, pipeline_depth=PIPE_DEPTH)
+    with tempfile.TemporaryDirectory(prefix="femnist_store_") as root:
+        ds, numbers["build"] = flagship_store(root, FLAGSHIP_CLIENTS)
+        tag = f"flagship {FLAGSHIP_CLIENTS} fused depth {PIPE_DEPTH}"
+        api = femnist_api(ds, True, comm_round=FLAGSHIP_ROUNDS,
+                          frequency_of_the_test=FLAGSHIP_ROUNDS, **flagship)
+        (hist, _, numbers["fused"]), n = with_launches(tag, ["fused_epoch"],
+                                                       lambda: drive(tag, api))
+        fused_launches[tag] = n["fused_epoch"]
+        if n["fused_epoch"] != FLAGSHIP_ROUNDS:
+            raise RuntimeError(f"{tag}: {n['fused_epoch']} launches in {FLAGSHIP_ROUNDS} rounds")
+        losses = check_trained(tag, api, hist)
+        log(f"{tag}: train loss {[round(v, 4) for v in losses]}, Train/Acc "
+            f"{hist[-1]['Train/Acc']:.4f}, Test/Acc {hist[-1]['Test/Acc']:.4f}")
+        dispatch_without_sync(f"fused {FLAGSHIP_CLIENTS}", api, FLAGSHIP_ROUNDS)
+        numbers["kernel"] = check_flagship_kernel(device)
+
+        tag = f"flagship {FLAGSHIP_CLIENTS} engine depth {PIPE_DEPTH}, fast sampling"
+        engine = femnist_api(ds, False, comm_round=FLAGSHIP_ENGINE_ROUNDS,
+                             frequency_of_the_test=FLAGSHIP_ENGINE_ROUNDS, fast_sampling=True,
+                             **flagship)
+        (hist, _, numbers["engine"]), n = count_launches(lambda: drive(tag, engine))
+        if any(n.values()):
+            raise RuntimeError(f"{tag} launched a kernel: {n}")
+        losses = check_trained(tag, engine, hist)
+        log(f"{tag}: train loss {[round(v, 4) for v in losses]}, Test/Acc "
+            f"{hist[-1]['Test/Acc']:.4f}")
+        r = FLAGSHIP_ENGINE_ROUNDS
+        rates = dict(drop_rate=0.3, nan_rate=0.3)
+        metrics = dispatch_without_sync(
+            "engine with a participation mask", engine, r,
+            chaos=FaultPlan(seed=chaos_seed(r + 1, 10, r, **rates), **rates))
+        if metrics["quarantined_count"] < 1:
+            raise RuntimeError(f"the sync check's masked round quarantined no client: {metrics}")
+        for store in (ds.train, ds.test):
+            store.close()
+
+    cfg = FedConfig(dataset="stackoverflow_nwp", model="transformer_nwp",
+                    client_num_in_total=NWP_CLIENTS, client_num_per_round=NWP_PER_ROUND,
+                    batch_size=NWP_BATCH, lr=NWP_LR, grad_clip=1.0, epochs=1, comm_round=2,
+                    seed=SEED)
+    nwp_api = FedAvgAPI(nwp, cfg, NWPTrainer(create_model("transformer_nwp",
+                                                          output_dim=nwp.class_num)),
+                        device="cuda")
+    nwp_api.train_one_round(0)
+    dispatch_without_sync("nwp at full width", nwp_api, 1)
+    numbers["scale"] = run_scale_rss()
+    log(f"phase 7: {time.perf_counter() - started:.1f} s")
+    return numbers
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1488,9 +1824,10 @@ def main(argv=None) -> int:
     if calibrate:
         for seed in range(calibrate):
             for d in ("float32", "bfloat16"):
-                _, _, r = compare_fused_epoch(d, dev, CLIENTS, SAMPLES, SIDE, CLASSES,
-                                              seed, TOL[d]["outliers"], strict=False)
-                log(json.dumps({"dtype": d, "seed": seed, **r}))
+                for samples in (SAMPLES, FLAGSHIP_SAMPLES):
+                    r = compare_fused_epoch(d, dev, CLIENTS, samples, SIDE, CLASSES,
+                                            seed, TOL[d]["outliers"], strict=False)[2]
+                    log(json.dumps({"dtype": d, "samples": samples, "seed": seed, **r}))
         return 0
     numbers = {d: check_fused_epoch(d, dev) for d in ("float32", "bfloat16")}
     attn = {d: check_attention(d, dev) for d in ("float32", "bfloat16")}
@@ -1539,7 +1876,11 @@ def main(argv=None) -> int:
 
     # ---- phase 6: the drive (pipelined loop, resume, chaos and the guard)
     drive_numbers = run_drives(ds, nwp, fused_launches, flash_launches)
-    del ds, nwp
+    del ds
+
+    # ---- phase 7: the flagship at its configured 3400 clients, out of core
+    flagship = run_flagship(nwp, dev, fused_launches)
+    del nwp
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
 
@@ -1557,6 +1898,8 @@ def main(argv=None) -> int:
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": None,
+        # phase 7: the same numbers at the flagship store's padded width
+        f"at_{FLAGSHIP_SAMPLES}_rows": flagship["kernel"]["float32"],
         # its kernels on the tensor cores (each on mma.sync, in both types)
         "parts": [f"fused_sgd.cu::{k}" for k in CONV2_KERNELS],
     }]
@@ -1572,6 +1915,10 @@ def main(argv=None) -> int:
     log(f"bfloat16 fused_epoch: {json.dumps(numbers['bfloat16'])}")
     log(f"bfloat16 flash attention at shape c: {json.dumps(attn['bfloat16'])}")
     log(f"drive depth 0 vs {PIPE_DEPTH}: {json.dumps(drive_numbers)}")
+    log(f"bfloat16 fused_epoch at {FLAGSHIP_SAMPLES} rows: "
+        f"{json.dumps(flagship['kernel']['bfloat16'])}")
+    log(f"flagship {FLAGSHIP_CLIENTS}: "
+        f"{json.dumps({k: flagship[k] for k in ('fused', 'engine')})}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -14,8 +14,10 @@ rows beyond FEMNIST: the MNIST, CIFAR, fed_CIFAR-100, synthetic and
 Shakespeare data, the linear models, CNNs, ResNets (BatchNorm running
 statistics carried as model state) and LSTMs — and the JAX CLI's drive:
 the pipelined round loop, the tracer and metrics logger, checkpoints and
-resume, the chaos harness and the round guard. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+resume, the chaos harness and the round guard — and the out-of-core mmap
+shard store (data/packed_store.py) with the O(cohort) Feistel sampler, so
+the flagship runs at its configured 3400 clients. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, client_sampling

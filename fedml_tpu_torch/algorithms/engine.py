@@ -4,13 +4,17 @@
 A round is a function
 
     round_fn(global_variables, agg_state, x, y, counts, rng,
-             participation=None, seeds=None, perms=None)
+             participation=None, seeds=None, perms=None, host_counts=None)
         -> (new_global, agg_state, train_metrics)
 
 ``rng`` is a CPU ``torch.Generator`` for the round. Each client's dropout
 stream is a seed and each client's shuffle a permutation, both drawn from
 ``rng`` by ``draw_client_randomness`` unless the caller injects them, so a
-test can feed the same numbers to two implementations.
+test can feed the same numbers to two implementations. ``host_counts``,
+a host copy of ``counts`` (the drive passes the staged cohort's), spares
+the round a read of the counts from the device: a round queues its work
+without waiting for the device (``tests/test_torch_packed_store.py`` and
+``chip_smoke.py``'s sync check hold it).
 
 The client axis is a loop: each client's local update runs eagerly on the
 device, and the results are stacked along a leading client axis for the
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.core.config import FedConfig
-from fedml_tpu_torch.utils.device import resolve_device
+from fedml_tpu_torch.utils.device import resolve_device, to_device
 from fedml_tpu_torch.utils.pytree import split_variables
 
 
@@ -103,8 +107,8 @@ def scaled(transform: Optimizer, step: float) -> Optimizer:
 def bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
     """1 - decay**count, the power taken in float32 as JAX takes it (a
     float64 power drifts from it in the 7th digit)."""
-    return 1 - torch.tensor(decay, dtype=torch.float32,
-                            device=count.device) ** count.float()
+    return 1 - torch.full((), decay, dtype=torch.float32,
+                          device=count.device) ** count.float()
 
 
 def trace(decay: float) -> Optimizer:
@@ -214,23 +218,25 @@ def _build_epoch_fn(trainer, cfg: FedConfig, opt: Optimizer) -> Callable:
             raise ValueError(
                 f"assume_full_clients requires n_max ({n_max}) % batch_size "
                 f"({b}) == 0 — padded batches would be trained unmasked")
-        if perm is None:
-            perm = torch.arange(n_max)
+        perm = (torch.arange(n_max, device=x.device) if perm is None
+                else perm.to(x.device))
         if n_pad > n_max:
-            perm = torch.cat([perm, torch.zeros(n_pad - n_max, dtype=perm.dtype)])
-        perm = perm.to(x.device)
+            perm = torch.cat([perm, perm.new_zeros(n_pad - n_max)])
         xe = x[perm].reshape((nb, b) + tuple(x.shape[1:]))
         ye = y[perm].reshape((nb, b) + tuple(y.shape[1:]))
         n_valid = n_max if full else count
+        # the host copy decides which batches are steps; the device copy is
+        # the loss mask, built there so no step copies it from the host
         valid = (torch.arange(n_pad) < n_valid).reshape(nb, b)
+        mask = (torch.arange(n_pad, device=x.device) < n_valid).reshape(
+            nb, b).to(torch.float32)
         steps = 0
         sums = None
         keys = list(params)
         for i in range(nb):
             if not valid[i].any():
                 continue  # an all-padding batch is no step: params and state stay
-            batch = {"x": xe[i], "y": ye[i],
-                     "mask": valid[i].to(x.device, torch.float32)}
+            batch = {"x": xe[i], "y": ye[i], "mask": mask[i]}
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
             loss, (new_state, aux) = trainer.loss_fn({**leaves, **state}, batch, generator,
                                                      True)
@@ -279,19 +285,29 @@ def build_local_update(trainer, cfg: FedConfig) -> Callable:
 
 
 def _batched_update(trainer, cfg: FedConfig) -> Callable:
-    """batched(gv, x[C, ...], y, counts, rng, seeds, perms) -> LocalResult
-    stacked over clients: the client axis as a loop over local_update."""
+    """batched(gv, x[C, ...], y, counts, rng, seeds, perms, host_counts)
+    -> LocalResult stacked over clients: the client axis as a loop over
+    local_update.
+
+    ``host_counts`` is a host copy of ``counts`` (the staged cohort's
+    pinned source): the loop reads the counts there and not from the
+    device, which would wait for the work queued before the round. The
+    permutations reach the device in one pinned copy a round."""
     local_update = build_local_update(trainer, cfg)
 
-    def batched(global_variables, x, y, counts, rng, seeds=None, perms=None):
+    def batched(global_variables, x, y, counts, rng, seeds=None, perms=None,
+                host_counts=None):
         cl, n_max = x.shape[0], x.shape[1]
-        counts_host = [int(c) for c in counts.cpu()]
+        counts_host = [int(c) for c in (counts.cpu() if host_counts is None
+                                        else host_counts)]
         drawn_perms, drawn_seeds = draw_client_randomness(
             rng, counts_host, n_max, cfg.epochs, cfg.shuffle)
         if seeds is None:
             seeds = drawn_seeds
         if cfg.shuffle and perms is None:
             perms = drawn_perms
+        if perms is not None:
+            perms = to_device(perms, x.device)
         results = []
         for c in range(cl):
             gen = torch.Generator(device=x.device).manual_seed(int(seeds[c]))
@@ -302,8 +318,8 @@ def _batched_update(trainer, cfg: FedConfig) -> Callable:
                      for k in results[0].variables}
         metrics = {k: torch.stack([r.metrics[k] for r in results])
                    for k in results[0].metrics}
-        steps = torch.tensor([r.num_steps for r in results], dtype=torch.int32,
-                             device=x.device)
+        steps = to_device(torch.tensor([r.num_steps for r in results],
+                                       dtype=torch.int32), x.device)
         return LocalResult(variables, steps, metrics)
 
     return batched
@@ -362,7 +378,7 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
         specialized: dict = {}
 
         def fused_round(gv, agg_state, x, y, counts, rng, participation=None,
-                        seeds=None, perms=None):
+                        seeds=None, perms=None, host_counts=None):
             # the per-client sample count is data geometry: one spec per
             # cohort shape
             key = tuple(x.shape)
@@ -389,11 +405,12 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
     core = build_round_core(_batched_update(trainer, cfg), aggregator)
 
     def round_fn(gv, agg_state, x, y, counts, rng, participation=None,
-                 seeds=None, perms=None):
+                 seeds=None, perms=None, host_counts=None):
         if participation is not None:
             participation = participation.to(device)
         return core(gv, agg_state, x.to(device), y.to(device),
-                    counts.to(device), rng, participation, seeds, perms)
+                    counts.to(device), rng, participation, seeds, perms,
+                    host_counts)
 
     return round_fn
 

@@ -1,7 +1,8 @@
 """FedAvg simulator API — PyTorch form of ``fedml_tpu/algorithms/fedavg.py``
 (reference fedml_api/standalone/fedavg/fedavg_api.py:13-215).
 
-Ported: ``client_sampling`` (bitwise), and ``FedAvgAPI`` with its drive:
+Ported: ``client_sampling`` and ``fast_client_sampling`` (bitwise; the
+latter with ``cfg.fast_sampling``), and ``FedAvgAPI`` with its drive:
 the stage seam (``stage_fn``), ``train_one_round``, the eager loop and the
 pipelined loop (``cfg.pipeline_depth`` > 0: cohorts staged ahead on a
 background thread and a side CUDA stream, train metrics fetched in one
@@ -55,6 +56,50 @@ def client_sampling(round_idx: int, client_num_in_total: int,
     num = min(client_num_per_round, client_num_in_total)
     rng = np.random.RandomState(round_idx)
     return rng.choice(client_num_in_total, num, replace=False)
+
+
+def fast_client_sampling(round_idx: int, client_num_in_total: int,
+                         client_num_per_round: int) -> np.ndarray:
+    """O(cohort) uniform sampling without replacement, bitwise the JAX
+    package's: the first ``num`` values of a seeded Feistel permutation of
+    [0, N).
+
+    ``client_sampling``'s ``rng.choice(N, num, replace=False)`` shuffles all
+    N ids, O(N) a round. A balanced 4-round Feistel network over the
+    enclosing power-of-four domain is a keyed bijection, so walking ids
+    0..num-1 through it (cycle-walking values that land >= N back through
+    the network, under 2 passes expected) gives distinct ids in [0, N) in
+    O(num) work and memory. The keys come from RandomState(round_idx), so
+    the cohort is a pure function of the round, but not
+    ``client_sampling``'s: the path is opt-in (``cfg.fast_sampling``).
+    The arithmetic is numpy uint64, which wraps the splitmix64 products
+    modulo 2**64 as the JAX package's does."""
+    n = int(client_num_in_total)
+    if n == client_num_per_round:
+        return np.arange(n)
+    num = min(client_num_per_round, n)
+    half_bits = max(1, (max(n - 1, 1).bit_length() + 1) // 2)
+    mask = np.uint64((1 << half_bits) - 1)
+    keys = np.random.RandomState(round_idx).randint(
+        0, 2 ** 63, size=4, dtype=np.int64).astype(np.uint64)
+
+    def permute(v: np.ndarray) -> np.ndarray:
+        left = (v >> np.uint64(half_bits)) & mask
+        right = v & mask
+        for k in keys:  # a splitmix64-style round function, cut to a half
+            mixed = right * np.uint64(0x9E3779B97F4A7C15) + k
+            mixed ^= mixed >> np.uint64(29)
+            mixed = mixed * np.uint64(0xBF58476D1CE4E5B9)
+            mixed ^= mixed >> np.uint64(32)
+            left, right = right, left ^ (mixed & mask)
+        return (left << np.uint64(half_bits)) | right
+
+    vals = permute(np.arange(num, dtype=np.uint64))
+    oob = vals >= n
+    while oob.any():
+        vals = np.where(oob, permute(vals), vals)
+        oob = vals >= n
+    return vals.astype(np.int64)
 
 
 def round_generator(seed: int, round_idx: int, salt: int = 0) -> torch.Generator:
@@ -121,12 +166,14 @@ class FedAvgAPI(Checkpointable):
     def _dispatch(self, staged: StagedCohort, rng_salt: int) -> dict:
         """Run the round on a staged cohort; returns the train metrics as
         0-d tensors on the device. On the card the compute stream first
-        waits for the cohort's copies."""
+        waits for the cohort's copies, and the round reads the counts from
+        their pinned source: nothing in the round waits for the device."""
         staged.wait()
         rng = round_generator(self.cfg.seed, staged.round_idx, rng_salt)
         self.global_variables, self.agg_state, metrics = self.round_fn(
             self.global_variables, self.agg_state, staged.x, staged.y,
-            staged.counts, rng, staged.participation)
+            staged.counts, rng, staged.participation, None, None,
+            staged.host_counts())
         return metrics
 
     @staticmethod
@@ -289,8 +336,8 @@ class FedAvgAPI(Checkpointable):
         if tracer is None:
             tracer = telemetry.get_tracer() or telemetry.NULL_TRACER
         with tracer.span("stage", round_idx):
-            idx = client_sampling(round_idx, self.dataset.client_num,
-                                  cfg.client_num_per_round)
+            sampler = fast_client_sampling if cfg.fast_sampling else client_sampling
+            idx = sampler(round_idx, self.dataset.client_num, cfg.client_num_per_round)
             if faults is None and chaos is not None:
                 faults = chaos.events(round_idx, len(idx))
             x, y, counts = self.dataset.train.select(idx)

@@ -11,8 +11,8 @@ from fedml_tpu_torch.utils.pytree import tree_where
 
 
 def build_round_core(batched_update, aggregator) -> Callable:
-    """core(gv, agg_state, x, y, counts, rng, participation, seeds, perms)
-    -> (new_gv, new_state, metrics).
+    """core(gv, agg_state, x, y, counts, rng, participation, seeds, perms,
+    host_counts) -> (new_gv, new_state, metrics).
 
     ``participation=None`` aggregates every client; a [C] mask arms the
     quarantine stage: dropped clients and clients whose update is not finite
@@ -22,9 +22,9 @@ def build_round_core(batched_update, aggregator) -> Callable:
     from fedml_tpu_torch.algorithms.aggregators import quarantine_stage
 
     def core(global_variables, agg_state, x, y, counts, rng, participation,
-             seeds=None, perms=None):
+             seeds=None, perms=None, host_counts=None):
         result = batched_update(global_variables, x, y, counts, rng, seeds,
-                                perms)
+                                perms, host_counts)
         weights = counts.float()
         if participation is None:
             new_global, new_state = aggregator(global_variables, result,
@@ -37,11 +37,23 @@ def build_round_core(batched_update, aggregator) -> Callable:
                                            rng, agg_state)
         any_alive = alive.any()
         new_global = tree_where(any_alive, new_global, global_variables)
-        if not bool(any_alive):  # aggregator state is any pytree
-            new_state = agg_state
+        new_state = _select_state(any_alive, new_state, agg_state)
         metrics = {k: v.sum() for k, v in result.metrics.items()}
         metrics["participated_count"] = alive.sum().float()
         metrics["quarantined_count"] = quarantined.sum().float()
         return new_global, new_state, metrics
 
     return core
+
+
+def _select_state(pred: torch.Tensor, new_state, old_state):
+    """The aggregator state ``new_state`` where the device bool ``pred``
+    holds, else ``old_state``: a select on the device, so the round does
+    not wait to read ``pred`` on the host. A state is a tree of dicts,
+    lists and tuples of tensors (``()`` for FedAvg, FedOpt's moments)."""
+    if isinstance(new_state, dict):
+        return {k: _select_state(pred, v, old_state[k]) for k, v in new_state.items()}
+    if isinstance(new_state, (list, tuple)):
+        return type(new_state)(_select_state(pred, a, b)
+                               for a, b in zip(new_state, old_state))
+    return torch.where(pred, new_state, old_state)

@@ -76,6 +76,8 @@ class FedConfig:
     # route the local epoch through the hand-written fused CUDA kernel
     # (ops/fused_sgd.py) — CNN_DropOut only
     fused_kernel: bool = False
+    # O(cohort) Feistel cohort sampler (another seeded trajectory than the
+    # default O(N) one)
     fast_sampling: bool = False
     rounds_per_dispatch: int = 1
     buffer_size: int = 0
@@ -101,7 +103,6 @@ class FedConfig:
             "shard_step": self.shard_step,
             "personalize": self.personalize,
             "lora_rank > 0": self.lora_rank > 0,
-            "fast_sampling": self.fast_sampling,
             "rounds_per_dispatch > 1": self.rounds_per_dispatch > 1,
             "buffer_size > 0": self.buffer_size > 0,
             "update_codec": self.update_codec != "none",

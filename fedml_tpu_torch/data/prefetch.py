@@ -55,6 +55,11 @@ class StagedCohort:
     ready: Any | None = None
     host: tuple | None = None
 
+    def host_counts(self):
+        """The counts on the host: their pinned source on the card, the
+        tensor itself on the CPU (where ``host`` is None)."""
+        return self.counts if self.host is None else self.host[2]
+
     def device_tensors(self) -> list:
         return [t for t in (self.x, self.y, self.counts, self.participation)
                 if t is not None]

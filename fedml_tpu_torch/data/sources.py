@@ -190,21 +190,37 @@ def load_femnist_arrays(data_dir: str = "./data", client_num: int = 3400, seed: 
     _h5_unported(os.path.join(data_dir, "fed_emnist_train.h5"),
                  os.path.join(data_dir, "fed_emnist_test.h5"))
     log.warning("FEMNIST h5 not found under %s — using seeded surrogate", data_dir)
+    xtr, ytr, xte, yte = [], [], [], []
+    for x_i, y_i, tx_i, ty_i in femnist_surrogate_clients(client_num, seed):
+        xtr.append(x_i)
+        ytr.append(y_i)
+        xte.append(tx_i)
+        yte.append(ty_i)
+    return xtr, ytr, xte, yte
+
+
+#: the surrogate's largest client: its train split is clipped to this many
+#: samples, its test split to FEMNIST_MAX_SAMPLES // 9
+FEMNIST_MAX_SAMPLES = 480
+
+
+def femnist_surrogate_clients(client_num: int, seed: int = 0):
+    """The FEMNIST surrogate one client at a time: yields (x_train,
+    y_train, x_test, y_test) per client, the arrays ``load_femnist_arrays``
+    collects, from the same draws. A caller that writes clients out as
+    they come (``data/packed_store.py::ShardWriter``) never holds the
+    federation."""
     rng = np.random.RandomState(seed)
     protos = rng.normal(0.0, 1.0, size=(62, 28, 28, 1)).astype(np.float32)
-    xtr, ytr, xte, yte = [], [], [], []
     for _ in range(client_num):
         # unbalanced natural splits: lognormal-ish sizes around the TFF
         # per-writer mean (~227 train / ~26 test samples)
-        n_i = int(np.clip(rng.lognormal(4.6, 0.45), 16, 480))
+        n_i = int(np.clip(rng.lognormal(4.6, 0.45), 16, FEMNIST_MAX_SAMPLES))
         t_i = max(2, n_i // 9)
         y_i = rng.randint(0, 62, size=n_i + t_i).astype(np.int32)
         x_i = protos[y_i] * 0.6 + rng.normal(0, 0.35, size=(n_i + t_i, 28, 28, 1)).astype(np.float32)
-        xtr.append(x_i[:n_i].astype(np.float32))
-        ytr.append(y_i[:n_i])
-        xte.append(x_i[n_i:].astype(np.float32))
-        yte.append(y_i[n_i:])
-    return xtr, ytr, xte, yte
+        yield (x_i[:n_i].astype(np.float32), y_i[:n_i], x_i[n_i:].astype(np.float32),
+               y_i[n_i:])
 
 
 # StackOverflow NWP: 10,000 words + pad/bos/eos/oov, 20-token windows

@@ -90,6 +90,10 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--fused_kernel", type=int, default=0,
                         help="1 = run the local epoch through the fused CUDA "
                              "kernel (femnist CNN_DropOut only)")
+    parser.add_argument("--fast_sampling", type=int, default=0,
+                        help="1 = O(cohort) Feistel-permutation cohort "
+                             "sampler (different seeded trajectory than the "
+                             "default O(N) sampler)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a GPU) or cpu")
     parser.add_argument("--ckpt_dir", type=str, default=None)
@@ -177,6 +181,7 @@ def setup_run(args):
     d = {k: v for k, v in vars(args).items()
          if k not in _DRIVE_FLAGS and v is not None}
     d["fused_kernel"] = bool(d.get("fused_kernel", 0))
+    d["fast_sampling"] = bool(d.get("fast_sampling", 0))
     cfg = FedConfig.from_dict(d)
     extra_load = {}
     if args.dataset == "mnist":

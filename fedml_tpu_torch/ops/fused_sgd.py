@@ -45,6 +45,7 @@ import torch
 from fedml_tpu_torch.algorithms.engine import (LocalResult,
                                                draw_client_randomness)
 from fedml_tpu_torch.ops import _build
+from fedml_tpu_torch.utils.device import to_device
 
 M32 = 0xFFFFFFFF
 
@@ -433,15 +434,18 @@ def _run_library(lib, spec: FusedEpochSpec, params: dict, x, y, seeds, stream):
 def build_fused_round_fn(spec: FusedEpochSpec, aggregator, shuffle=True):
     """Engine-signature round over the fused epoch:
     round_fn(gv, agg_state, x, y, counts, rng, participation=None,
-    seeds=None, perms=None) -> (gv, agg_state, metrics).
+    seeds=None, perms=None, host_counts=None) -> (gv, agg_state, metrics).
 
     Shuffling gathers each client's rows outside the kernel (one gather per
     round over all n rows); dropout streams are per-client seeds. Both come
-    from ``rng`` (a CPU ``torch.Generator``) unless injected. The kernel has
-    no participation/quarantine stage: a participation mask raises."""
+    from ``rng`` (a CPU ``torch.Generator``) unless injected, and reach the
+    card through pinned memory without a host sync. The kernel has no
+    participation/quarantine stage: a participation mask raises.
+    ``host_counts`` is the engine round's argument; the fused round reads
+    no count on the host."""
 
     def round_fn(gv, agg_state, x, y, counts, rng, participation=None,
-                 seeds=None, perms=None):
+                 seeds=None, perms=None, host_counts=None):
         if participation is not None:
             raise ValueError(
                 "the fused kernel round has no participation/quarantine "
@@ -456,11 +460,11 @@ def build_fused_round_fn(spec: FusedEpochSpec, aggregator, shuffle=True):
         if shuffle and perms is None:
             perms = drawn_perms[:, 0]
         if shuffle:
-            perms = perms.to(x.device)
+            perms = to_device(perms, x.device)
             x = torch.gather(x, 1, perms.reshape(cl, n, 1, 1, 1).expand_as(x))
             y = torch.gather(y, 1, perms)
         new_vars, metrics = fused_epoch(spec, gv, x.contiguous(), y,
-                                        seeds.to(x.device))
+                                        to_device(seeds, x.device))
         result = LocalResult(
             variables=new_vars,
             num_steps=torch.full((cl,), spec.steps, dtype=torch.int32,

@@ -23,3 +23,14 @@ def synchronize(device: torch.device) -> None:
     """Wait for the work queued on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A CPU tensor on ``device`` without a host sync inside a round. On the
+    card the tensor goes through pinned memory with a ``non_blocking``
+    copy: a copy from pageable memory synchronises the stream. The pinned
+    block comes from PyTorch's caching host allocator, which hands it out
+    again only after the copy is done. Elsewhere the tensor moves as is."""
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

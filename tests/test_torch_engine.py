@@ -137,8 +137,11 @@ def test_unported_options_raise():
         build_round_fn(tt, tcfg.replace(update_codec="int8"),
                        make_aggregator("fedavg", tcfg), device="cpu")
     with pytest.raises(NotImplementedError):
-        build_round_fn(tt, tcfg.replace(fast_sampling=True),
+        build_round_fn(tt, tcfg.replace(rounds_per_dispatch=2),
                        make_aggregator("fedavg", tcfg), device="cpu")
+    # ported: the Feistel cohort sampler is a drive option the round accepts
+    build_round_fn(tt, tcfg.replace(fast_sampling=True),
+                   make_aggregator("fedavg", tcfg), device="cpu")
     with pytest.raises(NotImplementedError):
         build_round_fn(tt, tcfg.replace(buffer_size=4),
                        make_aggregator("fedavg", tcfg), device="cpu")
