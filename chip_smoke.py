@@ -147,6 +147,30 @@ Phases (any failure exits non-zero and prints no result line):
        point's peak to the one before, which must stay within
        SCALE_RSS_RATIO.
 
+  8. the launcher (``experiments/fed_launch.py``) over the repo's 26 YAML
+     configs (``fedml_tpu/experiments/configs/`` and its ``baseline/``,
+     read as data), each through ``fed_launch.main`` on the card for one
+     round, with the cuts of PHASE8_CUTS:
+     - the 25 configs the port runs, as written otherwise (the FEMNIST and
+       fed_CIFAR-100 configs with their ``backend: shard_map``, on the
+       card's one device): the dataset, model and trainer the launcher
+       built must be the CLI dispatch's (``cnn`` on har is HAR_CNN, on
+       cifar10 CNNCifar), the training loss and the globals finite, and no
+       kernel launched;
+     - ``fedavg_femnist.yaml`` again with ``fused_kernel=1``: the fused
+       epoch must launch;
+     - ``privacy_blockensemble.yaml`` must raise NotImplementedError;
+     - BASELINE.md's cross-silo rows on ``cross_silo_cifar10_resnet56.yaml``
+       (1 round of E = 1 over XS_SILOS of 10 silos): MobileNet on CIFAR-10,
+       CIFAR-100 and CINIC-10, ResNet-56 on CINIC-10, VGG-11, MobileNetV3
+       (LARGE) and EfficientNet-b0 on CIFAR-10, in float32, and MobileNet,
+       MobileNetV3 and EfficientNet in bf16; one more float32 round of each
+       new model under the profiler (device activity only) for its
+       launches and the device's busy share;
+     each run prints a line: config, overrides, round ms, Test/Loss before
+     and after, training loss, launches. ``--launcher-only`` builds the
+     kernels and runs this phase alone.
+
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
 "device": {...}}``.
@@ -262,6 +286,49 @@ FLAGSHIP_ROUNDS, FLAGSHIP_ENGINE_ROUNDS, STORE_CHUNK = 12, 3, 64
 # peak RSS of the last point over 1.25x the one before fails the phase:
 # staging is O(cohort), so the curve must be flat
 SCALE_POINTS, SCALE_RSS_RATIO = (10_000, 100_000, 1_000_000), 1.25
+# Phase 8: the launcher over the repo's YAML configs (read as data from the
+# checkout), one round each, within PHASE8_BUDGET_S. Cuts, from rounds
+# measured on an H100 80GB HBM3 at 700 W (host-bound): the local epochs to
+# 1 where the config's E made a round over 2 s (chmnist E=5 3.5-4.1 s,
+# cifar10_cnn E=10 4.1 s, cifar10_homo_res20 E=5 6.0 s, the four HAR twins
+# E=10 3.9-4.6 s, emnist E=5 2.1 s), and the cross-silo ResNet-56's E=20 to
+# 1 over XS_SILOS of its 10 silos (5.8-7.2 s a round over all 10, 1.6 s
+# over 2); FEMNIST's 3400 clients to PHASE8_FEMNIST_CLIENTS (its surrogate
+# takes 14 s of host time and 5 GB a build; phase 7 runs the 3400 from a
+# store). cifar10_heter_res20 (E=1, batch 16: 6.5-9.7 s) runs as written.
+CONFIG_DIR = "fedml_tpu/experiments/configs"
+PHASE8_BUDGET_S = 150.0
+PHASE8_FEMNIST_CLIENTS = 340
+XS_SILOS = 1
+PHASE8_CUTS = {"cross_silo_cifar10_resnet56.yaml": ["epochs=1",
+                                                    f"client_num_per_round={XS_SILOS}"],
+               "fedavg_femnist.yaml": [f"client_num_in_total={PHASE8_FEMNIST_CLIENTS}"],
+               **{name: ["epochs=1"] for name in (
+                   "chmnist_heter.yaml", "chmnist_homo.yaml", "cifar10_cnn.yaml",
+                   "cifar10_homo_res20.yaml", "har_class_heter.yaml", "har_class_homo.yaml",
+                   "har_hetero.yaml", "har_homo.yaml", "emnist.yaml")}}
+# BASELINE.md's cross-silo rows (benchmark/README.md:108-111) and the new
+# convolutional models, each on cross_silo_cifar10_resnet56.yaml at 1 round
+# of 1 local epoch (of 20) over XS_SILOS of its 10 silos (phase 8 ran 158 s
+# with 2 silos a float32 round, each profiled round's reading about 10 s of
+# it): (overrides, also run in bf16, one more float32 round profiled: each
+# new model once; ResNet-56's profile is phase 5's)
+CROSS_SILO_ROWS = (
+    (("model=mobilenet", "dataset=cifar10"), True, True),
+    (("model=mobilenet", "dataset=cifar100"), False, False),
+    (("model=mobilenet", "dataset=cinic10"), False, False),
+    (("model=resnet56", "dataset=cinic10"), False, False),
+    (("model=vgg11", "dataset=cifar10"), False, True),
+    (("model=mobilenet_v3", "dataset=cifar10"), True, True),
+    (("model=efficientnet", "dataset=cifar10"), True, True),
+)
+# the module class the CLI's dispatch builds for a config's model name
+MODEL_CLASSES = {"lr": "LogisticRegression", "cnn": "CNN_DropOut", "cnn_cifar": "CNNCifar",
+                 "har_cnn": "HAR_CNN", "resnet20": "ResNetCifar", "resnet56": "ResNetCifar",
+                 "resnet18_gn": "ResNetImageNet", "vgg11": "VGG",
+                 "purchasemlp": "ReferenceMLP", "texasmlp": "ReferenceMLP",
+                 "rnn": "RNN_OriginalFedAvg", "mobilenet": "MobileNet",
+                 "mobilenet_v3": "MobileNetV3", "efficientnet": "EfficientNet"}
 
 
 class Disagreement(RuntimeError):
@@ -1780,6 +1847,151 @@ def run_flagship(nwp, device, fused_launches: dict) -> dict:
     return numbers
 
 
+# ------------------------------------------------------------------ phase 8
+
+
+def config_paths() -> list:
+    """The repo's YAML configs, the launcher examples then the baseline
+    twins, each sorted by name."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent / CONFIG_DIR
+    paths = sorted(root.glob("*.yaml")) + sorted((root / "baseline").glob("*.yaml"))
+    if len(paths) != 26:
+        raise RuntimeError(f"expected the repo's 26 configs under {root}, found {len(paths)}")
+    return paths
+
+
+class CapturedRuns:
+    """Wraps ``FedAvgAPI.train`` while in use: each call's API is kept, and
+    its Test/Loss at the globals it starts from is read first."""
+
+    def __enter__(self):
+        from fedml_tpu_torch.algorithms import fedavg
+
+        self.apis, self._cls = [], fedavg.FedAvgAPI
+        self._train = train = self._cls.train
+        runs = self
+
+        def recorded(api, *args, **kwargs):
+            api.loss_before = api.test_global(0)["Test/Loss"]
+            runs.apis.append(api)
+            return train(api, *args, **kwargs)
+
+        self._cls.train = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.train = self._train
+
+
+def expected_model(args: dict) -> str:
+    """The class the CLI's dataset-contextual dispatch must build."""
+    name = args["model"]
+    if name == "cnn":
+        name = {"har": "har_cnn", "har_subject": "har_cnn",
+                "cifar10": "cnn_cifar"}.get(args["dataset"], "cnn")
+    return MODEL_CLASSES[name]
+
+
+def launch(path, overrides, run_dir: str, profile: bool = False) -> dict:
+    """``fed_launch.main`` on the card for one round of the config at
+    ``path`` with ``overrides``; checks the dataset, model and trainer the
+    launcher built, a finite training loss and finite globals, and prints
+    the run's line. ``profile``: one more round under torch.profiler (its
+    launches and the device's busy share)."""
+    import torch
+
+    from fedml_tpu_torch.experiments import fed_launch, profile_zoo
+
+    overrides = ["comm_round=1", f"run_dir={run_dir}", *overrides]
+    argv = ["--config", str(path)] + [a for o in overrides for a in ("--override", o)]
+    module, main_argv = fed_launch.resolve(argv)
+    args = dict(zip(main_argv[::2], main_argv[1::2]))
+    args = {k[2:]: v for k, v in args.items()}
+    t0 = time.perf_counter()
+    with CapturedRuns() as runs:
+        hist, counts = count_launches(lambda: fed_launch.main(argv))
+    wall = time.perf_counter() - t0
+    (api,) = runs.apis
+    tag = f"{path.parent.name + '/' if path.parent.name == 'baseline' else ''}{path.name}"
+    trainer = "NWPTrainer" if args["dataset"] in ("fed_shakespeare", "stackoverflow_nwp") \
+        else "ClassificationTrainer"
+    got = (api.dataset.name, type(api.trainer.module).__name__, type(api.trainer).__name__)
+    want = (args["dataset"], expected_model(args), trainer)
+    if got != want:
+        raise RuntimeError(f"{tag} {overrides}: the launcher built {got}, not {want}")
+    loss = check_trained(tag, api, hist, must_fall=False)[-1]
+    after = hist[-1]["Test/Loss"]
+    if not (math.isfinite(api.loss_before) and math.isfinite(after)):
+        raise RuntimeError(f"{tag}: Test/Loss {api.loss_before} -> {after}")
+    row = {"config": tag, "overrides": overrides[2:], "dataset": got[0], "model": got[1],
+           "trainer": got[2], "backend": api.cfg.backend, "dtype": api.cfg.dtype,
+           "round_ms": round(hist[-1]["round_time"] * 1e3, 2), "train_loss": round(loss, 4),
+           "test_loss_before": round(api.loss_before, 4), "test_loss_after": round(after, 4),
+           "launches": counts, "wall_s": round(wall, 2)}
+    if profile:
+        prof = profile_zoo.profiled_round(api, 1, host_events=False)
+        row.update(profiled_round_ms=round(prof["wall_ms"], 2),
+                   device_launches=int(prof["launches"]),
+                   busy_share=round(prof["busy_ms"] / prof["wall_ms"], 4))
+    del api, runs
+    torch.cuda.empty_cache()
+    log(f"phase 8 run: {json.dumps(row)}")
+    return row
+
+
+def run_launcher(fused_launches: dict) -> dict:
+    """Phase 8: ``fed_launch.main`` over the repo's configs on the card.
+    Returns the rows."""
+    import torch
+
+    from fedml_tpu_torch.experiments import fed_launch
+
+    started = time.perf_counter()
+    rows = []
+    paths = config_paths()
+    with tempfile.TemporaryDirectory() as run_dir:
+        for path in paths:
+            if path.name == "privacy_blockensemble.yaml":
+                continue
+            rows.append(launch(path, PHASE8_CUTS.get(path.name, []), run_dir))
+            if any(rows[-1]["launches"].values()):
+                raise RuntimeError(f"{path.name}: a kernel launched on the engine path: "
+                                   f"{rows[-1]['launches']}")
+        femnist = next(p for p in paths if p.name == "fedavg_femnist.yaml")
+        fused = launch(femnist, PHASE8_CUTS[femnist.name] + ["fused_kernel=1"], run_dir)
+        if fused["launches"]["fused_epoch"] < 1:
+            raise RuntimeError("the launcher's fused FEMNIST run launched the fused epoch "
+                               "no time")
+        fused_launches["launcher fedavg_femnist.yaml fused"] = fused["launches"]["fused_epoch"]
+        rows.append(fused)
+        for name in ("fedavg_femnist.yaml", "fed_cifar100_resnet18_gn.yaml"):
+            row = next(r for r in rows if r["config"] == name)
+            if row["backend"] != "shard_map":
+                raise RuntimeError(f"{name} ran with backend {row['backend']}, not as written")
+        control = next(p for p in paths if p.name == "privacy_blockensemble.yaml")
+        try:
+            fed_launch.main(["--config", str(control)])
+        except NotImplementedError as e:
+            log(f"phase 8 control: privacy_blockensemble.yaml raises NotImplementedError "
+                f"({e})")
+        else:
+            raise RuntimeError("privacy_blockensemble.yaml did not raise")
+        silo = next(p for p in paths if p.name == "cross_silo_cifar10_resnet56.yaml")
+        for overrides, bf16, profile in CROSS_SILO_ROWS:
+            for dtype in ("float32", "bfloat16") if bf16 else ("float32",):
+                rows.append(launch(silo, ["epochs=1", f"client_num_per_round={XS_SILOS}",
+                                          *overrides, f"dtype={dtype}"], run_dir,
+                                   profile=profile and dtype == "float32"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    if seconds > PHASE8_BUDGET_S:
+        log(f"WARNING phase 8 took {seconds:.1f} s, over its {PHASE8_BUDGET_S:.0f} s budget")
+    log(f"phase 8: {len(rows)} launcher runs in {seconds:.1f} s")
+    return {"seconds": round(seconds, 1), "runs": len(rows)}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1789,7 +2001,11 @@ def main(argv=None) -> int:
     parser.add_argument("--calibrate", type=int, default=0, metavar="N",
                         help="only print the kernel's agreement readings at the "
                         "flagship shape for seeds 0..N-1, checking nothing")
-    calibrate = parser.parse_args(argv).calibrate
+    parser.add_argument("--launcher-only", action="store_true",
+                        help="build the kernels, then run phase 8 alone (the launcher "
+                        "over the repo's configs), checking it and printing no result")
+    opts = parser.parse_args(argv)
+    calibrate = opts.calibrate
     started = time.perf_counter()
 
     if not torch.cuda.is_available():
@@ -1821,6 +2037,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if opts.launcher_only:
+        run_launcher({})
+        log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
+        return 0
     if calibrate:
         for seed in range(calibrate):
             for d in ("float32", "bfloat16"):
@@ -1881,6 +2101,9 @@ def main(argv=None) -> int:
     # ---- phase 7: the flagship at its configured 3400 clients, out of core
     flagship = run_flagship(nwp, dev, fused_launches)
     del nwp
+
+    # ---- phase 8: the launcher over the repo's 26 YAML configs
+    launcher = run_launcher(fused_launches)
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
 
@@ -1919,6 +2142,7 @@ def main(argv=None) -> int:
         f"{json.dumps(flagship['kernel']['bfloat16'])}")
     log(f"flagship {FLAGSHIP_CLIENTS}: "
         f"{json.dumps({k: flagship[k] for k in ('fused', 'engine')})}")
+    log(f"launcher: {json.dumps(launcher)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

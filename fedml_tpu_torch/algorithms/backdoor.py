@@ -10,10 +10,10 @@ flipped to the attacker's target.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
+
+from fedml_tpu_torch.data import readers
 
 
 def apply_trigger(x: np.ndarray, size: int = 3, value: float | None = None) -> np.ndarray:
@@ -54,18 +54,24 @@ def poison_client_data(x: np.ndarray, y: np.ndarray, count: int,
     return x, y
 
 
-def load_edge_case_sets(data_dir: str = "./data"):
-    """The reference's edge-case backdoor sets (southwest-airline CIFAR
-    pickles, edge_case_examples/data_loader.py:329-385). Returns None when
-    they are absent, so callers use the pixel trigger; reading them is not
-    ported yet, so their presence raises."""
-    base = os.path.join(data_dir, "edge_case_examples", "southwest_cifar10")
-    names = ("southwest_images_new_train.pkl", "southwest_images_new_test.pkl")
-    if all(os.path.exists(os.path.join(base, n)) for n in names):
-        raise NotImplementedError(
-            "reading the edge-case backdoor pickles is not ported to "
-            "fedml_tpu_torch yet; only the pixel trigger is")
-    return None
+def load_edge_case_sets(data_dir: str = "./data", normalize=True):
+    """The reference's edge-case backdoor sets, when present (the southwest
+    pickles, reference edge_case_examples/data_loader.py:329-385): returns
+    (x_poison_train, x_poison_test, target_label), or None so callers use
+    the pixel trigger.
+
+    ``normalize=True`` applies CIFAR-10's channel statistics, so the images
+    match what a model trained on ``sources.load_cifar_arrays`` sees (the
+    reference normalises these sets with its CIFAR transform too); False
+    keeps raw [0, 1] pixels, and a (mean, std) pair applies other
+    statistics."""
+    out = readers.read_southwest(data_dir)
+    if out is None or normalize is False:
+        return out
+    mean, std = ((readers.CIFAR10_MEAN, readers.CIFAR10_STD) if normalize is True
+                 else normalize)
+    xtr, xte, target = out
+    return (xtr - mean) / std, (xte - mean) / std, target
 
 
 def backdoor_metrics(predict_fn, x_clean: np.ndarray, y_clean: np.ndarray,

@@ -359,7 +359,7 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
     only, no participation mask, no codec, no tensor sharding.
     """
     device = resolve_device(device)
-    cfg.validate()
+    cfg.validate(device=device)
     if cfg.fused_kernel:
         if param_sharding is not None:
             raise ValueError(

@@ -121,7 +121,7 @@ class FedAvgAPI(Checkpointable):
                  device="cuda"):
         self.device = resolve_device(device)
         self.dataset = dataset
-        self.cfg = config.validate()
+        self.cfg = config.validate(device=self.device)
         self.trainer = model_trainer
         self.aggregator = make_aggregator(aggregator_name, config)
         self.round_fn = build_round_fn(model_trainer, config, self.aggregator,
@@ -205,7 +205,7 @@ class FedAvgAPI(Checkpointable):
             if value is not None:
                 raise NotImplementedError(
                     f"train({name}=...) is not ported to fedml_tpu_torch yet")
-        cfg = self.cfg.validate(chaos=chaos is not None)
+        cfg = self.cfg.validate(chaos=chaos is not None, device=self.device)
         owns_tracer = tracer is None
         if tracer is None:
             tracer = telemetry.Tracer(

@@ -13,8 +13,11 @@ that is on with ``NotImplementedError``; other keys of a JAX config land in
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Any
+
+from fedml_tpu_torch.utils.device import device_count
 
 
 @dataclass(frozen=True)
@@ -66,7 +69,11 @@ class FedConfig:
     # systems
     seed: int = 0
     ci: int = 0  # evaluate a single client in local_test_on_all_clients
+    # "shard_map" runs the clients over a mesh of devices: on a mesh of one
+    # device that is the vmap round (a psum over one member), which the
+    # port runs; a mesh over more devices is not ported
     backend: str = "vmap"
+    mesh_shape: tuple[int, ...] = ()  # () = every device of the run's type
     pipeline_depth: int = 0
     silo_threshold: int = 0
     tensor_shards: int = 0
@@ -89,15 +96,29 @@ class FedConfig:
     def replace(self, **kw) -> "FedConfig":
         return dataclasses.replace(self, **kw)
 
-    def validate(self, chaos: bool = False) -> "FedConfig":
+    def mesh_size(self, device=None) -> int:
+        """The devices a ``shard_map`` round spans: ``mesh_shape``'s product,
+        or every device of ``device``'s type (the card's count for
+        ``cuda``, 1 for the CPU or when no device is given)."""
+        if self.mesh_shape:
+            return math.prod(self.mesh_shape)
+        return device_count(device) if device is not None else 1
+
+    def validate(self, chaos: bool = False, device=None) -> "FedConfig":
         """Raise ``NotImplementedError`` for a feature the port has not
         ported yet, and ``ValueError`` for a fused-kernel exclusion or
         requirement of ``fedml_tpu/core/spec.py`` (the subset that can arise
         among the features the port runs). ``chaos`` says whether the drive
         arms a fault plan, which is not a config field (the JAX package's
-        ``validate(chaos="on")`` overlay). Returns self."""
+        ``validate(chaos="on")`` overlay); ``device`` is the run's device,
+        whose type sets the default mesh of ``backend="shard_map"``. Returns
+        self."""
+        if self.backend not in ("vmap", "shard_map"):
+            raise ValueError(f"unknown backend {self.backend!r} (vmap or shard_map)")
         unported = {
-            "backend='shard_map'": self.backend != "vmap",
+            "backend='shard_map' over more than one device (ROADMAP.md Queue 1 "
+            "item 10, multi-device)":
+                self.backend == "shard_map" and self.mesh_size(device) > 1,
             "silo_threshold > 0": self.silo_threshold > 0,
             "tensor_shards > 0": self.tensor_shards > 0,
             "shard_step": self.shard_step,
@@ -142,6 +163,8 @@ class FedConfig:
     def from_dict(cls, d: dict) -> "FedConfig":
         names = {f.name for f in dataclasses.fields(cls)}
         known = {k: v for k, v in d.items() if k in names}
+        if known.get("mesh_shape") is not None:
+            known["mesh_shape"] = tuple(int(n) for n in known["mesh_shape"])
         extra = {k: v for k, v in d.items() if k not in names}
         if extra:
             known.setdefault("extra", {}).update(extra)

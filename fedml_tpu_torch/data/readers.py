@@ -1,0 +1,388 @@
+"""Readers for the reference's on-disk dataset formats (the parts of
+``fedml_tpu/data/readers.py`` that the ported loaders reach).
+
+Each function reads the file layout the reference's preprocessing
+consumes, so a data directory prepared for the reference works unchanged,
+and returns what the JAX package's reader returns, bit for bit:
+
+- EMNIST balanced gzip-IDX (reference MNIST/data_loader.py:55-60 via
+  torchvision EMNIST split="balanced")
+- ImageFolder trees: CINIC-10 train/test/<class>/*.png (reference
+  cinic10/data_loader.py:218-239)
+- UCI-HAR Inertial Signals txt matrices (reference HAR/data_loader.py:56-154)
+- UCIAdult income_proc npy quartet (reference UCIAdult/dataloader.py:38-50)
+- purchase100/texas100 not_normalized pickles (reference
+  purchase/dataloader.py:21-45)
+- hetero-fix pre-recorded partition text files (reference
+  cifar10/data_loader.py:18-47)
+- LEAF-json per-client MNIST (reference raw_MNIST/data_loader.py:9-50)
+- southwest-airline edge-case backdoor pickles (reference
+  edge_case_examples/data_loader.py:329-385)
+
+A reader returns None when its files are absent; the loaders
+(``sources``, ``loaders``) then fall back to seeded surrogates. ``PIL`` is
+imported only by the image readers, when they run.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import logging
+import os
+import pickle
+import struct
+
+import numpy as np
+
+log = logging.getLogger(__name__)
+
+_IMG_EXTS = (".png", ".jpg", ".jpeg", ".ppm", ".bmp", ".webp")
+
+# per-channel normalisation of the reference's transforms
+# (cifar10/data_loader.py, cinic10/data_loader.py, ImageNet/datasets.py)
+CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
+CIFAR10_STD = np.array([0.247, 0.243, 0.262], np.float32)
+CINIC10_MEAN = np.array([0.47889522, 0.47227842, 0.43047404], np.float32)
+CINIC10_STD = np.array([0.24205776, 0.23828046, 0.25874835], np.float32)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+# ---------------------------------------------------------------------------
+# EMNIST balanced (gzip IDX)
+
+
+def read_idx(path: str) -> np.ndarray:
+    """Parse an IDX (MNIST-format) file, gzipped or raw."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        _zero, dtype_code, ndim = struct.unpack(">HBB", f.read(4))
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        dtype = {8: np.uint8, 9: np.int8, 11: np.int16, 12: np.int32,
+                 13: np.float32, 14: np.float64}[dtype_code]
+        data = np.frombuffer(f.read(), dtype=np.dtype(dtype).newbyteorder(">"))
+        return data.reshape(dims)
+
+
+def find_emnist_files(data_dir: str, split: str = "balanced"):
+    """The four emnist-<split> IDX files under the roots torchvision uses
+    (EMNIST/raw, the NIST zip's gzip/, raw/ or data_dir itself), or None."""
+    names = {
+        "train_images": f"emnist-{split}-train-images-idx3-ubyte",
+        "train_labels": f"emnist-{split}-train-labels-idx1-ubyte",
+        "test_images": f"emnist-{split}-test-images-idx3-ubyte",
+        "test_labels": f"emnist-{split}-test-labels-idx1-ubyte",
+    }
+    roots = (data_dir, os.path.join(data_dir, "EMNIST", "raw"),
+             os.path.join(data_dir, "gzip"), os.path.join(data_dir, "raw"))
+    out = {}
+    for key, base in names.items():
+        for root in roots:
+            for name in (base + ".gz", base):
+                p = os.path.join(root, name)
+                if os.path.exists(p):
+                    out[key] = p
+                    break
+            if key in out:
+                break
+        if key not in out:
+            return None
+    return out
+
+
+def read_emnist(data_dir: str, split: str = "balanced"):
+    """(x_train, y_train, x_test, y_test) in [0, 1], or None. Raw EMNIST
+    images are stored transposed against MNIST; torchvision transposes them
+    on import, and so does this reader."""
+    files = find_emnist_files(data_dir, split)
+    if files is None:
+        return None
+    xtr = read_idx(files["train_images"]).astype(np.float32) / 255.0
+    xte = read_idx(files["test_images"]).astype(np.float32) / 255.0
+    xtr = xtr.transpose(0, 2, 1)[..., None]
+    xte = xte.transpose(0, 2, 1)[..., None]
+    ytr = read_idx(files["train_labels"]).astype(np.int32)
+    yte = read_idx(files["test_labels"]).astype(np.int32)
+    return xtr, ytr, xte, yte
+
+
+# ---------------------------------------------------------------------------
+# ImageFolder trees
+
+
+def load_image(path: str, size: int | None = None) -> np.ndarray:
+    """One image as RGB float32 [h, w, 3] in [0, 1], bilinearly resized to
+    ``size`` x ``size`` when given."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    if size is not None and img.size != (size, size):
+        img = img.resize((size, size), Image.BILINEAR)
+    return np.asarray(img, np.float32) / 255.0
+
+
+def read_image_folder(root: str, size: int | None = None,
+                      cap_per_class: int | None = None):
+    """torchvision ImageFolder semantics: each subdirectory of ``root`` is a
+    class (sorted name order -> class id), every image file inside belongs
+    to it. Returns (x [n, h, w, 3] float32 in [0, 1], y [n] int32,
+    class_names) or None."""
+    classes = sorted(d for d in os.listdir(root)
+                     if os.path.isdir(os.path.join(root, d)))
+    if not classes:
+        return None
+    if cap_per_class is None:
+        n_files = sum(
+            sum(1 for f in os.listdir(os.path.join(root, d))
+                if f.lower().endswith(_IMG_EXTS)) for d in classes)
+        if n_files > 200_000:  # ~30+ GB at 224px float32
+            log.warning(
+                "read_image_folder(%s): %d images would be materialized as "
+                "host float32 (this reader is for fixture/subset-scale trees; "
+                "set cap_per_class)", root, n_files)
+    xs, ys = [], []
+    for ci, cname in enumerate(classes):
+        cdir = os.path.join(root, cname)
+        files = sorted(f for f in os.listdir(cdir)
+                       if f.lower().endswith(_IMG_EXTS))
+        if cap_per_class is not None:
+            files = files[:cap_per_class]
+        for f in files:
+            xs.append(load_image(os.path.join(cdir, f), size))
+            ys.append(ci)
+    if not xs:
+        return None
+    return np.stack(xs), np.asarray(ys, np.int32), classes
+
+
+def read_cinic10(data_dir: str, size: int = 32):
+    """CINIC-10's folder tree <root>/{train,test}/<class>/*.png (reference
+    cinic10/data_loader.py:222-239), with data_dir itself, cinic10/ or
+    CINIC-10/ as the root. Returns (xtr, ytr, xte, yte) normalised by
+    CINIC-10's channel statistics, or None."""
+    for root in (data_dir, os.path.join(data_dir, "cinic10"),
+                 os.path.join(data_dir, "CINIC-10")):
+        tr, te = os.path.join(root, "train"), os.path.join(root, "test")
+        if os.path.isdir(tr) and os.path.isdir(te):
+            train = read_image_folder(tr, size)
+            test = read_image_folder(te, size)
+            if train is None or test is None:
+                return None
+            mean, std = CINIC10_MEAN, CINIC10_STD
+            xtr, ytr, _ = train
+            xte, yte, _ = test
+            return ((xtr - mean) / std, ytr, (xte - mean) / std, yte)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# UCI-HAR Inertial Signals
+
+
+_HAR_SIGNALS = ("total_acc_x", "total_acc_y", "total_acc_z",
+                "body_acc_x", "body_acc_y", "body_acc_z",
+                "body_gyro_x", "body_gyro_y", "body_gyro_z")
+_HAR_ROOTS = ("", "UCI HAR Dataset", "har")
+
+
+def _har_root(data_dir: str) -> str | None:
+    for sub in _HAR_ROOTS:
+        root = os.path.join(data_dir, sub) if sub else data_dir
+        if os.path.isdir(os.path.join(root, "train", "Inertial Signals")):
+            return root
+    return None
+
+
+def read_har(data_dir: str):
+    """UCI HAR Dataset/{train,test}/Inertial Signals/<signal>_<group>.txt,
+    whitespace matrices [n, 128] stacked to [n, 128, 9]; labels 1-indexed
+    in y_<group>.txt (reference HAR/data_loader.py:132-154). Returns
+    (xtr, ytr, xte, yte) or None."""
+    root = _har_root(data_dir)
+    if root is None:
+        return None
+    out = []
+    for group in ("train", "test"):
+        sig_dir = os.path.join(root, group, "Inertial Signals")
+        chans = [np.loadtxt(os.path.join(sig_dir, f"{s}_{group}.txt"), dtype=np.float32)
+                 for s in _HAR_SIGNALS]
+        chans = [c[None, :] if c.ndim == 1 else c for c in chans]
+        x = np.stack(chans, axis=-1)  # [n, 128, 9]
+        y = np.loadtxt(os.path.join(root, group, f"y_{group}.txt"),
+                       dtype=np.int64).reshape(-1).astype(np.int32) - 1
+        out += [x, y]
+    return tuple(out)
+
+
+def read_har_subjects(data_dir: str):
+    """``read_har`` plus each window's volunteer (subject_{train,test}.txt,
+    1-indexed ids made contiguous 0-based per split; reference
+    HAR/subject_dataloader.py load_har_data), the grouping variable of the
+    har_subject partition. Returns (xtr, ytr, str_, xte, yte, ste) or
+    None."""
+    base = read_har(data_dir)
+    if base is None:
+        return None
+    xtr, ytr, xte, yte = base
+    root = _har_root(data_dir)
+    subj = []
+    for group in ("train", "test"):
+        s = np.loadtxt(os.path.join(root, group, f"subject_{group}.txt"),
+                       dtype=np.int64).reshape(-1)
+        # train and test hold disjoint volunteer sets; p-hetero groups by
+        # unique label, so each split's ids become 0..k-1
+        _, s = np.unique(s, return_inverse=True)
+        subj.append(s.astype(np.int32))
+    return xtr, ytr, subj[0], xte, yte, subj[1]
+
+
+# ---------------------------------------------------------------------------
+# UCIAdult / purchase100 / texas100
+
+
+def read_adult(data_dir: str):
+    """income_proc/{train_val_feat,train_val_label,test_feat,test_label}.npy
+    (reference UCIAdult/dataloader.py:38-50), or None."""
+    d = os.path.join(data_dir, "income_proc")
+    names = ("train_val_feat.npy", "train_val_label.npy",
+             "test_feat.npy", "test_label.npy")
+    if not all(os.path.exists(os.path.join(d, n)) for n in names):
+        return None
+    xtr, ytr, xte, yte = (np.load(os.path.join(d, n)) for n in names)
+    return (xtr.astype(np.float32), ytr.reshape(-1).astype(np.int32),
+            xte.astype(np.float32), yte.reshape(-1).astype(np.int32))
+
+
+def read_purchase_texas(name: str, data_dir: str, seed: int = 1):
+    """<name>_100_not_normalized_{features,labels}.p pickles split 80/20
+    (the reference uses sklearn's train_test_split with random_state=1,
+    purchase/dataloader.py:21-45; this split is a seeded permutation, the
+    JAX package's: the same distribution, not the same index sequence)."""
+    stem = {"purchase100": "purchase_100", "texas100": "texas_100"}[name]
+    fp = os.path.join(data_dir, f"{stem}_not_normalized_features.p")
+    lp = os.path.join(data_dir, f"{stem}_not_normalized_labels.p")
+    if not (os.path.exists(fp) and os.path.exists(lp)):
+        return None
+    with open(fp, "rb") as f:
+        x = np.asarray(pickle.load(f), np.float32)
+    with open(lp, "rb") as f:
+        y = np.asarray(pickle.load(f)).reshape(-1)
+    y = y.astype(np.int32)
+    if y.min() == 1:  # texas labels are 1-indexed in the published pickles
+        y = y - 1
+    perm = np.random.RandomState(seed).permutation(len(x))
+    k = int(len(x) * 0.8)
+    tr, te = perm[:k], perm[k:]
+    return x[tr], y[tr], x[te], y[te]
+
+
+# ---------------------------------------------------------------------------
+# hetero-fix pre-recorded partitions
+
+
+def read_net_dataidx_map(path: str) -> dict[int, list[int]]:
+    """The reference's net_dataidx_map.txt: ``<client>: [`` opens a client,
+    the comma-separated lines after it list its sample indices, ``]`` ends
+    it (reference cifar10/data_loader.py:33-46)."""
+    out: dict[int, list[int]] = {}
+    key = None
+    with open(path) as f:
+        for line in f:
+            s = line.strip()
+            if not s or s[0] in "{}":
+                continue
+            if s.endswith("["):
+                key = int(s.split(":")[0])
+                out[key] = []
+            elif s[0] != "]":
+                out[key] += [int(t) for t in s.replace("]", "").split(",") if t.strip()]
+    return out
+
+
+def read_data_distribution(path: str) -> dict[int, dict[int, int]]:
+    """distribution.txt: nested ``<client>: {`` / ``<class>: <count>,``
+    blocks (reference cifar10/data_loader.py:18-30)."""
+    out: dict[int, dict[int, int]] = {}
+    first = None
+    with open(path) as f:
+        for line in f:
+            s = line.strip()
+            if not s or s[0] in "{}":
+                continue
+            k, v = s.split(":", 1)
+            if v.strip() == "{":
+                first = int(k)
+                out[first] = {}
+            else:
+                out[first][int(k)] = int(v.strip().rstrip(","))
+    return out
+
+
+def find_hetero_fix_map(data_dir: str, dataset: str) -> str | None:
+    """The recorded map the reference reads from
+    ./data_preprocessing/non-iid-distribution/<DATASET>/net_dataidx_map.txt,
+    under data_dir or data_dir/non-iid-distribution, or None."""
+    for root in (data_dir, os.path.join(data_dir, "non-iid-distribution")):
+        p = os.path.join(root, dataset.upper(), "net_dataidx_map.txt")
+        if os.path.exists(p):
+            return p
+    return None
+
+
+# ---------------------------------------------------------------------------
+# raw_MNIST (LEAF json)
+
+
+def read_leaf_json_clients(data_dir: str, x_shape=(28, 28, 1)):
+    """LEAF-json per-client data: <root>/{train,test}/*.json with 'users' and
+    'user_data' {uid: {x: [[784 floats]], y: [ints]}} (reference
+    raw_MNIST/data_loader.py:9-50). Returns (xtr_list, ytr_list, xte_list,
+    yte_list) in sorted user order, or None."""
+    tr_dir = os.path.join(data_dir, "train")
+    te_dir = os.path.join(data_dir, "test")
+    if not (os.path.isdir(tr_dir) and os.path.isdir(te_dir)):
+        return None
+
+    def read(d):
+        users, data = [], {}
+        for fn in sorted(os.listdir(d)):
+            if fn.endswith(".json"):
+                with open(os.path.join(d, fn)) as f:
+                    j = json.load(f)
+                users += j["users"]
+                data.update(j["user_data"])
+        return users, data
+
+    users, tr = read(tr_dir)
+    _, te = read(te_dir)
+    if not users:
+        return None
+    empty = {"x": [], "y": []}
+    xtr, ytr, xte, yte = [], [], [], []
+    for u in sorted(set(users)):
+        for d, xs, ys in ((tr.get(u, empty), xtr, ytr), (te.get(u, empty), xte, yte)):
+            xs.append(np.asarray(d["x"], np.float32).reshape((-1,) + x_shape))
+            ys.append(np.asarray(d["y"], np.int32))
+    return xtr, ytr, xte, yte
+
+
+# ---------------------------------------------------------------------------
+# edge-case backdoor sets
+
+
+def read_southwest(data_dir: str):
+    """The southwest-airline poisoned CIFAR images (reference
+    edge_case_examples/data_loader.py:346-377: uint8 [n, 32, 32, 3]
+    pickles, labelled 9 = truck). Returns (x_train, x_test, target_label)
+    with pixels in [0, 1], or None."""
+    base = os.path.join(data_dir, "edge_case_examples", "southwest_cifar10")
+    tr = os.path.join(base, "southwest_images_new_train.pkl")
+    te = os.path.join(base, "southwest_images_new_test.pkl")
+    if not (os.path.exists(tr) and os.path.exists(te)):
+        return None
+    with open(tr, "rb") as f:
+        xtr = np.asarray(pickle.load(f))
+    with open(te, "rb") as f:
+        xte = np.asarray(pickle.load(f))
+    return xtr.astype(np.float32) / 255.0, xte.astype(np.float32) / 255.0, 9

@@ -1,49 +1,51 @@
-"""Raw data sources (the MNIST, CIFAR, fed_CIFAR-100, FEMNIST, FedProx
-synthetic, Shakespeare and StackOverflow NWP parts of
+"""Raw data sources (the MNIST, EMNIST, CIFAR, fed_CIFAR-100, FEMNIST,
+FedProx synthetic, Shakespeare, StackOverflow NWP and tabular parts of
 ``fedml_tpu/data/sources.py``).
 
 Each ``load_*`` reads the real files from ``data_dir`` when they are there
-and otherwise makes a seeded surrogate of the same shape. The surrogates
-are byte-identical to the JAX package's, from the same numpy
-``RandomState`` draws in the same order. The readers ported are the plain
-ones: MNIST's IDX files, the CIFAR python pickles and LEAF Shakespeare's
-json. Where the real files are HDF5 (FEMNIST, StackOverflow,
-fed_CIFAR-100) the port raises ``NotImplementedError`` naming the file: the
-h5 readers are not ported yet."""
+and otherwise makes a seeded surrogate of the same shape. Both are
+byte-identical to the JAX package's: the readers parse the same formats
+(``readers.py``; MNIST's IDX files, the CIFAR python pickles, LEAF
+Shakespeare's json, the TFF h5 exports of FEMNIST, fed_CIFAR-100 and
+StackOverflow), and the surrogates come from the same numpy
+``RandomState`` draws in the same order.
+
+One divergence is kept on purpose: where the TFF h5 files are present but
+``h5py`` does not import, the JAX package trains on the surrogate (after a
+warning, or none for FEMNIST); the port raises, naming ``h5py`` and the
+file, because a user's real data must never be replaced in silence. A file
+that ``h5py`` fails to read gives the JAX package's warning and surrogate
+(or, for FEMNIST, its error)."""
 
 from __future__ import annotations
 
-import gzip
 import json
 import logging
 import os
 import pickle
-import struct
+import zlib
 
 import numpy as np
+
+from fedml_tpu_torch.data import readers
 
 log = logging.getLogger(__name__)
 
 
-def _h5_unported(*paths) -> None:
-    """Raise when the real h5 files are present: reading them is not
-    ported."""
-    if all(os.path.exists(p) for p in paths):
-        raise NotImplementedError(
-            f"reading {', '.join(paths)} is not ported to fedml_tpu_torch yet; "
-            f"only the seeded surrogate is")
-
-
-def _read_idx(path: str) -> np.ndarray:
-    """Parse an IDX (MNIST-format) file, gzipped or raw."""
-    opener = gzip.open if path.endswith(".gz") else open
-    with opener(path, "rb") as f:
-        _, dtype_code, ndim = struct.unpack(">HBB", f.read(4))
-        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
-        dtype = {8: np.uint8, 9: np.int8, 11: np.int16, 12: np.int32, 13: np.float32,
-                 14: np.float64}[dtype_code]
-        data = np.frombuffer(f.read(), dtype=np.dtype(dtype).newbyteorder(">"))
-        return data.reshape(dims)
+def _h5py(*paths):
+    """The ``h5py`` module when every file of ``paths`` exists, None when one
+    is absent; raises ``ImportError`` naming the files when they exist and
+    ``h5py`` does not import."""
+    if not all(os.path.exists(p) for p in paths):
+        return None
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"{', '.join(paths)} exist, but reading them needs h5py, which "
+            f"does not import ({e}); install h5py or move the files away to "
+            f"train on the seeded surrogate") from e
+    return h5py
 
 
 def _find(data_dir: str, names: list[str]) -> str | None:
@@ -77,10 +79,10 @@ def load_mnist_arrays(data_dir: str = "./data", flatten: bool = False, seed: int
         "t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte")]
     if all(p is not None for p in paths):
         tr_img, tr_lab, te_img, te_lab = paths
-        xtr = (_read_idx(tr_img).astype(np.float32) / 255.0 - 0.1307) / 0.3081
-        xte = (_read_idx(te_img).astype(np.float32) / 255.0 - 0.1307) / 0.3081
-        ytr = _read_idx(tr_lab).astype(np.int32)
-        yte = _read_idx(te_lab).astype(np.int32)
+        xtr = (readers.read_idx(tr_img).astype(np.float32) / 255.0 - 0.1307) / 0.3081
+        xte = (readers.read_idx(te_img).astype(np.float32) / 255.0 - 0.1307) / 0.3081
+        ytr = readers.read_idx(tr_lab).astype(np.int32)
+        yte = readers.read_idx(te_lab).astype(np.int32)
         xtr, xte = xtr[..., None], xte[..., None]
     else:
         log.warning("MNIST files not found under %s — using seeded surrogate", data_dir)
@@ -90,6 +92,21 @@ def load_mnist_arrays(data_dir: str = "./data", flatten: bool = False, seed: int
     if flatten:
         xtr = xtr.reshape(len(xtr), -1)
         xte = xte.reshape(len(xte), -1)
+    return xtr, ytr, xte, yte
+
+
+def load_emnist_arrays(data_dir: str = "./data", seed: int = 0, split: str = "balanced"):
+    """EMNIST balanced, 47 classes (reference MNIST/data_loader.py:55-60 via
+    torchvision's EMNIST split='balanced'), normalised as MNIST, from the
+    NIST gzip-IDX files when present, else a seeded surrogate (4,700 train
+    and 940 test rows)."""
+    ref = readers.read_emnist(data_dir, split)
+    if ref is not None:
+        xtr, ytr, xte, yte = ref
+        return ((xtr - 0.1307) / 0.3081, ytr, (xte - 0.1307) / 0.3081, yte)
+    log.warning("EMNIST IDX files not found under %s — using seeded surrogate", data_dir)
+    xtr, ytr = synthetic_image_classes(4700, 47, (28, 28, 1), seed, proto_seed=seed + 4747)
+    xte, yte = synthetic_image_classes(940, 47, (28, 28, 1), seed + 1, proto_seed=seed + 4747)
     return xtr, ytr, xte, yte
 
 
@@ -166,10 +183,28 @@ def load_cifar_arrays(name: str = "cifar10", data_dir: str = "./data", seed: int
 
 def load_fed_cifar100_clients(data_dir: str = "./data", client_num: int = 500, seed: int = 0):
     """fed_CIFAR-100: TFF's natural split, 500 clients of 100 train and 20
-    test images, 24x24 center crops (reference fed_cifar100/data_loader.py).
+    test images, 24x24 center crops (reference fed_cifar100/data_loader.py),
+    from TFF's ``fed_cifar100_{train,test}.h5`` (pixels / 255) when present.
     Returns (xtr, ytr, xte, yte), lists of per-client arrays."""
-    _h5_unported(os.path.join(data_dir, "fed_cifar100_train.h5"),
-                 os.path.join(data_dir, "fed_cifar100_test.h5"))
+    paths = (os.path.join(data_dir, "fed_cifar100_train.h5"),
+             os.path.join(data_dir, "fed_cifar100_test.h5"))
+    h5py = _h5py(*paths)
+    if h5py is not None:
+        def read(path):
+            xs, ys = [], []
+            with h5py.File(path, "r") as f:
+                ex = f["examples"]
+                for cid in sorted(ex.keys()):
+                    g = ex[cid]
+                    img = np.asarray(g["image"], np.float32) / 255.0
+                    xs.append(img[:, 4:28, 4:28, :])  # 32 -> 24 center crop
+                    ys.append(np.asarray(g["label"], np.int32))
+            return xs, ys
+
+        try:
+            return (*read(paths[0]), *read(paths[1]))
+        except Exception as e:  # a corrupt file -> the surrogate
+            log.warning("failed reading fed_cifar100 (%s) — using surrogate", e)
     log.warning("fed_cifar100 h5 not found under %s — using seeded surrogate", data_dir)
     rng = np.random.RandomState(seed)
     protos = rng.normal(0.0, 1.0, size=(100, 24, 24, 3)).astype(np.float32)
@@ -183,12 +218,28 @@ def load_fed_cifar100_clients(data_dir: str = "./data", client_num: int = 500, s
 
 
 def load_femnist_arrays(data_dir: str = "./data", client_num: int = 3400, seed: int = 0):
-    """FederatedEMNIST: per-writer natural split, 62 classes, 28x28.
+    """FederatedEMNIST: per-writer natural split, 62 classes, 28x28
+    (reference FederatedEMNIST/data_loader.py:16-77); TFF's
+    ``fed_emnist_{train,test}.h5`` when present, every writer in them.
 
     Returns (xtr, ytr, xte, yte), lists of per-client arrays
     [n_i, 28, 28, 1] float32 / [n_i] int32."""
-    _h5_unported(os.path.join(data_dir, "fed_emnist_train.h5"),
-                 os.path.join(data_dir, "fed_emnist_test.h5"))
+    paths = (os.path.join(data_dir, "fed_emnist_train.h5"),
+             os.path.join(data_dir, "fed_emnist_test.h5"))
+    h5py = _h5py(*paths)
+    if h5py is not None:
+        # TFF's export: examples/<writer>/{pixels [n, 28, 28], label [n]}
+        def read(path):
+            xs, ys = [], []
+            with h5py.File(path, "r") as f:
+                examples = f["examples"]
+                for cid in sorted(examples.keys()):
+                    g = examples[cid]
+                    xs.append(np.asarray(g["pixels"], dtype=np.float32)[..., None])
+                    ys.append(np.asarray(g["label"], dtype=np.int32))
+            return xs, ys
+
+        return (*read(paths[0]), *read(paths[1]))
     log.warning("FEMNIST h5 not found under %s — using seeded surrogate", data_dir)
     xtr, ytr, xte, yte = [], [], [], []
     for x_i, y_i, tx_i, ty_i in femnist_surrogate_clients(client_num, seed):
@@ -257,11 +308,41 @@ def _markov_text_clients(client_num, vocab, seq_len, per_client, test_frac, seed
 def load_stackoverflow_nwp_clients(data_dir: str = "./data", client_num: int = 200,
                                    seed: int = 0):
     """StackOverflow next-word prediction (reference stackoverflow_nwp/):
-    20-token windows over the extended vocab, per-position targets.
+    20-token windows over the extended vocab, per-position targets. Reads
+    TFF's ``stackoverflow_{train,test}.h5`` (examples/<client>/tokens, rows
+    of whitespace-joined sentences; the first ``client_num`` clients, 256
+    rows each) when present.
 
     Returns (xtr, ytr, xte, yte), lists of per-client [n_i, seq_len] int32."""
-    _h5_unported(os.path.join(data_dir, "stackoverflow_train.h5"),
-                 os.path.join(data_dir, "stackoverflow_test.h5"))
+    paths = (os.path.join(data_dir, "stackoverflow_train.h5"),
+             os.path.join(data_dir, "stackoverflow_test.h5"))
+    h5py = _h5py(*paths)
+    if h5py is not None:
+        vocab, seq = STACKOVERFLOW_VOCAB, STACKOVERFLOW_SEQ
+
+        def tok_ids(sentence):
+            words = sentence.decode() if isinstance(sentence, bytes) else str(sentence)
+            # 0 pad, 1 bos, 2 eos; words hashed into [4, vocab) by crc32,
+            # the same in every process (unlike hash())
+            ids = ([1] + [4 + (zlib.crc32(w.encode()) % (vocab - 4))
+                          for w in words.split()][: seq - 2] + [2])
+            ids = ids + [0] * (seq + 1 - len(ids))
+            return np.array(ids[: seq + 1], np.int32)
+
+        def read(path):
+            xs, ys = [], []
+            with h5py.File(path, "r") as f:
+                ex = f["examples"]
+                for cid in sorted(ex.keys())[:client_num]:
+                    rows = np.stack([tok_ids(s) for s in ex[cid]["tokens"][:256]])
+                    xs.append(rows[:, :seq])
+                    ys.append(rows[:, 1:])
+            return xs, ys
+
+        try:
+            return (*read(paths[0]), *read(paths[1]))
+        except Exception as e:  # a corrupt file -> the surrogate
+            log.warning("failed reading stackoverflow h5 (%s) — using surrogate", e)
     log.warning("stackoverflow h5 not found under %s — using seeded surrogate", data_dir)
     return _markov_text_clients(client_num, STACKOVERFLOW_VOCAB, STACKOVERFLOW_SEQ,
                                 per_client=64, test_frac=0.15, seed=seed)
@@ -325,4 +406,58 @@ def load_shakespeare_clients(data_dir: str = "./data", client_num: int = 715,
                 x = np.zeros((0, SHAKESPEARE_SEQ), np.int32)
                 y = np.zeros((0, SHAKESPEARE_SEQ) if per_position else (0,), np.int32)
             xs.append(x); ys.append(y)
+    return xtr, ytr, xte, yte
+
+
+# ---------------------------------------------------------------------------
+# the fork's tabular extras (UCIAdult / purchase100 / texas100 / UCI-HAR /
+# CHMNIST)
+
+#: one sample's shape and the class count of each tabular dataset
+TABULAR = {
+    "adult": ((104,), 2),          # one-hot encoded UCI Adult
+    "purchase100": ((600,), 100),  # acquire-valued-shoppers binary basket
+    "texas100": ((6169,), 100),    # hospital discharge features
+    "har": ((128, 9), 6),          # UCI-HAR 128-step 9-channel windows
+    "chmnist": ((64, 64, 1), 8),   # colorectal-histology MNIST
+}
+
+
+def load_tabular_arrays(name: str, data_dir: str = "./data", seed: int = 0):
+    """The fork's datasets of its privacy / membership-inference experiments
+    (reference fedml_api/data_preprocessing/{UCIAdult,purchase,texas,UCI_HAR,
+    CHMNIST}): the reference's own files first (HAR Inertial Signals txt,
+    UCIAdult income_proc npy, purchase/texas not_normalized pickles), then
+    ``<name>.npz`` with x_train/y_train/x_test/y_test, else a seeded
+    surrogate of the dataset's true dimensionality (6,000 train rows for
+    flat features, 3,000 for images and windows; a sixth of that for test)."""
+    shape, class_num = TABULAR[name]
+    ref = None
+    if name == "har":
+        ref = readers.read_har(data_dir)
+    elif name == "adult":
+        ref = readers.read_adult(data_dir)
+    elif name in ("purchase100", "texas100"):
+        ref = readers.read_purchase_texas(name, data_dir)
+    if ref is not None:
+        xtr, ytr, xte, yte = ref
+        return (xtr.astype(np.float32), ytr.astype(np.int32),
+                xte.astype(np.float32), yte.astype(np.int32))
+    p = os.path.join(data_dir, f"{name}.npz")
+    if os.path.exists(p):
+        try:
+            d = np.load(p)
+            out = (d["x_train"].astype(np.float32), d["y_train"].astype(np.int32),
+                   d["x_test"].astype(np.float32), d["y_test"].astype(np.int32))
+            if out[0].shape[1:] != shape:
+                raise ValueError(f"{name} features {out[0].shape[1:]} != expected {shape}")
+            return out
+        except Exception as e:  # a corrupt or misshapen file -> the surrogate
+            log.warning("failed reading %s (%s) — using surrogate", p, e)
+    else:
+        log.warning("%s npz not found under %s — using seeded surrogate", name, data_dir)
+    ntr = 6000 if len(shape) == 1 else 3000
+    xtr, ytr = synthetic_image_classes(ntr, class_num, shape, seed, proto_seed=seed + 31)
+    xte, yte = synthetic_image_classes(ntr // 6, class_num, shape, seed + 1,
+                                       proto_seed=seed + 31)
     return xtr, ytr, xte, yte

@@ -72,12 +72,17 @@ def main(argv=None):
     profile_rounds(run, args.rounds, args.dtype)
 
 
-def measure_rounds(run_round, rounds: int) -> dict:
+def measure_rounds(run_round, rounds: int, host_events: bool = True) -> dict:
     """Profile ``run_round(r)`` for r in range(rounds) (after the caller's
     warm-up): {"wall_ms", "busy_ms", "launches"} per round, "rows" (device
-    us, count, kernel name) for the window and "kinds" {kind: [us, count]}."""
+    us, count, kernel name) for the window and "kinds" {kind: [us, count]}.
+    ``host_events=False`` records the device's activity alone: the same
+    readings, without the host-side events (several a launch) that make
+    reading a window of 10**5 launches take minutes."""
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host_events:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for r in range(rounds):

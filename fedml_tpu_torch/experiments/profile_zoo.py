@@ -72,9 +72,10 @@ def losses(hist) -> list:
     return [h["loss_sum"] / max(h["total"], 1.0) for h in hist]
 
 
-def profiled_round(api, round_idx: int) -> dict:
-    """One more round of ``api`` under the profiler: wall, busy and kinds."""
-    return measure_rounds(lambda r: api.train_one_round(round_idx + r), 1)
+def profiled_round(api, round_idx: int, host_events: bool = True) -> dict:
+    """One more round of ``api`` under the profiler: wall, busy and kinds
+    (``host_events``: see ``measure_rounds``)."""
+    return measure_rounds(lambda r: api.train_one_round(round_idx + r), 1, host_events)
 
 
 def summary(tag: str, hist, prof: dict) -> str:

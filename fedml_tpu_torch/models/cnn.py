@@ -55,8 +55,10 @@ def embed(ids, weight):
 
 
 def conv2d(layer, x, cd):
-    """A flax Conv (with bias) in the compute dtype, as ``dense``."""
-    return (F.conv2d(x.to(cd), layer.weight.to(cd), None, layer.stride, layer.padding)
+    """A flax Conv (with bias) in the compute dtype, as ``dense``; a grouped
+    layer is flax's ``feature_group_count``."""
+    return (F.conv2d(x.to(cd), layer.weight.to(cd), None, layer.stride, layer.padding,
+                     layer.dilation, layer.groups)
             + layer.bias.to(cd)[:, None, None])
 
 

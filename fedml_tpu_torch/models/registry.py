@@ -3,15 +3,17 @@ and the factories of ``fedml_tpu/models/zoo.py``, with their defaults).
 
 Ported: ``lr``, ``mlp``, ``purchasemlp``, ``texasmlp``, ``cnn`` (CNN_DropOut),
 ``cnn_fedavg``, ``cnn_cifar``, ``har_cnn``, the ResNets (``resnet20/32/44/
-56/56_s2d/110``, ``resnet18/34/50``, ``resnet18_gn``), ``rnn``,
-``rnn_stackoverflow`` and ``transformer_nwp``; the rest of the zoo is listed
-in ROADMAP.md Queue 1.
+56/56_s2d/110``, ``resnet18/34/50``, ``resnet18_gn``), ``vgg11``, ``vgg16``,
+``mobilenet``, ``mobilenet_v3``, ``efficientnet``, ``rnn``,
+``rnn_stackoverflow`` and ``transformer_nwp``; the zoo's ``deeplab`` and
+``fcn`` (FedSeg) are listed in ROADMAP.md Queue 1.
 
 ``input_shape`` is one sample's shape (flax infers it at init; a PyTorch
 layer needs it when it is built). Where it is not given, each factory
 assumes its reference dataset's: MNIST 784 for ``lr``/``mlp``, 28x28 for
-the FEMNIST CNNs, 32x32 for ``cnn_cifar``, 128 steps of 9 channels for
-``har_cnn``, 600 and 6169 for the Purchase and Texas MLPs.
+the FEMNIST CNNs, 32x32x3 for ``cnn_cifar``, VGG and the convolutional
+nets, 128 steps of 9 channels for ``har_cnn``, 600 and 6169 for the
+Purchase and Texas MLPs.
 """
 
 from __future__ import annotations
@@ -20,9 +22,13 @@ import math
 
 from fedml_tpu_torch.models import resnet
 from fedml_tpu_torch.models.cnn import CNN_DropOut, CNN_OriginalFedAvg, CNNCifar, HAR_CNN
+from fedml_tpu_torch.models.efficientnet import EfficientNet
 from fedml_tpu_torch.models.linear import DenseMLP, LogisticRegression, ReferenceMLP
+from fedml_tpu_torch.models.mobilenet import MobileNet
+from fedml_tpu_torch.models.mobilenet_v3 import MobileNetV3
 from fedml_tpu_torch.models.rnn import RNN_OriginalFedAvg, RNN_StackOverFlow
 from fedml_tpu_torch.models.transformer import TransformerLM
+from fedml_tpu_torch.models.vgg import VGG
 
 _RESNETS = ("resnet20", "resnet32", "resnet44", "resnet56", "resnet56_s2d",
             "resnet110", "resnet18", "resnet34", "resnet50")
@@ -62,13 +68,32 @@ def create_model(model_name: str, output_dim: int, dtype="float32", input_shape=
     if model_name == "har_cnn":
         seq, channels = (128, 9) if shape is None else shape
         return HAR_CNN(output_dim, dtype, seq_len=seq, channels=channels)
+    # the convolutional nets take their input channels from the sample
+    # (chmnist's images are grey, CIFAR's RGB)
+    channels = 3 if shape is None else int(shape[-1])
     if model_name in _RESNETS:
         return getattr(resnet, model_name)(output_dim=output_dim,
-                                           group_norm=kwargs.get("group_norm", 0), dtype=dtype)
+                                           group_norm=kwargs.get("group_norm", 0), dtype=dtype,
+                                           in_channels=channels)
     if model_name == "resnet18_gn":
         # the fed_cifar100 model: GroupNorm of 2 channels per group
         return resnet.resnet18(output_dim=output_dim, group_norm=kwargs.get("group_norm", 2),
-                               dtype=dtype)
+                               dtype=dtype, in_channels=channels)
+    if model_name in ("vgg11", "vgg16"):
+        return VGG(model_name, output_dim, dtype, input_hw=_side(shape, 32),
+                   in_channels=channels)
+    if model_name == "mobilenet":
+        return MobileNet(output_dim, alpha=kwargs.get("alpha", 1.0), dtype=dtype,
+                         in_channels=channels)
+    if model_name == "mobilenet_v3":
+        # the reference's main_fedavg.py "mobilenet_v3" -> MobileNetV3(model_mode=...)
+        return MobileNetV3(output_dim, mode=kwargs.get("mode", "LARGE"),
+                           multiplier=kwargs.get("multiplier", 1.0),
+                           dropout_rate=kwargs.get("dropout_rate", 0.0), dtype=dtype,
+                           in_channels=channels)
+    if model_name == "efficientnet":
+        return EfficientNet.from_name(kwargs.get("variant", "efficientnet-b0"), output_dim,
+                                      dtype=dtype, in_channels=channels)
     if model_name == "rnn":
         # the shakespeare next-char model
         return RNN_OriginalFedAvg(vocab_size=kwargs.get("vocab_size", output_dim),

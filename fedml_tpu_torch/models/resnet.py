@@ -189,7 +189,10 @@ class Bottleneck(nn.Module):
 
 
 def _apply_conv(layer: nn.Conv2d, x, cd):
-    return F.conv2d(x.to(cd), layer.weight.to(cd), None, layer.stride, layer.padding)
+    """A bias-free flax Conv in the compute dtype ``cd`` (input and weight
+    cast to it); a grouped layer is flax's ``feature_group_count``."""
+    return F.conv2d(x.to(cd), layer.weight.to(cd), None, layer.stride, layer.padding,
+                    layer.dilation, layer.groups)
 
 
 def _stages(module: nn.Module, block, cin: int, widths, layers, group_norm, dtype) -> int:
@@ -263,39 +266,47 @@ class ResNetImageNet(nn.Module):
         return dense(self.fc, x.mean((2, 3)), self.dtype)
 
 
-def resnet20(output_dim=10, group_norm=0, dtype="float32"):
-    return ResNetCifar(BasicBlock, (3, 3, 3), output_dim, group_norm, dtype=dtype)
+def resnet20(output_dim=10, group_norm=0, dtype="float32", in_channels=3):
+    return ResNetCifar(BasicBlock, (3, 3, 3), output_dim, group_norm,
+                       in_channels=in_channels, dtype=dtype)
 
 
-def resnet32(output_dim=10, group_norm=0, dtype="float32"):
-    return ResNetCifar(BasicBlock, (5, 5, 5), output_dim, group_norm, dtype=dtype)
+def resnet32(output_dim=10, group_norm=0, dtype="float32", in_channels=3):
+    return ResNetCifar(BasicBlock, (5, 5, 5), output_dim, group_norm,
+                       in_channels=in_channels, dtype=dtype)
 
 
-def resnet44(output_dim=10, group_norm=0, dtype="float32"):
-    return ResNetCifar(BasicBlock, (7, 7, 7), output_dim, group_norm, dtype=dtype)
+def resnet44(output_dim=10, group_norm=0, dtype="float32", in_channels=3):
+    return ResNetCifar(BasicBlock, (7, 7, 7), output_dim, group_norm,
+                       in_channels=in_channels, dtype=dtype)
 
 
-def resnet56(output_dim=10, group_norm=0, s2d=False, dtype="float32"):
-    return ResNetCifar(Bottleneck, (6, 6, 6), output_dim, group_norm, s2d=s2d, dtype=dtype)
+def resnet56(output_dim=10, group_norm=0, s2d=False, dtype="float32", in_channels=3):
+    return ResNetCifar(Bottleneck, (6, 6, 6), output_dim, group_norm, s2d=s2d,
+                       in_channels=in_channels, dtype=dtype)
 
 
-def resnet56_s2d(output_dim=10, group_norm=0, dtype="float32"):
+def resnet56_s2d(output_dim=10, group_norm=0, dtype="float32", in_channels=3):
     """ResNet-56 on a space-to-depth input: an architecture variant of the
     reference model, not the model itself."""
-    return resnet56(output_dim, group_norm, s2d=True, dtype=dtype)
+    return resnet56(output_dim, group_norm, s2d=True, dtype=dtype, in_channels=in_channels)
 
 
-def resnet110(output_dim=10, group_norm=0, dtype="float32"):
-    return ResNetCifar(Bottleneck, (12, 12, 12), output_dim, group_norm, dtype=dtype)
+def resnet110(output_dim=10, group_norm=0, dtype="float32", in_channels=3):
+    return ResNetCifar(Bottleneck, (12, 12, 12), output_dim, group_norm,
+                       in_channels=in_channels, dtype=dtype)
 
 
-def resnet18(output_dim=1000, group_norm=0, dtype="float32"):
-    return ResNetImageNet(BasicBlock, (2, 2, 2, 2), output_dim, group_norm, dtype=dtype)
+def resnet18(output_dim=1000, group_norm=0, dtype="float32", in_channels=3):
+    return ResNetImageNet(BasicBlock, (2, 2, 2, 2), output_dim, group_norm,
+                          in_channels=in_channels, dtype=dtype)
 
 
-def resnet34(output_dim=1000, group_norm=0, dtype="float32"):
-    return ResNetImageNet(BasicBlock, (3, 4, 6, 3), output_dim, group_norm, dtype=dtype)
+def resnet34(output_dim=1000, group_norm=0, dtype="float32", in_channels=3):
+    return ResNetImageNet(BasicBlock, (3, 4, 6, 3), output_dim, group_norm,
+                          in_channels=in_channels, dtype=dtype)
 
 
-def resnet50(output_dim=1000, group_norm=0, dtype="float32"):
-    return ResNetImageNet(Bottleneck, (3, 4, 6, 3), output_dim, group_norm, dtype=dtype)
+def resnet50(output_dim=1000, group_norm=0, dtype="float32", in_channels=3):
+    return ResNetImageNet(Bottleneck, (3, 4, 6, 3), output_dim, group_norm,
+                          in_channels=in_channels, dtype=dtype)

@@ -7,7 +7,10 @@ The port holds them as a flat dict of tensors keyed like a ``state_dict``
 kind:
 
   - Dense/Conv ``kernel`` <-> ``weight``: 2-D conv kernels HWIO <-> OIHW,
-    1-D conv kernels WIO <-> OIW, dense kernels [in, out] <-> [out, in];
+    1-D conv kernels WIO <-> OIW, dense kernels [in, out] <-> [out, in]; a
+    depthwise kernel (flax ``feature_group_count=C``, [kh, kw, 1, C]) is
+    the same transpose, to a ``groups=C`` conv's [C, 1, kh, kw] and back
+    (the I axis holds the input channels of one group);
   - ``bias`` <-> ``bias``, as is;
   - LayerNorm, GroupNorm and BatchNorm ``scale`` <-> ``weight``, as is;
   - Embed ``embedding`` <-> ``weight``, as is ([num, features] on both

@@ -19,6 +19,12 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def device_count(device) -> int:
+    """How many devices of ``device``'s type the run can use: the visible
+    cards for ``cuda``, 1 for the CPU."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the work queued on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":

@@ -9,6 +9,7 @@ import gzip
 import json
 import pickle
 import struct
+import sys
 
 import numpy as np
 import torch
@@ -18,7 +19,7 @@ from fedml_tpu.core import partition as jax_partition
 from fedml_tpu.data import sources as jax_sources
 from fedml_tpu.data.registry import load_dataset as jax_load_dataset
 from fedml_tpu_torch.core import partition
-from fedml_tpu_torch.data import sources
+from fedml_tpu_torch.data import readers, sources
 from fedml_tpu_torch.data.registry import load_dataset
 
 
@@ -145,7 +146,7 @@ def test_idx_reader_matches_jax(tmp_path):
     assert got[0].shape == (5, 28, 28, 1)
     ints = rng.randint(-5, 5, (2, 3)).astype(np.int32)
     _write_idx(tmp_path / "ints", ints, 12)
-    _same(sources._read_idx(str(tmp_path / "ints")), ints.astype(">i4"))
+    _same(readers.read_idx(str(tmp_path / "ints")), ints.astype(">i4"))
 
 
 @pytest.mark.parametrize("name", ["cifar10", "cifar100"])
@@ -196,17 +197,25 @@ def test_leaf_json_reader_matches_jax(tmp_path, per_position):
     assert sources.letter_to_index("é") == 89 and sources.letter_to_index("a") == 53
 
 
-def test_h5_files_present_raise(tmp_path):
-    """Reading the TFF h5 exports is not ported: with the files present
-    the loaders raise, naming them, and never fall back to the surrogate."""
+def test_h5_files_present_raise(tmp_path, monkeypatch):
+    """With the TFF h5 exports present and h5py unimportable, the loaders
+    raise, naming h5py and the files, and never fall back to the surrogate
+    (the JAX package's fallback there is a kept divergence; the readers
+    themselves are held in ``test_torch_readers.py``)."""
     for stem in ("fed_cifar100_train", "fed_cifar100_test"):
         (tmp_path / f"{stem}.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="fed_cifar100_train.h5"):
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="fed_cifar100_train.h5.*h5py"):
         load_dataset("fed_cifar100", data_dir=str(tmp_path), client_num_in_total=2)
 
 
 def test_unported_partition_and_dataset_raise():
-    with pytest.raises(NotImplementedError, match="hetero-fix"):
-        load_dataset("cifar10", data_dir="./no-such-dir", partition_method="hetero-fix")
-    with pytest.raises(NotImplementedError):
-        load_dataset("cinic10")
+    """The loaders still unported raise NotImplementedError naming the
+    dataset (hetero-fix and cinic10, which raised here before, are ported:
+    ``test_torch_readers.py``); an unknown partition method is a
+    ValueError."""
+    for name in ("ILSVRC2012", "gld23k", "stackoverflow_lr", "pascal_voc"):
+        with pytest.raises(NotImplementedError, match=name):
+            load_dataset(name)
+    with pytest.raises(ValueError, match="unknown partition method"):
+        load_dataset("cifar10", data_dir="./no-such-dir", partition_method="lda")

@@ -63,13 +63,23 @@ def test_backdoor_metrics_match_jax():
 
 
 def test_load_edge_case_sets(tmp_path):
+    """Absent: None (the pixel trigger); present: the southwest pickles,
+    normalised by CIFAR-10's statistics, as the JAX package reads them
+    (``test_torch_readers.py`` holds the other normalisations)."""
+    import pickle
+
     assert backdoor.load_edge_case_sets(str(tmp_path)) is None
     base = tmp_path / "edge_case_examples" / "southwest_cifar10"
     base.mkdir(parents=True)
+    rng = np.random.RandomState(0)
     for name in ("southwest_images_new_train.pkl", "southwest_images_new_test.pkl"):
-        (base / name).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="edge-case"):
-        backdoor.load_edge_case_sets(str(tmp_path))
+        with open(base / name, "wb") as f:
+            pickle.dump(rng.randint(0, 255, (4, 32, 32, 3), dtype=np.uint8), f)
+    got = backdoor.load_edge_case_sets(str(tmp_path))
+    want = jax_backdoor.load_edge_case_sets(str(tmp_path))
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g, w)
+    assert got[2] == want[2] == 9
 
 
 ARGS = ["--dataset", "femnist", "--model", "cnn", "--client_num_in_total", "3",

@@ -121,7 +121,10 @@ def test_port_imports_no_jax_or_reference_package():
         "fedml_tpu_torch.ops.attention, fedml_tpu_torch.models.transformer, "
         "fedml_tpu_torch.experiments.profile_nwp, fedml_tpu_torch.telemetry.records, "
         "fedml_tpu_torch.robustness.guard, fedml_tpu_torch.utils.checkpoint, "
-        "fedml_tpu_torch.utils.logging, fedml_tpu_torch.data.prefetch\n"
+        "fedml_tpu_torch.utils.logging, fedml_tpu_torch.data.prefetch, "
+        "fedml_tpu_torch.experiments.fed_launch, fedml_tpu_torch.data.readers, "
+        "fedml_tpu_torch.models.vgg, fedml_tpu_torch.models.mobilenet, "
+        "fedml_tpu_torch.models.mobilenet_v3, fedml_tpu_torch.models.efficientnet\n"
         "new = [m for m in set(sys.modules) - before "
         f"if m.split('.')[0] in {_FORBIDDEN!r}]\n"
         "print(sorted(new)); sys.exit(1 if new else 0)\n")

@@ -104,4 +104,4 @@ def test_argmax_ties_go_to_the_first_index():
 
 def test_unported_model_raises():
     with pytest.raises(NotImplementedError):
-        create_model("mobilenet", output_dim=10)
+        create_model("deeplab", output_dim=10)

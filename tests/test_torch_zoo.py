@@ -387,6 +387,8 @@ def test_init_follows_flax_laws():
 
 
 def test_unported_zoo_names_raise():
-    for name in ("mobilenet", "vgg11", "efficientnet"):
+    """The JAX zoo's FedSeg models are the names still unported (the CV
+    nets that raised here are ported: ``test_torch_cv_models.py``)."""
+    for name in ("deeplab", "fcn"):
         with pytest.raises(NotImplementedError):
             create_model(name, output_dim=10)
