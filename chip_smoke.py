@@ -159,7 +159,9 @@ Phases (any failure exits non-zero and prints no result line):
        kernel launched;
      - ``fedavg_femnist.yaml`` again with ``fused_kernel=1``: the fused
        epoch must launch;
-     - ``privacy_blockensemble.yaml`` must raise NotImplementedError;
+     - a temporary config of an unported algorithm (``hierarchical``) must
+       raise NotImplementedError naming ROADMAP (``privacy_blockensemble.yaml``
+       runs in phase 9);
      - BASELINE.md's cross-silo rows on ``cross_silo_cifar10_resnet56.yaml``
        (1 round of E = 1 over XS_SILOS of 10 silos): MobileNet on CIFAR-10,
        CIFAR-100 and CINIC-10, ResNet-56 on CINIC-10, VGG-11, MobileNetV3
@@ -170,6 +172,35 @@ Phases (any failure exits non-zero and prints no result line):
      each run prints a line: config, overrides, round ms, Test/Loss before
      and after, training loss, launches. ``--launcher-only`` builds the
      kernels and runs this phase alone.
+
+  9. the fork's privacy package (``privacy/``, ``models/ensemble.py``,
+     ``experiments/main_privacy.py``), each run through ``main_privacy`` as
+     the launcher resolves ``privacy_blockensemble.yaml``, with the four
+     kernels' launches counted (none is on these paths: each must read 0)
+     and every branch finite:
+     - cell 15, the config as written with PRIVACY_CUTS: the 4-branch block
+       ensemble, 50 rounds of 10 of 10 MNIST clients, E = 1, batch 32, lr
+       0.1, 2 paths trained jointly, then the MI report; the training loss
+       must fall; the median round, Train/Loss at the first and last round,
+       the ensemble's and each branch's accuracy, every ``MI/*`` metric and
+       the report's seconds printed; one more round under the profiler
+       (device activity only) for its launches and the busy share;
+     - the same config for PRIVACY_SHORT_ROUNDS rounds with 3 paths and
+       feat_lmda 0.5 (ThreeModelTrainer, feature matching), and one bf16
+       round;
+     - cell 16: ``--ensemble_method`` predavg (with the MI report),
+       predvote, predweight, blockavg and hetero, 4 branches,
+       PRIVACY_SHORT_ROUNDS rounds each;
+     - checks on predavg's branch 0: per-sample gradient norms from
+       ``vmap`` equal a loop of ``torch.autograd.grad`` at 16 samples
+       (float32, rtol 1e-5); the penultimate gradient's closed form equals
+       autograd's gradient with respect to the head's input; with members
+       and non-members the same tensors the NN and loss attacks read
+       advantage exactly 0; robust accuracy at eps 0 equals the ensemble's
+       plain accuracy; the MI report's per-sample gradients at 512 rows
+       timed, with their peak device memory;
+     the phase's seconds against PHASE9_BUDGET_S. ``--privacy-only`` builds
+     the kernels and runs this phase alone.
 
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
@@ -329,6 +360,17 @@ MODEL_CLASSES = {"lr": "LogisticRegression", "cnn": "CNN_DropOut", "cnn_cifar": 
                  "purchasemlp": "ReferenceMLP", "texasmlp": "ReferenceMLP",
                  "rnn": "RNN_OriginalFedAvg", "mobilenet": "MobileNet",
                  "mobilenet_v3": "MobileNetV3", "efficientnet": "EfficientNet"}
+
+# Phase 9: the fork's privacy package. Cell 15 is privacy_blockensemble.yaml
+# through the launcher, with PRIVACY_CUTS (none: its 50 rounds of 10 of 10
+# MNIST clients, E = 1, batch 32, lr 0.1, 4 branches, 2 paths, the MI
+# report); then the same config for PRIVACY_SHORT_ROUNDS rounds with 3 paths
+# and feature matching, one bf16 round, and cell 16: the five branch
+# ensembles, each PRIVACY_SHORT_ROUNDS rounds, within PHASE9_BUDGET_S.
+PRIVACY_CONFIG = "privacy_blockensemble.yaml"
+PRIVACY_CUTS: list = []
+PRIVACY_SHORT_ROUNDS, PHASE9_BUDGET_S = 5, 120.0
+ENSEMBLE_METHODS = ("predavg", "predvote", "predweight", "blockavg", "hetero")
 
 
 class Disagreement(RuntimeError):
@@ -1953,8 +1995,8 @@ def run_launcher(fused_launches: dict) -> dict:
     paths = config_paths()
     with tempfile.TemporaryDirectory() as run_dir:
         for path in paths:
-            if path.name == "privacy_blockensemble.yaml":
-                continue
+            if path.name == PRIVACY_CONFIG:
+                continue  # phase 9 runs it
             rows.append(launch(path, PHASE8_CUTS.get(path.name, []), run_dir))
             if any(rows[-1]["launches"].values()):
                 raise RuntimeError(f"{path.name}: a kernel launched on the engine path: "
@@ -1970,14 +2012,17 @@ def run_launcher(fused_launches: dict) -> dict:
             row = next(r for r in rows if r["config"] == name)
             if row["backend"] != "shard_map":
                 raise RuntimeError(f"{name} ran with backend {row['backend']}, not as written")
-        control = next(p for p in paths if p.name == "privacy_blockensemble.yaml")
+        control = f"{run_dir}/hierarchical.yaml"
+        with open(control, "w") as f:
+            f.write("algorithm: hierarchical\nargs:\n  dataset: mnist\n")
         try:
-            fed_launch.main(["--config", str(control)])
+            fed_launch.main(["--config", control])
         except NotImplementedError as e:
-            log(f"phase 8 control: privacy_blockensemble.yaml raises NotImplementedError "
-                f"({e})")
+            if "ROADMAP" not in str(e):
+                raise RuntimeError(f"the unported algorithm's error names no ROADMAP: {e}")
+            log(f"phase 8 control: algorithm hierarchical raises NotImplementedError ({e})")
         else:
-            raise RuntimeError("privacy_blockensemble.yaml did not raise")
+            raise RuntimeError("an unported algorithm (hierarchical) did not raise")
         silo = next(p for p in paths if p.name == "cross_silo_cifar10_resnet56.yaml")
         for overrides, bf16, profile in CROSS_SILO_ROWS:
             for dtype in ("float32", "bfloat16") if bf16 else ("float32",):
@@ -1992,6 +2037,259 @@ def run_launcher(fused_launches: dict) -> dict:
     return {"seconds": round(seconds, 1), "runs": len(rows)}
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+class TimedRounds:
+    """Wraps ``cls.train_one_round`` while in use: each API that runs a
+    round is kept (``apis``) and each of its rounds' wall ms recorded
+    (``ms``, one list an API). A round returns host floats, so its work on
+    the card is done when it returns."""
+
+    def __init__(self, cls):
+        self.cls = cls
+
+    def __enter__(self):
+        self.apis, self.ms = [], []
+        self._round = round_fn = self.cls.train_one_round
+        runs = self
+
+        def timed(api, *args, **kwargs):
+            if not runs.apis or runs.apis[-1] is not api:
+                runs.apis.append(api)
+                runs.ms.append([])
+            t0 = time.perf_counter()
+            out = round_fn(api, *args, **kwargs)
+            runs.ms[-1].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.cls.train_one_round = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_one_round = self._round
+
+
+def privacy_main(path, run_dir: str, overrides=(), flags=()):
+    """A call of ``main_privacy.main`` with the config at ``path`` resolved
+    by the launcher, ``overrides`` (key=value) on top, then ``flags``."""
+    from fedml_tpu_torch.experiments import fed_launch, main_privacy
+
+    argv = ["--config", str(path), "--override", f"run_dir={run_dir}"]
+    argv += [a for o in overrides for a in ("--override", o)]
+    module, main_argv = fed_launch.resolve(argv)
+    if module != "fedml_tpu_torch.experiments.main_privacy":
+        raise RuntimeError(f"{path.name} resolved to {module}, not main_privacy")
+    return lambda: main_privacy.main(main_argv + list(flags))
+
+
+def run_privacy_main(tag: str, run, api_cls, launches: dict) -> dict:
+    """``run()``, a call of ``main_privacy.main`` (through the launcher or
+    directly), on the card: its rounds timed, its MI report's seconds read
+    and the four kernels' launches counted (each must read 0, see
+    ``zoo_path``); every branch must stay finite. Returns the run's API,
+    round ms, history and final metrics."""
+    import torch
+
+    from fedml_tpu_torch.experiments import main_privacy
+
+    run_mi = main_privacy.run_mi_attacks
+    mi_s = []
+
+    def timed_mi(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = run_mi(*args, **kwargs)
+        torch.cuda.synchronize()
+        mi_s.append(time.perf_counter() - t0)
+        return out
+
+    main_privacy.run_mi_attacks = timed_mi
+    t0 = time.perf_counter()
+    try:
+        with TimedRounds(api_cls) as runs:
+            hist, final = zoo_path(tag, launches, run)
+    finally:
+        main_privacy.run_mi_attacks = run_mi
+    wall = time.perf_counter() - t0
+    (api,) = runs.apis
+    for b, variables in enumerate(api.branches):
+        for name, t in variables.items():
+            if not torch.isfinite(t).all():
+                raise RuntimeError(f"{tag}: branch {b} {name} is not finite")
+    if not all(math.isfinite(v) for h in hist for v in h.values()):
+        raise RuntimeError(f"{tag}: a metric is not finite: {hist}")
+    ms = runs.ms[0]
+    branches = {k: round(v, 4) for k, v in final.items() if not k.startswith("MI/")}
+    log(f"{tag}: {len(hist)} rounds, median round "
+        f"{statistics.median(ms[1:] or ms):.2f} ms over rounds 1-{len(ms) - 1}, first "
+        f"{ms[0]:.2f} ms, wall {wall:.1f} s; final {json.dumps(branches)}")
+    mi = {k: v for k, v in final.items() if k.startswith("MI/")}
+    if mi:
+        log(f"{tag}: MI report in {mi_s[0]:.2f} s: {json.dumps(mi)}")
+    return {"api": api, "ms": ms, "hist": hist, "final": final,
+            "mi_s": mi_s[0] if mi_s else None, "wall_s": wall}
+
+
+def check_privacy_numerics(api) -> dict:
+    """On the card, with ``api`` a trained BranchFedAvgAPI: per-sample
+    gradient norms from vmap against a loop of autograd at 16 samples
+    (float32, rtol 1e-5); the penultimate gradient's closed form against
+    autograd with respect to the head's input; the control, where members
+    and non-members are the same tensors, which the NN and loss attacks
+    must read at advantage exactly 0; robust accuracy at eps 0 equal to
+    the ensemble's plain accuracy; and the peak memory of the MI report's
+    per-sample gradients at MI_ROWS members."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.experiments.main_privacy import MI_ROWS
+    from fedml_tpu_torch.privacy import adv_attack, mi_attack
+
+    trainer, v, dev = api.trainers[0], api.branches[0], api.device
+    xtr, ytr = api.dataset.train_global
+    x = torch.from_numpy(xtr[:16]).to(dev)
+    y = torch.from_numpy(ytr[:16]).to(dev)
+    got = mi_attack.make_per_sample_grad_norm(trainer, v)(x, y)
+    want = []
+    for i in range(len(y)):
+        leaves = {k: t.detach().requires_grad_(True) for k, t in v.items()}
+        logits, _ = trainer.apply(leaves, x[i:i + 1])
+        grads = torch.autograd.grad(F.cross_entropy(logits, y[i:i + 1].long()),
+                                    list(leaves.values()))
+        want.append(torch.sqrt(sum((g ** 2).sum() for g in grads)))
+    want = torch.stack(want)
+    norm_rel = ((got - want).abs() / want.abs()).max().item()
+    if not norm_rel <= 1e-5:
+        raise Disagreement(f"per-sample gradient norms: vmap vs loop rel {norm_rel:.3e}")
+    pg = mi_attack.make_penultimate_grad_fn(trainer, v)(x, y)
+    with torch.no_grad():
+        _, feats = torch.func.functional_call(trainer.module, v, (x,), {"features": True})
+    h = F.relu(feats[-1]).requires_grad_(True)
+    logits = F.linear(h, v["linear2_out.weight"], v["linear2_out.bias"])
+    (ref,) = torch.autograd.grad(F.cross_entropy(logits, y.long(), reduction="sum"), [h])
+    pen_err = (pg - ref).abs().max().item()
+    if not torch.allclose(pg, ref, rtol=1e-5, atol=1e-6):
+        raise Disagreement(f"penultimate closed form vs autograd: max abs {pen_err:.3e}")
+
+    def predict(inp):
+        return torch.log(api.branch_probs(inp).mean(0) + 1e-9)
+
+    xs, ys = x[:16], y
+    nn_same = mi_attack.NNAttack(top_k=3).fit(predict, xs, xs).score(predict, xs, xs)
+    loss_same = mi_attack.loss_attack(mi_attack.make_per_sample_loss(trainer, v),
+                                      (xs, ys), (xs, ys))
+    if nn_same["advantage"] != 0.0 or loss_same["advantage"] != 0.0:
+        raise RuntimeError(f"the advantage-0 control read NN {nn_same['advantage']}, "
+                           f"Loss {loss_same['advantage']}")
+    xte, yte = api.dataset.test_global
+    xt = torch.from_numpy(xte[:256]).to(dev)
+    yt = torch.from_numpy(yte[:256]).to(dev)
+    with torch.no_grad():
+        plain = float((predict(xt).argmax(-1) == yt).float().mean())
+    robust = adv_attack.robust_accuracy(predict, xt, yt, [0.0, 0.1, 0.3], attack="pgd")
+    if robust[0.0] != plain:
+        raise RuntimeError(f"robust accuracy at eps 0 {robust[0.0]} is not the plain "
+                           f"{plain}")
+    k = min(len(ytr), len(yte), MI_ROWS)
+    xm = torch.from_numpy(xtr[:k]).to(dev)
+    ym = torch.from_numpy(ytr[:k]).to(dev)
+    gn = mi_attack.make_per_sample_grad_norm(trainer, v)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gn(xm, ym)
+    torch.cuda.synchronize()
+    gn_ms = (time.perf_counter() - t0) * 1e3
+    peak_mib = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+    out = {"grad_norm_rel_err": norm_rel, "penultimate_max_abs": pen_err,
+           "control_advantage": [nn_same["advantage"], loss_same["advantage"]],
+           "robust_pgd": robust, "plain_acc": plain,
+           f"grad_norms_{k}_rows_ms": round(gn_ms, 2),
+           f"grad_norms_{k}_rows_peak_mib": round(peak_mib, 1)}
+    log(f"phase 9 checks: {json.dumps(out)}")
+    return out
+
+
+def run_privacy(launches: dict) -> dict:
+    """Phase 9: the fork's privacy package on the card (see the module
+    docstring); ``launches[tag]`` gets each run's four kernel counts.
+    Returns the phase's numbers."""
+    import pathlib
+
+    import torch
+
+    from fedml_tpu_torch.experiments import fed_launch
+    from fedml_tpu_torch.experiments.profile_fused import measure_rounds
+    from fedml_tpu_torch.privacy.blockensemble import BlockEnsembleAPI
+    from fedml_tpu_torch.privacy.branch_fedavg import BranchFedAvgAPI
+
+    started = time.perf_counter()
+    path = pathlib.Path(__file__).resolve().parent / CONFIG_DIR / PRIVACY_CONFIG
+    out = {}
+    with tempfile.TemporaryDirectory() as run_dir:
+        argv = ["--config", str(path), "--override", f"run_dir={run_dir}"]
+        argv += [a for o in PRIVACY_CUTS for a in ("--override", o)]
+        cell = run_privacy_main("privacy blockensemble", lambda: fed_launch.main(argv),
+                                BlockEnsembleAPI, launches)
+        hist = cell["hist"]
+        loss = [h["Train/Loss"] for h in hist]
+        if not loss[-1] < loss[0]:
+            raise RuntimeError(f"privacy blockensemble: training loss did not fall: {loss}")
+        api = cell["api"]
+        log(f"privacy blockensemble: Train/Loss round 0 {loss[0]:.4f}, round "
+            f"{len(loss) - 1} {loss[-1]:.4f}")
+        prof = measure_rounds(lambda r: api.train_one_round(len(hist) + r), 1,
+                              host_events=False)
+        out["blockensemble"] = {
+            "rounds": len(hist), "median_round_ms": round(statistics.median(cell["ms"][1:]), 2),
+            "train_loss": [round(loss[0], 4), round(loss[-1], 4)],
+            "final": cell["final"], "mi_s": round(cell["mi_s"], 2),
+            "wall_s": round(cell["wall_s"], 1),
+            "profiled_round_ms": round(prof["wall_ms"], 2),
+            "busy_ms": round(prof["busy_ms"], 2),
+            "busy_share": round(prof["busy_ms"] / prof["wall_ms"], 4),
+            "device_launches": int(prof["launches"])}
+        log(f"privacy blockensemble profiled round: {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['busy_ms']:.2f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), "
+            f"{prof['launches']:.0f} launches")
+        del api, cell
+        short = [f"comm_round={PRIVACY_SHORT_ROUNDS}"]
+        three = run_privacy_main(
+            "privacy blockensemble 3 paths",
+            privacy_main(path, run_dir, short + ["num_paths=3", "feat_lmda=0.5"],
+                         ["--no_mi_attack"]), BlockEnsembleAPI, launches)
+        out["three_paths"] = {"median_round_ms": round(statistics.median(three["ms"][1:]), 2),
+                              "train_loss": [round(h["Train/Loss"], 4)
+                                             for h in three["hist"]]}
+        bf16 = run_privacy_main(
+            "privacy blockensemble bf16",
+            privacy_main(path, run_dir, ["comm_round=1", "dtype=bfloat16"],
+                         ["--no_mi_attack"]), BlockEnsembleAPI, launches)
+        out["bf16_round_ms"] = round(bf16["ms"][0], 2)
+        del three, bf16
+        for method in ENSEMBLE_METHODS:
+            run = run_privacy_main(
+                f"privacy {method}",
+                privacy_main(path, run_dir, short + [f"ensemble_method={method}"],
+                             [] if method == "predavg" else ["--no_mi_attack"]),
+                BranchFedAvgAPI, launches)
+            out[method] = {"median_round_ms": round(statistics.median(run["ms"][1:]), 2),
+                           "ensemble_acc": round(run["final"]["Ensemble/Acc"], 4)}
+            if method == "predavg":
+                out[method]["mi_s"] = round(run["mi_s"], 2)
+                out["checks"] = check_privacy_numerics(run["api"])
+            del run
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - started
+    if seconds > PHASE9_BUDGET_S:
+        log(f"WARNING phase 9 took {seconds:.1f} s, over its {PHASE9_BUDGET_S:.0f} s budget")
+    out["seconds"] = round(seconds, 1)
+    log(f"phase 9: {seconds:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2004,6 +2302,9 @@ def main(argv=None) -> int:
     parser.add_argument("--launcher-only", action="store_true",
                         help="build the kernels, then run phase 8 alone (the launcher "
                         "over the repo's configs), checking it and printing no result")
+    parser.add_argument("--privacy-only", action="store_true",
+                        help="build the kernels, then run phase 9 alone (the privacy "
+                        "package), checking it and printing no result")
     opts = parser.parse_args(argv)
     calibrate = opts.calibrate
     started = time.perf_counter()
@@ -2037,8 +2338,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if opts.launcher_only:
-        run_launcher({})
+    if opts.launcher_only or opts.privacy_only:
+        if opts.launcher_only:
+            run_launcher({})
+        if opts.privacy_only:
+            run_privacy({})
         log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
         return 0
     if calibrate:
@@ -2104,6 +2408,13 @@ def main(argv=None) -> int:
 
     # ---- phase 8: the launcher over the repo's 26 YAML configs
     launcher = run_launcher(fused_launches)
+
+    # ---- phase 9: the fork's privacy package (no kernel runs)
+    privacy_launches: dict = {}
+    privacy = run_privacy(privacy_launches)
+    for path, counts in privacy_launches.items():
+        fused_launches[path] = counts["fused_epoch"]
+        flash_launches[path] = {k: counts[k] for k in flash}
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
 
@@ -2143,6 +2454,7 @@ def main(argv=None) -> int:
     log(f"flagship {FLAGSHIP_CLIENTS}: "
         f"{json.dumps({k: flagship[k] for k in ('fused', 'engine')})}")
     log(f"launcher: {json.dumps(launcher)}")
+    log(f"privacy: {json.dumps(privacy)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -5,7 +5,7 @@ and under ``args`` the CLI flags of that algorithm's main (dataset, model,
 hyperparameters, the backend and mesh shape). The repo's configs are under
 ``fedml_tpu/experiments/configs/`` and its ``baseline/``.
 
-    algorithm: fedavg            # fedavg, fedopt, fednova or fedavg_robust
+    algorithm: fedavg            # fedavg, fedopt, fednova, fedavg_robust or privacy
     args:
       dataset: femnist
       model: cnn
@@ -21,10 +21,12 @@ Usage:
   python -m fedml_tpu_torch.experiments.fed_launch --config exp.yaml \
       --override comm_round=2 --override fused_kernel=1
 
-The JAX package's other algorithms (``hierarchical``, ``fedgkt``,
-``privacy``, ...) and a ``multihost:`` block raise ``NotImplementedError``
-naming ROADMAP.md. The config is read with PyYAML, or as JSON where
-PyYAML does not import, as the JAX launcher reads it.
+``privacy`` runs ``main_privacy`` (the branch and block ensembles with the
+MI report), so all 26 of the repo's configs run. The JAX package's other
+algorithms (``hierarchical``, ``fedgkt``, ...) and a ``multihost:`` block
+raise ``NotImplementedError`` naming ROADMAP.md. The config is read with
+PyYAML, or as JSON where PyYAML does not import, as the JAX launcher
+reads it.
 """
 
 from __future__ import annotations
@@ -36,12 +38,12 @@ import json
 ALGORITHMS = {
     # algorithm name -> the port's experiments module with a main(argv)
     name: f"fedml_tpu_torch.experiments.main_{name}"
-    for name in ("fedavg", "fedopt", "fednova", "fedavg_robust")
+    for name in ("fedavg", "fedopt", "fednova", "fedavg_robust", "privacy")
 }
 
 #: the JAX launcher's other algorithms (fedml_tpu/experiments/fed_launch.py)
 UNPORTED_ALGORITHMS = ("hierarchical", "decentralized", "fednas", "base", "fedgkt",
-                       "split_nn", "vfl", "turboaggregate", "fedseg", "privacy")
+                       "split_nn", "vfl", "turboaggregate", "fedseg")
 
 def _load_yaml(path: str) -> dict:
     """The config at ``path``, by the JAX package's rule: PyYAML's

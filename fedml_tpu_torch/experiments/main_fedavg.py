@@ -178,8 +178,9 @@ def tracer_from_args(args, metrics_logger=None) -> telemetry.Tracer:
                   "pipeline_depth": args.pipeline_depth})
 
 
-def setup_run(args):
-    """Seeds + logging + data + model + trainer."""
+def start_run(args) -> FedConfig:
+    """Logging + seeds; the run's FedConfig from the parsed flags (flags
+    that are not its fields land in ``extra``)."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)s] %(name)s: %(message)s")
     random.seed(args.seed)
@@ -189,7 +190,12 @@ def setup_run(args):
          if k not in _DRIVE_FLAGS and v is not None}
     d["fused_kernel"] = bool(d.get("fused_kernel", 0))
     d["fast_sampling"] = bool(d.get("fast_sampling", 0))
-    cfg = FedConfig.from_dict(d)
+    return FedConfig.from_dict(d)
+
+
+def setup_run(args):
+    """Seeds + logging + data + model + trainer."""
+    cfg = start_run(args)
     extra_load = {}
     if args.dataset == "mnist":
         # the reference feeds lr a flat 784 vector and the CNNs 28x28

@@ -3,7 +3,8 @@ package's, over the repo's 26 configs (``fedml_tpu/experiments/configs/``
 and its ``baseline/``): the same dicts from ``_load_yaml`` (PyYAML, or
 JSON with PyYAML unimportable), the same argv from
 ``config_to_argv``, every config resolved through the port to its dataset,
-model and trainer (``privacy`` raises), ``main`` of both packages to the
+model and trainer (``privacy`` to ``main_privacy``, run for one round),
+``main`` of both packages to the
 same history, and ``backend: shard_map`` on one device equal to the vmap
 round.
 
@@ -96,15 +97,22 @@ def test_every_config_resolves_through_the_port(path, tmp_path):
     does: the dataset loads (its surrogate), the dispatch builds the model
     the JAX CLI would at the dataset's class count, a one-sample forward
     runs, and the config validates on the CPU (``backend: shard_map``
-    included: one device). ``privacy`` raises NotImplementedError naming
-    ROADMAP. fedavg_femnist.yaml's 3400 clients are cut to 100 here (its
-    surrogate is 5 GB of host memory; the chip run loads 340)."""
+    included: one device). ``privacy`` resolves to ``main_privacy`` and runs
+    one round at 2 of 40 MNIST clients with its MI report.
+    fedavg_femnist.yaml's 3400 clients are cut to 100 here (its surrogate
+    is 5 GB of host memory; the chip run loads 340)."""
     overrides = ["--override", "device=cpu", "--override", f"run_dir={tmp_path}"]
     if path.name == "fedavg_femnist.yaml":
         overrides += ["--override", "client_num_in_total=100"]
     if path.name == "privacy_blockensemble.yaml":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fed_launch.resolve(["--config", str(path)])
+        module, argv = fed_launch.resolve(["--config", str(path), *overrides])
+        assert module == "fedml_tpu_torch.experiments.main_privacy"
+        cut = ["--override", "comm_round=1", "--override", "client_num_in_total=40",
+               "--override", "client_num_per_round=2"]
+        hist, final = fed_launch.main(["--config", str(path), *overrides, *cut])
+        assert len(hist) == 1 and {"Train/Loss", "Ensemble/Acc", "Branch3/Acc"} <= set(hist[0])
+        assert {"MI/NN_attack_acc", "MI/NN_advantage"} <= set(final)
+        assert all(np.isfinite(v) for v in [*hist[0].values(), *final.values()])
         return
     module, argv = fed_launch.resolve(["--config", str(path), *overrides])
     assert module == "fedml_tpu_torch.experiments.main_fedavg"
@@ -139,7 +147,8 @@ def test_unported_algorithms_and_multihost_raise(tmp_path):
     cfg.write_text("algorithm: nope\n")
     with pytest.raises(SystemExit, match="unknown algorithm"):
         fed_launch.main(["--config", str(cfg)])
-    assert set(fed_launch.ALGORITHMS) == {"fedavg", "fedopt", "fednova", "fedavg_robust"}
+    assert set(fed_launch.ALGORITHMS) == {"fedavg", "fedopt", "fednova", "fedavg_robust",
+                                          "privacy"}
     assert set(fed_launch.UNPORTED_ALGORITHMS) | set(fed_launch.ALGORITHMS) == set(
         jax_launch.ALGORITHMS)
 
