@@ -178,8 +178,8 @@ Phases (any failure exits non-zero and prints no result line):
      the launcher resolves ``privacy_blockensemble.yaml``, with the four
      kernels' launches counted (none is on these paths: each must read 0)
      and every branch finite:
-     - cell 15, the config as written with PRIVACY_CUTS: the 4-branch block
-       ensemble, 50 rounds of 10 of 10 MNIST clients, E = 1, batch 32, lr
+     - cell 15, the config with PRIVACY_CUTS: the 4-branch block
+       ensemble, 10 (of 50) rounds of 10 of 10 MNIST clients, E = 1, batch 32, lr
        0.1, 2 paths trained jointly, then the MI report; the training loss
        must fall; the median round, Train/Loss at the first and last round,
        the ensemble's and each branch's accuracy, every ``MI/*`` metric and
@@ -201,6 +201,35 @@ Phases (any failure exits non-zero and prints no result line):
        timed, with their peak device memory;
      the phase's seconds against PHASE9_BUDGET_S. ``--privacy-only`` builds
      the kernels and runs this phase alone.
+ 10. the transport and asynchronous axes of the FedAvg drive, within
+     PHASE10_BUDGET_S (``--transport-only`` builds the kernels and runs this
+     phase alone):
+     - (a) cell 17, the codecs on the flagship engine (cell 1's config and
+       cut): ``update_codec`` int8 and top-k (k 64), CODEC_ROUNDS rounds
+       each, the globals' Train/Loss falling and the globals finite; the
+       residual identity decode(payload) + new residual == update +
+       residual bit for bit on the card; ``update_codec="none"`` with no
+       codec in the state, and its run repeated bit for bit (the phase runs
+       on cuDNN's deterministic algorithms: with its default ones two engine
+       runs differ in their last bits);
+     - (b) cell 2 with int8, 2 rounds, the three flash kernels' launches
+       counted (0 fails);
+     - (c) cell 18, FedBuff on the flagship engine: the degenerate buffer
+       (size 10 = cohort, alpha 0) bit for bit the synchronous round over 3
+       rounds; then buffer 5, alpha 0.5 under the straggler plan (rate 0.3,
+       1-2 rounds late) over BUFF_ROUNDS dispatch rounds, twice, bit for
+       bit: commits, staleness p50 and max, round time;
+     - (d) cell 19, the superstep: rounds_per_dispatch SUPERSTEP_K with
+       ``fast_sampling`` (Feistel cohorts drawn on the host, gathered on the
+       card) and int8 over round 0
+       (an eval round, eager) and SUPERSTEP_ROUNDS rounds in
+       SUPERSTEP_ROUNDS / SUPERSTEP_K dispatches, bit for bit the eager loop,
+       and one dispatch under ``torch.cuda.set_sync_debug_mode("error")``
+       (a ``.item()`` after it must raise); each round's time beside the
+       eager round's; cell 2 at 2 rounds a dispatch (round 0 eager, rounds
+       1-2 one dispatch) with the flash launches counted; the device
+       sampler against the host's for 3400 clients over SAMPLER_ROUNDS
+       rounds.
 
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
@@ -362,15 +391,25 @@ MODEL_CLASSES = {"lr": "LogisticRegression", "cnn": "CNN_DropOut", "cnn_cifar": 
                  "mobilenet_v3": "MobileNetV3", "efficientnet": "EfficientNet"}
 
 # Phase 9: the fork's privacy package. Cell 15 is privacy_blockensemble.yaml
-# through the launcher, with PRIVACY_CUTS (none: its 50 rounds of 10 of 10
-# MNIST clients, E = 1, batch 32, lr 0.1, 4 branches, 2 paths, the MI
-# report); then the same config for PRIVACY_SHORT_ROUNDS rounds with 3 paths
-# and feature matching, one bf16 round, and cell 16: the five branch
-# ensembles, each PRIVACY_SHORT_ROUNDS rounds, within PHASE9_BUDGET_S.
+# through the launcher, with PRIVACY_CUTS (10 of 10 MNIST clients, E = 1,
+# batch 32, lr 0.1, 4 branches, 2 paths, the MI report), its 50 rounds cut
+# to PRIVACY_ROUNDS: uncut, they took 81.1-103 s of the phase's 154-173 s on
+# an H100 80GB HBM3 at 700 W (a joint round 1.57-2.07 s), over
+# PHASE9_BUDGET_S; then the same config for PRIVACY_SHORT_ROUNDS rounds
+# with 3 paths and feature matching, one bf16 round, and cell 16: the five
+# branch ensembles, each PRIVACY_SHORT_ROUNDS rounds, within PHASE9_BUDGET_S.
 PRIVACY_CONFIG = "privacy_blockensemble.yaml"
-PRIVACY_CUTS: list = []
+PRIVACY_ROUNDS = 10
+PRIVACY_CUTS: list = [f"comm_round={PRIVACY_ROUNDS}"]
 PRIVACY_SHORT_ROUNDS, PHASE9_BUDGET_S = 5, 120.0
 ENSEMBLE_METHODS = ("predavg", "predvote", "predweight", "blockavg", "hetero")
+# Phase 10: the codecs, FedBuff and the superstep (cells 17-19) on cell 1's
+# engine configuration and cut, and cell 2's
+PHASE10_BUDGET_S = 90.0
+CODEC_ROUNDS, TOPK_K = 5, 64
+BUFF_SIZE, BUFF_ALPHA, BUFF_ROUNDS = 5, 0.5, 8
+STRAGGLER_RATE, STRAGGLER_ROUNDS = 0.3, 2
+SUPERSTEP_K, SUPERSTEP_ROUNDS, SAMPLER_ROUNDS = 4, 8, 1000
 
 
 class Disagreement(RuntimeError):
@@ -2290,6 +2329,244 @@ def run_privacy(launches: dict) -> dict:
     return out
 
 
+def check_residual_identity(tag: str, codec, residual: dict) -> None:
+    """decode(payload) + new residual == update + residual, bit for bit on
+    the card, for a seeded update beside a run's residual rows."""
+    import torch
+
+    gen = torch.Generator(device=next(iter(residual.values())).device).manual_seed(SEED)
+    update = {k: 1e-2 * torch.randn(r.shape, generator=gen, device=r.device)
+              for k, r in residual.items()}
+    payload, new = codec.encode(update, residual)
+    decoded = codec.decode(payload, update)
+    for k in update:
+        same_bits(f"{tag} residual identity {k}", decoded[k] + new[k], update[k] + residual[k])
+
+
+def median_round_ms(hist, rounds) -> float:
+    return statistics.median(h["round_time"] * 1e3 for h in hist if h["round"] in rounds)
+
+
+def transport_codecs(ds, nwp, launches: dict, flash_launches: dict) -> dict:
+    """Phase 10 (a) and (b): the codecs on the flagship engine and on NWP."""
+    import torch
+
+    from fedml_tpu_torch.ops import attention
+
+    out = {}
+    # codec "none" turns the seam off: no codec, no residual in the state.
+    # That its round is the round without the seam is the CPU tests' check
+    # against the JAX package; here the run is repeated, which holds the
+    # bit-for-bit checks below to cuDNN's deterministic algorithms
+    engine = femnist_api(ds, False)
+    engine.train()
+    off = femnist_api(ds, False, update_codec="none", frequency_of_the_test=CODEC_ROUNDS)
+    hist = off.train()
+    if off.codec is not None or (isinstance(off.agg_state, dict) and "codec" in off.agg_state):
+        raise RuntimeError("codec none: the codec seam is on")
+    same_bits("codec none, the engine run repeated", off.global_variables,
+              engine.global_variables)
+    out["none"] = {"median_round_ms": round(median_round_ms(hist, range(1, CODEC_ROUNDS)),
+                                            2)}
+    log(f"codec none: the seam off, the engine run repeated bit for bit; "
+        f"{json.dumps(out['none'])}")
+    for codec in ("int8", "topk"):
+        tag = f"femnist {codec}"
+        api = femnist_api(ds, False, update_codec=codec, codec_k=TOPK_K,
+                          comm_round=CODEC_ROUNDS, frequency_of_the_test=CODEC_ROUNDS)
+        hist, counts = count_launches(api.train)
+        launches[tag] = counts
+        check_trained(tag, api, hist, must_fall=False)
+        # the globals' loss on every client's train rows: at 64 entries a
+        # leaf top-k moves the model slowly, and the clients' own training
+        # loss, from the round's globals, barely moves in 5 rounds
+        losses = [h["Train/Loss"] for h in hist if "Train/Loss" in h]  # rounds 0, last
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"{tag}: Train/Loss did not fall: {losses}")
+        resid = api.agg_state["codec"]
+        if not all(torch.isfinite(r).all() for r in resid.values()):
+            raise RuntimeError(f"{tag}: a residual is not finite")
+        check_residual_identity(tag, api.codec, resid)
+        wire = api.codec.wire_bytes(api.global_variables)
+        dense = sum(4 * t.numel() for t in api.global_variables.values())
+        out[codec] = {"median_round_ms": round(median_round_ms(hist, range(1, CODEC_ROUNDS)),
+                                               2),
+                      "train_eval_loss": [round(losses[0], 4), round(losses[-1], 4)],
+                      "test_acc": round(hist[-1]["Test/Acc"], 4),
+                      "wire_bytes": wire, "dense_bytes": dense}
+        log(f"{tag}: {json.dumps(out[codec])}; residual identity bit for bit")
+    flash = list(attention.launches)
+    _, flash_launches["transport nwp int8"] = with_launches(
+        "transport nwp int8", flash,
+        lambda: run_nwp_path(nwp, tag="nwp int8", update_codec="int8", comm_round=2))
+    return out
+
+
+def transport_buffered(ds, launches: dict) -> dict:
+    """Phase 10 (c): FedBuff on the flagship engine."""
+    from fedml_tpu_torch.robustness.chaos import FaultPlan
+    from fedml_tpu_torch.telemetry import Tracer
+
+    sync = femnist_api(ds, False, comm_round=3)
+    sync.train()
+    degenerate = femnist_api(ds, False, comm_round=3, buffer_size=10, staleness_alpha=0.0)
+    hist = degenerate.train()
+    same_bits("degenerate buffer vs the synchronous round", degenerate.global_variables,
+              sync.global_variables)
+    if [h["buffer_commits"] for h in hist] != [1, 1, 1]:
+        raise RuntimeError(f"degenerate buffer: commits {hist}")
+    log("degenerate buffer (10 = cohort, alpha 0): bit for bit the synchronous round, "
+        "3 rounds")
+    runs = []
+    for i in range(2):
+        api = femnist_api(ds, False, comm_round=BUFF_ROUNDS, buffer_size=BUFF_SIZE,
+                          staleness_alpha=BUFF_ALPHA, frequency_of_the_test=BUFF_ROUNDS)
+        tracer = Tracer()
+        plan = FaultPlan(seed=SEED, straggler_rate=STRAGGLER_RATE,
+                         straggler_rounds=STRAGGLER_ROUNDS)
+        hist, counts = count_launches(lambda: api.train(chaos=plan, tracer=tracer))
+        runs.append((api, hist, tracer))
+    launches["femnist fedbuff"] = counts
+    (a, hist, tracer), (b, _, _) = runs
+    same_bits("fedbuff straggler run twice", b.global_variables, a.global_variables)
+    same_bits("fedbuff straggler run twice, state", b.agg_state, a.agg_state)
+    check_trained("femnist fedbuff", a, [h for h in hist if h.get("total")])
+    commits = tracer.find_events("buffer_committed")
+    stale = [e["staleness_max"] for e in commits]
+    if not commits or max(stale) < 1:
+        raise RuntimeError(f"fedbuff: no stale commit: {commits}")
+    out = {"commits": len(commits),
+           "committed_updates": a._buffer_host.committed_updates,
+           "staleness_p50": [e["staleness_p50"] for e in commits],
+           "staleness_max": stale,
+           "median_round_ms": round(median_round_ms(hist, range(1, BUFF_ROUNDS - 1)), 2),
+           "admit_ms": round(1e3 * statistics.median(
+               s["dur_s"] for s in tracer.find_spans("admit")), 4),
+           "commit_ms": round(1e3 * statistics.median(
+               s["dur_s"] for s in tracer.find_spans("commit")), 4)}
+    log(f"fedbuff (buffer {BUFF_SIZE}, alpha {BUFF_ALPHA}, stragglers {STRAGGLER_RATE} x "
+        f"1-{STRAGGLER_ROUNDS}): {json.dumps(out)}; two runs bit for bit")
+    return out
+
+
+def transport_superstep(ds, nwp, device, launches: dict, flash_launches: dict) -> dict:
+    """Phase 10 (d): the superstep on the flagship engine and on NWP, its
+    sync check, and the device sampler at 3400 clients."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms import sampling
+    from fedml_tpu_torch.ops import attention
+    from fedml_tpu_torch.telemetry import Tracer
+
+    rounds = SUPERSTEP_ROUNDS + 1  # round 0 evaluates, so it runs eagerly
+    kw = dict(comm_round=rounds, fast_sampling=True, update_codec="int8",
+              frequency_of_the_test=100)
+    eager = femnist_api(ds, False, **kw)
+    eager_tracer = Tracer()
+    eager_hist = eager.train(tracer=eager_tracer)
+    fused = femnist_api(ds, False, rounds_per_dispatch=SUPERSTEP_K, **kw)
+    tracer = Tracer()
+    hist, counts = count_launches(lambda: fused.train(tracer=tracer))
+    launches["femnist superstep"] = counts
+    same_bits("superstep vs eager", fused.global_variables, eager.global_variables)
+    same_bits("superstep vs eager, state", fused.agg_state, eager.agg_state)
+    strip = [{k: v for k, v in h.items() if k != "round_time"} for h in hist]
+    if strip != [{k: v for k, v in h.items() if k != "round_time"} for h in eager_hist]:
+        raise Disagreement("superstep vs eager: the records differ")
+    chunks = tracer.find_events("superstep_committed")
+    if [e["rounds"] for e in chunks] != [SUPERSTEP_K] * (SUPERSTEP_ROUNDS // SUPERSTEP_K):
+        raise RuntimeError(f"superstep: dispatches {chunks}")
+    check_trained("femnist superstep", fused, hist)
+    # one more dispatch, of rounds 1-4 from the trained globals, under the
+    # sync check
+    per_round, _, _ = fused._superstep_inputs(1, SUPERSTEP_K, None)
+    fn = fused._superstep_fn(SUPERSTEP_K, False)
+    resident = fused._resident_train_arrays()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, metrics = fn(fused.global_variables, fused.agg_state, *resident, per_round)
+        sync_control(device)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.isfinite(metrics["loss_sum"]).all():
+        raise RuntimeError("superstep sync check: metrics not finite")
+    out = {"dispatches": len(chunks), "rounds_in_dispatches": SUPERSTEP_ROUNDS,
+           "dispatch_spans": [len(tracer.find_spans("dispatch")),
+                              len(eager_tracer.find_spans("dispatch"))],
+           "round_ms": [round(h["round_time"] * 1e3, 2) for h in hist[1:]],
+           "eager_round_ms": [round(h["round_time"] * 1e3, 2) for h in eager_hist[1:]]}
+    log(f"superstep K={SUPERSTEP_K}: {SUPERSTEP_ROUNDS} rounds in {len(chunks)} dispatches "
+        f"(the eager loop {SUPERSTEP_ROUNDS}), bit for bit; one dispatch with no host sync; "
+        f"{json.dumps(out)}")
+    flash = list(attention.launches)
+    nwp_tracer = Tracer()
+
+    def nwp_superstep():
+        from fedml_tpu_torch import FedAvgAPI, FedConfig, NWPTrainer, create_model
+
+        cfg = FedConfig(dataset="stackoverflow_nwp", model="transformer_nwp",
+                        client_num_in_total=NWP_CLIENTS, client_num_per_round=NWP_PER_ROUND,
+                        batch_size=NWP_BATCH, lr=NWP_LR, grad_clip=1.0, epochs=1,
+                        comm_round=3, rounds_per_dispatch=2, frequency_of_the_test=100,
+                        seed=SEED)
+        trainer = NWPTrainer(create_model("transformer_nwp", output_dim=nwp.class_num))
+        api = FedAvgAPI(nwp, cfg, trainer, device="cuda")
+        return api, api.train(tracer=nwp_tracer)
+
+    (api, nwp_hist), flash_launches["transport nwp superstep"] = with_launches(
+        "transport nwp superstep", flash, nwp_superstep)
+    check_trained("nwp superstep", api, nwp_hist, must_fall=False)
+    if [e["rounds"] for e in nwp_tracer.find_events("superstep_committed")] != [2]:
+        raise RuntimeError("nwp superstep: rounds 1-2 were not one dispatch")
+    out["nwp_round_ms"] = [round(h["round_time"] * 1e3, 2) for h in nwp_hist]
+    t0 = time.perf_counter()
+    keys = torch.from_numpy(sampling.feistel_keys_block(0, SAMPLER_ROUNDS).astype(
+        np.int64)).to(device)
+    host = [sampling.feistel_host(r, FLAGSHIP_CLIENTS, 10) for r in range(SAMPLER_ROUNDS)]
+    # every round at once, walked the most passes any round took
+    drawn = sampling.feistel_cohort_in_graph(keys, FLAGSHIP_CLIENTS, 10,
+                                             walks=max(h[1] for h in host)).cpu().numpy()
+    if not np.array_equal(drawn, np.stack([h[0] for h in host])):
+        raise Disagreement("the device sampler differs from the host's")
+    out["sampler_s"] = round(time.perf_counter() - t0, 2)
+    log(f"device Feistel sampler: {FLAGSHIP_CLIENTS} clients, {SAMPLER_ROUNDS} rounds, "
+        f"bit for bit the host's ({out['sampler_s']} s)")
+    return out
+
+
+def run_transport(ds, nwp, device, fused_launches: dict, flash_launches: dict) -> dict:
+    """Phase 10: the codecs, FedBuff and the superstep (see the module
+    docstring). Returns the phase's numbers."""
+    import torch
+
+    started = time.perf_counter()
+    launches: dict = {}
+    # cuDNN's default convolution algorithms differ from run to run in their
+    # last bits (two engine runs of phase 3's configuration did, on an H100):
+    # the bit-for-bit checks of this phase run on its deterministic ones
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {"codecs": transport_codecs(ds, nwp, launches, flash_launches),
+               "fedbuff": transport_buffered(ds, launches),
+               "superstep": transport_superstep(ds, nwp, device, launches,
+                                                flash_launches)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for tag, counts in launches.items():
+        fused_launches[tag] = counts["fused_epoch"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    if seconds > PHASE10_BUDGET_S:
+        log(f"WARNING phase 10 took {seconds:.1f} s, over its {PHASE10_BUDGET_S:.0f} s "
+            f"budget")
+    out["seconds"] = round(seconds, 1)
+    log(f"phase 10: {seconds:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2305,6 +2582,9 @@ def main(argv=None) -> int:
     parser.add_argument("--privacy-only", action="store_true",
                         help="build the kernels, then run phase 9 alone (the privacy "
                         "package), checking it and printing no result")
+    parser.add_argument("--transport-only", action="store_true",
+                        help="build the kernels, then run phase 10 alone (the codecs, "
+                        "FedBuff and the superstep), checking it and printing no result")
     opts = parser.parse_args(argv)
     calibrate = opts.calibrate
     started = time.perf_counter()
@@ -2338,11 +2618,17 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if opts.launcher_only or opts.privacy_only:
+    if opts.launcher_only or opts.privacy_only or opts.transport_only:
         if opts.launcher_only:
             run_launcher({})
         if opts.privacy_only:
             run_privacy({})
+        if opts.transport_only:
+            from fedml_tpu_torch import load_dataset
+
+            ds = capped(load_dataset("femnist", client_num_in_total=FEMNIST_CLIENTS,
+                                     seed=SEED), CAP)
+            run_transport(ds, load_nwp(), dev, {}, {})
         log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
         return 0
     if calibrate:
@@ -2400,11 +2686,9 @@ def main(argv=None) -> int:
 
     # ---- phase 6: the drive (pipelined loop, resume, chaos and the guard)
     drive_numbers = run_drives(ds, nwp, fused_launches, flash_launches)
-    del ds
 
     # ---- phase 7: the flagship at its configured 3400 clients, out of core
     flagship = run_flagship(nwp, dev, fused_launches)
-    del nwp
 
     # ---- phase 8: the launcher over the repo's 26 YAML configs
     launcher = run_launcher(fused_launches)
@@ -2415,6 +2699,11 @@ def main(argv=None) -> int:
     for path, counts in privacy_launches.items():
         fused_launches[path] = counts["fused_epoch"]
         flash_launches[path] = {k: counts[k] for k in flash}
+
+    # ---- phase 10: the transport and asynchronous axes (codecs, FedBuff,
+    # the superstep) on phase 3's data and configuration
+    transport = run_transport(ds, nwp, dev, fused_launches, flash_launches)
+    del ds, nwp
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
 
@@ -2455,6 +2744,7 @@ def main(argv=None) -> int:
         f"{json.dumps({k: flagship[k] for k in ('fused', 'engine')})}")
     log(f"launcher: {json.dumps(launcher)}")
     log(f"privacy: {json.dumps(privacy)}")
+    log(f"transport: {json.dumps(transport)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

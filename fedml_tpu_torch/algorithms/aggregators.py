@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.algorithms.engine import (Optimizer, apply_updates,
@@ -238,6 +239,127 @@ class FedNovaAggregator:
         mean = tree_weighted_mean(rest, weights)
         return {k: combine(v, global_variables[k]) if k in params else mean[k]
                 for k, v in result.variables.items()}, state
+
+
+# --------------------------------------------------------------- buffered
+# Staleness-aware buffered aggregation (FedBuff): the admit and commit
+# steps. ``algorithms/buffered.py`` owns the drive loop and the host-side
+# arrival schedule; the rules live here beside the synchronous aggregators
+# they stay bit-compatible with (the degenerate buffer is the synchronous
+# round, tests/test_torch_buffered.py).
+
+
+def make_staleness_discount(alpha: float):
+    """The default staleness discount: an update born at round b and
+    committed at round t gets the multiplier (1 + (t - b)) ** -alpha, the
+    power taken in float32. With alpha 0 (or staleness 0) it is exactly 1.0
+    (pow(x, -0.0) == 1 and pow(1, y) == 1), so the degenerate buffer
+    multiplies its weights by the identity."""
+    exponent = float(np.float32(-float(alpha)))
+
+    def discount(staleness: torch.Tensor) -> torch.Tensor:
+        return torch.pow(1.0 + staleness,
+                         torch.tensor(exponent, dtype=torch.float32,
+                                      device=staleness.device))
+
+    return discount
+
+
+def init_buffer(result, k: int) -> dict:
+    """An all-zero K-row update buffer shaped after one stacked LocalResult:
+    ``vars``, ``steps``, ``weights`` and ``metrics`` rows. Its fill and the
+    rows' birth rounds live on the host (``buffered._HostState``)."""
+    def row(leaf):
+        return torch.zeros((k,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
+                           device=leaf.device)
+
+    return {"vars": {n: row(v) for n, v in result.variables.items()},
+            "steps": row(result.num_steps),
+            "weights": torch.zeros(k, dtype=torch.float32,
+                                   device=result.num_steps.device),
+            "metrics": {n: row(v) for n, v in result.metrics.items()}}
+
+
+def build_buffer_admit(codec=None):
+    """admit(buf, stacked_vars, stacked_steps, stacked_metrics, counts, src,
+    fill, global_variables=None) -> buf: row ``src`` of a stacked
+    LocalResult written into buffer row ``fill`` (host ints), in place. A
+    caller that must keep the old buffer (the guard's snapshot) clones it.
+
+    ``codec`` arms the compressed admit: the row's delta against
+    ``global_variables`` (the current globals, the reference the commit
+    applies it to) crosses into the buffer encoded and decoded, with no
+    residual (an admitted row is a one-off sender), so the buffer holds
+    what the wire delivered and the commit is unchanged."""
+    from fedml_tpu_torch.codecs.int8 import _inexact
+
+    @torch.no_grad()
+    def admit(buf, stacked_vars, stacked_steps, stacked_metrics, counts, src,
+              fill, global_variables=None):
+        row_vars = {n: v[src:src + 1] for n, v in stacked_vars.items()}
+        if codec is not None:
+            delta = {n: r - global_variables[n][None] if _inexact(r) else r
+                     for n, r in row_vars.items()}
+            payload, _ = codec.encode(delta, codec.init_state(delta))
+            dec = codec.decode(payload, delta)
+            row_vars = {n: (global_variables[n][None] + dec[n]).to(r.dtype)
+                        if _inexact(r) else dec[n]
+                        for n, r in row_vars.items()}
+        for n, r in row_vars.items():
+            buf["vars"][n][fill].copy_(r[0])
+        buf["steps"][fill].copy_(stacked_steps[src])
+        buf["weights"][fill].copy_(counts[src].to(torch.float32))
+        for n, v in stacked_metrics.items():
+            buf["metrics"][n][fill].copy_(v[src])
+        return buf
+
+    return admit
+
+
+def build_buffer_commit(aggregator, discount_fn):
+    """commit(global_variables, agg_state, buf, fill, births, commit_round,
+    rng) -> (new_global, new_state, metrics): the buffer's first ``fill``
+    rows (born at the host ints ``births``) staleness-discounted, then the
+    quarantine stage and the aggregator over them.
+
+    Rows at index >= ``fill`` (a partial final flush, stale rows of an
+    earlier commit) are masked out through the synchronous round's
+    participation-mask path, so a full buffer with zero staleness feeds the
+    aggregator the synchronous round's inputs. When every row quarantines,
+    globals and aggregator state pass through unchanged. The buffer is only
+    read; the metrics are 0-d tensors on the device."""
+    from fedml_tpu_torch.algorithms.engine import LocalResult
+    from fedml_tpu_torch.core.builder import _select_state
+    from fedml_tpu_torch.utils.device import to_device
+    from fedml_tpu_torch.utils.pytree import tree_where
+
+    @torch.no_grad()
+    def commit(global_variables, agg_state, buf, fill, births, commit_round, rng):
+        k = buf["weights"].shape[0]
+        device = buf["weights"].device
+        ages = [commit_round - b for b in births] + [0] * (k - len(births))
+        staleness = to_device(torch.tensor(ages, dtype=torch.int32),
+                              device).to(torch.float32)
+        weights = buf["weights"] * discount_fn(staleness)
+        participation = torch.arange(k, device=device) < fill
+        result = LocalResult(buf["vars"], buf["steps"], buf["metrics"])
+        result, weights, alive, quarantined = quarantine_stage(
+            result, weights, participation)
+        new_global, new_state = aggregator(global_variables, result, weights,
+                                           rng, agg_state)
+        any_alive = alive.any()
+        new_global = tree_where(any_alive, new_global, global_variables)
+        new_state = _select_state(any_alive, new_state, agg_state)
+        metrics = {n: v.sum() for n, v in result.metrics.items()}
+        metrics["participated_count"] = alive.sum().float()
+        metrics["quarantined_count"] = quarantined.sum().float()
+        alive_f = alive.float()
+        metrics["staleness_sum"] = (staleness * alive_f).sum()
+        metrics["staleness_max"] = torch.where(
+            alive, staleness, torch.zeros((), device=device)).max()
+        return new_global, new_state, metrics
+
+    return commit
 
 
 AGGREGATORS = {

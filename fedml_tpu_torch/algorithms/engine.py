@@ -357,6 +357,11 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
     ``cfg.fused_kernel`` routes the local epoch through the fused CUDA
     kernel (ops/fused_sgd.py) with the JAX engine's guards: CNN_DropOut
     only, no participation mask, no codec, no tensor sharding.
+
+    ``codec`` (``codecs.make_codec``) wraps the aggregator with the
+    compressed update transport (``core.builder.wrap_codec``, one residual
+    row a cohort slot); its state is then ``{"agg": ..., "codec": ...}``.
+    ``codec=None`` builds the round without a codec.
     """
     device = resolve_device(device)
     cfg.validate(device=device)
@@ -396,12 +401,15 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
                                     seeds, perms)
 
         return fused_round
-    if codec is not None or param_sharding is not None:
+    if param_sharding is not None:
         raise NotImplementedError(
-            "update codecs and tensor sharding are not ported to "
-            "fedml_tpu_torch yet")
-    from fedml_tpu_torch.core.builder import build_round_core
+            "tensor sharding is not ported to fedml_tpu_torch yet")
+    from fedml_tpu_torch.core.builder import build_round_core, wrap_codec
 
+    # a codec wraps the aggregator here unless the caller wrapped it
+    # already (FedAvgAPI does, before init_state, so that its state holds
+    # the residuals)
+    aggregator = wrap_codec(aggregator, codec, slots=cfg.client_num_per_round)
     core = build_round_core(_batched_update(trainer, cfg), aggregator)
 
     def round_fn(gv, agg_state, x, y, counts, rng, participation=None,
@@ -413,6 +421,78 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
                     host_counts)
 
     return round_fn
+
+
+def build_superstep_fn(trainer, cfg: FedConfig, aggregator, num_rounds: int, *,
+                       client_num_in_total: int, chaos_armed: bool = False) -> Callable:
+    """K federated rounds in one dispatch, each the synchronous round's core
+    (``core.builder.build_round_core``) on the round's generator
+    ``fedavg.round_generator(seed, round_idx)``: bit for bit K eager rounds
+    (tests/test_torch_superstep.py). The caller passes the aggregator its
+    eager round uses (codec-wrapped and all), so the states line up.
+
+    superstep(gv, agg_state, data_x, data_y, data_counts, per_round)
+        -> (gv, agg_state, metrics with a leading [K] axis)
+
+    ``data_*`` is the whole train store on the device
+    (``data.packed_store.resident_train_arrays``); each round gathers its
+    cohort from it there. ``per_round`` holds, for the K rounds:
+
+    - ``round_idx``: K host ints;
+    - ``host_counts``: [K, C] host counts of the cohorts (the client loop
+      decides its steps from them, so that no round reads the device);
+    - ``idx``: [K, C] int64 cohort ids on the device, drawn on the host
+      (which needs them for ``host_counts`` anyway);
+    - with ``chaos_armed``: ``nan``, ``corrupt`` and ``participation``,
+      [K, C] bool on the device. The faults are applied after the gather
+      as ``chaos.apply_faults`` applies them on the host: x * 1e3 + 7.0
+      as two operations (each rounded, as numpy's float32 ops), then NaN.
+      Faults on integer inputs are data-dependent on the host: the drive
+      runs those rounds eagerly.
+
+    On the card the K rounds are a loop on the host that queues each
+    round's work without waiting for the device: nothing in a dispatch
+    reads a tensor of the card (``chip_smoke.py`` phase 10 checks it under
+    ``torch.cuda.set_sync_debug_mode("error")``). The metrics stay on the
+    device, stacked, so the K records flush with one transfer."""
+    if num_rounds < 1:
+        raise ValueError(f"num_rounds must be >= 1, got {num_rounds}")
+    from fedml_tpu_torch.algorithms.fedavg import round_generator
+    from fedml_tpu_torch.core.builder import build_round_core
+
+    core = build_round_core(_batched_update(trainer, cfg), aggregator)
+    cohort = min(cfg.client_num_per_round, int(client_num_in_total))
+
+    def superstep(global_variables, agg_state, data_x, data_y, data_counts,
+                  per_round):
+        gv, st = global_variables, agg_state
+        rounds = list(per_round["round_idx"])
+        if len(rounds) != num_rounds:
+            raise ValueError(f"a {num_rounds}-round superstep was handed "
+                             f"{len(rounds)} rounds")
+        out = []
+        for j, round_idx in enumerate(rounds):
+            idx = per_round["idx"][j]
+            xs = data_x.index_select(0, idx)
+            ys = data_y.index_select(0, idx)
+            cs = data_counts.index_select(0, idx)
+            participation = None
+            if chaos_armed:
+                mshape = (cohort,) + (1,) * (xs.dim() - 1)
+                corrupt = per_round["corrupt"][j].reshape(mshape)
+                xs = torch.where(corrupt, xs * 1e3 + 7.0, xs)
+                xs = torch.where(per_round["nan"][j].reshape(mshape),
+                                 torch.full((), float("nan"), dtype=xs.dtype,
+                                            device=xs.device), xs)
+                participation = per_round["participation"][j]
+            rng = round_generator(cfg.seed, int(round_idx))
+            gv, st, metrics = core(gv, st, xs, ys, cs, rng, participation,
+                                   None, None, per_round["host_counts"][j])
+            out.append(metrics)
+        metrics = {k: torch.stack([m[k] for m in out]) for k in out[0]}
+        return gv, st, metrics
+
+    return superstep
 
 
 def stage_to_device(x, y, counts, participation, device, stream=None) -> tuple:

@@ -3,18 +3,21 @@
 
 Ported: ``client_sampling`` and ``fast_client_sampling`` (bitwise; the
 latter with ``cfg.fast_sampling``), and ``FedAvgAPI`` with its drive:
-the stage seam (``stage_fn``), ``train_one_round``, the eager loop and the
+the stage seam (``stage_fn``), ``train_one_round``, the eager loop, the
 pipelined loop (``cfg.pipeline_depth`` > 0: cohorts staged ahead on a
 background thread and a side CUDA stream, train metrics fetched in one
-deferred transfer), chaos faults, the round guard's rollback and salted
-retry, checkpoints and resume, the tracer and the metrics logger,
-``test_global`` and ``local_test_on_all_clients``. The client ledger, the
-adapter bank and the superstep and buffered drives raise
-``NotImplementedError`` when asked for.
+deferred transfer), the buffered loop (``cfg.buffer_size`` > 0,
+``algorithms/buffered.py``), the superstep loop (``cfg.rounds_per_dispatch``
+> 1: K rounds a dispatch from the device-resident store), the update
+codecs (``cfg.update_codec``), chaos faults, the round guard's rollback
+and salted retry, checkpoints and resume, the tracer and the metrics
+logger, ``test_global`` and ``local_test_on_all_clients``. The client
+ledger and the adapter bank raise ``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 from collections import deque
@@ -27,6 +30,9 @@ from fedml_tpu_torch import telemetry
 from fedml_tpu_torch.algorithms.aggregators import make_aggregator
 from fedml_tpu_torch.algorithms.engine import (build_eval_fn, build_round_fn,
                                                stage_to_device)
+from fedml_tpu_torch.algorithms.sampling import feistel_host
+from fedml_tpu_torch.codecs import make_codec
+from fedml_tpu_torch.core.builder import wrap_codec
 from fedml_tpu_torch.core.config import FedConfig
 from fedml_tpu_torch.data.packing import pack_eval_batches, pad_clients
 from fedml_tpu_torch.data.prefetch import CohortPrefetcher, StagedCohort
@@ -34,7 +40,7 @@ from fedml_tpu_torch.data.registry import FederatedDataset
 from fedml_tpu_torch.robustness.chaos import apply_faults, summarize as chaos_summary
 from fedml_tpu_torch.telemetry.records import RoundRecordLog, fetch_scalars
 from fedml_tpu_torch.utils.checkpoint import Checkpointable
-from fedml_tpu_torch.utils.device import resolve_device, synchronize
+from fedml_tpu_torch.utils.device import resolve_device, synchronize, to_device
 from fedml_tpu_torch.utils.pytree import tree_map
 
 log = logging.getLogger(__name__)
@@ -73,33 +79,12 @@ def fast_client_sampling(round_idx: int, client_num_in_total: int,
     the cohort is a pure function of the round, but not
     ``client_sampling``'s: the path is opt-in (``cfg.fast_sampling``).
     The arithmetic is numpy uint64, which wraps the splitmix64 products
-    modulo 2**64 as the JAX package's does."""
+    modulo 2**64 as the JAX package's does (``sampling.feistel_host``;
+    ``sampling.feistel_cohort_in_graph`` is its twin on the device)."""
     n = int(client_num_in_total)
     if n == client_num_per_round:
         return np.arange(n)
-    num = min(client_num_per_round, n)
-    half_bits = max(1, (max(n - 1, 1).bit_length() + 1) // 2)
-    mask = np.uint64((1 << half_bits) - 1)
-    keys = np.random.RandomState(round_idx).randint(
-        0, 2 ** 63, size=4, dtype=np.int64).astype(np.uint64)
-
-    def permute(v: np.ndarray) -> np.ndarray:
-        left = (v >> np.uint64(half_bits)) & mask
-        right = v & mask
-        for k in keys:  # a splitmix64-style round function, cut to a half
-            mixed = right * np.uint64(0x9E3779B97F4A7C15) + k
-            mixed ^= mixed >> np.uint64(29)
-            mixed = mixed * np.uint64(0xBF58476D1CE4E5B9)
-            mixed ^= mixed >> np.uint64(32)
-            left, right = right, left ^ (mixed & mask)
-        return (left << np.uint64(half_bits)) | right
-
-    vals = permute(np.arange(num, dtype=np.uint64))
-    oob = vals >= n
-    while oob.any():
-        vals = np.where(oob, permute(vals), vals)
-        oob = vals >= n
-    return vals.astype(np.int64)
+    return feistel_host(round_idx, n, client_num_per_round)[0]
 
 
 def round_generator(seed: int, round_idx: int, salt: int = 0) -> torch.Generator:
@@ -124,6 +109,16 @@ class FedAvgAPI(Checkpointable):
         self.cfg = config.validate(device=self.device)
         self.trainer = model_trainer
         self.aggregator = make_aggregator(aggregator_name, config)
+        # the compressed update transport: None keeps every path as it was
+        self.codec = make_codec(config.update_codec, config)
+        if self.codec is not None and config.buffer_size == 0:
+            # wrapped here, before init_state, so that the state (which
+            # checkpoints and the guard's snapshot carry) holds the
+            # residuals; a buffered drive keeps the inner aggregator: its
+            # codec stage is the admit (algorithms/buffered.py)
+            self.aggregator = wrap_codec(
+                self.aggregator, self.codec,
+                min(config.client_num_per_round, dataset.client_num))
         self.round_fn = build_round_fn(model_trainer, config, self.aggregator,
                                        device=self.device)
         self.eval_fn = build_eval_fn(model_trainer)
@@ -138,6 +133,11 @@ class FedAvgAPI(Checkpointable):
         # the side stream of the cohorts' copies to the card
         self._h2d_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
+        # the superstep's programs, keyed by (K, chaos),
+        # and the train store on the device (None until first use; () when
+        # it cannot be resident)
+        self._superstep_cache: dict = {}
+        self._resident_train = None
         # The stage seam: every cohort, eager or pipelined, reaches the
         # device through this one callable, stage_fn(round_idx, *,
         # chaos=None, faults=None, tracer=None) -> StagedCohort.
@@ -191,8 +191,11 @@ class FedAvgAPI(Checkpointable):
         accepts. ``ckpt_dir`` resumes from its latest checkpoint and saves
         every ``ckpt_every`` rounds and at the end.
 
-        ``cfg.pipeline_depth > 0`` runs the pipelined loop
-        (``_train_pipelined``), equal to the eager loop bit for bit.
+        ``cfg.buffer_size > 0`` runs the buffered loop
+        (``buffered.train_buffered``); else ``cfg.pipeline_depth > 0`` the
+        pipelined loop (``_train_pipelined``), and ``cfg.rounds_per_dispatch
+        > 1`` the superstep loop (``_train_superstep``), both equal to the
+        eager loop bit for bit.
 
         ``tracer`` (``telemetry.Tracer``) records the phase spans and the
         event ledger; when None, one is made (writing ``TRACE.jsonl`` next
@@ -215,10 +218,18 @@ class FedAvgAPI(Checkpointable):
         telemetry.install(tracer)
         try:
             with tracer.span("drive"):
-                loop = (self._train_pipelined if cfg.pipeline_depth > 0
-                        else self._train_eager)
-                loop(start_round, ckpt_dir, ckpt_every, metrics_logger, chaos,
-                     guard, tracer)
+                if cfg.buffer_size > 0:
+                    from fedml_tpu_torch.algorithms.buffered import train_buffered
+
+                    loop = train_buffered
+                    args = (self,)
+                else:
+                    loop = (self._train_pipelined if cfg.pipeline_depth > 0
+                            else self._train_superstep if cfg.rounds_per_dispatch > 1
+                            else self._train_eager)
+                    args = ()
+                loop(*args, start_round, ckpt_dir, ckpt_every, metrics_logger,
+                     chaos, guard, tracer)
                 if ckpt_dir:
                     with tracer.span("checkpoint"):
                         self.save_checkpoint(ckpt_dir, cfg.comm_round)
@@ -349,6 +360,214 @@ class FedAvgAPI(Checkpointable):
             (dx, dy, dc, dp), ready, pinned = stage_to_device(
                 x, y, counts, participation, self.device, self._h2d_stream)
         return StagedCohort(round_idx, dx, dy, dc, dp, faults, idx, ready, pinned)
+
+    def stage_partial_cohort(self, round_idx: int, width: int, cohort: int,
+                             chaos=None, tracer=None) -> StagedCohort:
+        """The first ``width`` clients of round ``round_idx``'s seeded
+        ``cohort``-sized sample, padded back to ``cohort`` rows (a buffered
+        runner's partial dispatch: the slots freed by arrivals). Padding
+        rows have zero counts, so they take no step, and are not in
+        ``client_idx``. With ``width == cohort`` this stages
+        ``_stage_cohort``'s bytes."""
+        cfg = self.cfg
+        if tracer is None:
+            tracer = telemetry.get_tracer() or telemetry.NULL_TRACER
+        with tracer.span("stage", round_idx, width=width):
+            sampler = fast_client_sampling if cfg.fast_sampling else client_sampling
+            idx = sampler(round_idx, self.dataset.client_num, cohort)[:width]
+            faults = chaos.events(round_idx, len(idx)) if chaos is not None else None
+            x, y, counts = self.dataset.train.select(idx)
+            if faults is not None:
+                x = apply_faults(faults, x)
+            if counts.shape[0] < cohort:
+                x, y, counts = pad_clients(x, y, counts, cohort)
+        with tracer.span("h2d", round_idx):
+            (dx, dy, dc, _), ready, pinned = stage_to_device(
+                x, y, counts, None, self.device, self._h2d_stream)
+        return StagedCohort(round_idx, dx, dy, dc, None, faults, idx, ready, pinned)
+
+    # ------------------------------------------------- the superstep loop
+    def _resident_train_arrays(self):
+        """(x, y, counts) of the whole train store on the device, made
+        once; None when the store cannot be resident (streaming, or over
+        the byte budget), and the drive then runs the eager loop."""
+        if self._resident_train is None:
+            from fedml_tpu_torch.data.packed_store import resident_train_arrays
+
+            res = resident_train_arrays(self.dataset.train, self.device)
+            self._resident_train = res if res is not None else ()
+        return self._resident_train or None
+
+    def _superstep_fn(self, num_rounds: int, chaos_armed: bool):
+        """The K-round superstep for this (K, chaos), built once."""
+        key = (num_rounds, chaos_armed)
+        fn = self._superstep_cache.get(key)
+        if fn is None:
+            from fedml_tpu_torch.algorithms.engine import build_superstep_fn
+
+            fn = build_superstep_fn(self.trainer, self.cfg, self.aggregator,
+                                    num_rounds,
+                                    client_num_in_total=self.dataset.client_num,
+                                    chaos_armed=chaos_armed)
+            self._superstep_cache[key] = fn
+        return fn
+
+    def _superstep_k(self, round_idx: int, ckpt_dir, ckpt_every: int) -> int:
+        """The rounds the next dispatch may take: up to
+        ``cfg.rounds_per_dispatch``, cut so that an eval round or a
+        checkpoint round ends its dispatch (both read the model after that
+        round). 1 means the next round is such a boundary and runs
+        eagerly."""
+        cfg = self.cfg
+        k_max = min(cfg.rounds_per_dispatch, cfg.comm_round - round_idx)
+        for j in range(k_max):
+            r = round_idx + j
+            if (self._is_test_round(r)
+                    or (ckpt_dir and (r + 1) % ckpt_every == 0)):
+                return j + 1
+        return k_max
+
+    def _train_superstep(self, start_round, ckpt_dir, ckpt_every,
+                         metrics_logger, chaos, guard, tracer) -> None:
+        """The superstep loop (``cfg.rounds_per_dispatch`` K > 1): up to K
+        rounds a dispatch (``engine.build_superstep_fn``), their cohorts
+        gathered on the device from the resident train store, the chaos
+        masks sent as [K, C] tensors, each round on the eager round's
+        generator, so the globals, the aggregator state (moments, codec
+        residuals) and the records are the eager loop's bit for bit. The K
+        records flush with one transfer.
+
+        A streaming or over-budget store, or chaos on integer inputs
+        (whose faults depend on the data, on the host), runs the eager
+        loop instead, with a warning. A guard rejection inside a dispatch
+        rolls the whole chunk back and replays it eagerly, one round at a
+        time, with the eager loop's retries."""
+        cfg = self.cfg
+        resident = self._resident_train_arrays()
+        reason = None
+        if resident is None:
+            reason = "train store is streaming or over the resident byte budget"
+        elif chaos is not None and not resident[0].is_floating_point():
+            reason = ("chaos faults on integer inputs are data-dependent on the "
+                      "host and cannot be replayed in-graph")
+        if reason is not None:
+            log.warning("superstep (rounds_per_dispatch=%d) unavailable: %s — "
+                        "running the eager loop", cfg.rounds_per_dispatch, reason)
+            self._train_eager(start_round, ckpt_dir, ckpt_every, metrics_logger,
+                              chaos, guard, tracer)
+            return
+        records = RoundRecordLog(tracer, self.history, metrics_logger)
+        round_idx = start_round
+        while round_idx < cfg.comm_round:
+            k = self._superstep_k(round_idx, ckpt_dir, ckpt_every)
+            if k == 1:
+                round_idx = self._eager_round(
+                    round_idx, records, chaos=chaos, guard=guard, tracer=tracer,
+                    ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+            else:
+                round_idx = self._superstep_chunk(
+                    round_idx, k, records, resident, chaos=chaos, guard=guard,
+                    tracer=tracer, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+
+    def _superstep_inputs(self, r0: int, k: int, chaos) -> tuple:
+        """The host half of a K-round dispatch: (per_round with its device
+        tensors, the host cohorts [K, C], each round's FaultEvents or
+        None). The cohorts are drawn here, as the eager loop draws them,
+        and sent to the device once a dispatch."""
+        cfg = self.cfg
+        n_total = self.dataset.client_num
+        cohort = min(cfg.client_num_per_round, n_total)
+        rounds = list(range(r0, r0 + k))
+        sampler = fast_client_sampling if cfg.fast_sampling else client_sampling
+        idx_block = np.stack([sampler(r, n_total, cfg.client_num_per_round)
+                              for r in rounds]).astype(np.int64)
+        counts = np.asarray(self.dataset.train.counts)
+        per_round = {"round_idx": rounds, "host_counts": counts[idx_block]}
+        device_parts = {"idx": idx_block}
+        faults_list = None
+        if chaos is not None:
+            faults_list, masks = chaos.events_block(r0, k, cohort)
+            device_parts.update(masks)
+        for name, a in device_parts.items():
+            per_round[name] = to_device(torch.from_numpy(np.ascontiguousarray(a)),
+                                        self.device)
+        return per_round, idx_block, faults_list
+
+    def _superstep_chunk(self, r0, k, records, resident, *, chaos, guard,
+                         tracer, ckpt_dir, ckpt_every) -> int:
+        """One K-round dispatch: the host inputs, the dispatch, the guard's
+        verdict on each round, then K records (or the chunk rolled back and
+        replayed eagerly). Returns r0 + k."""
+        cfg = self.cfg
+        rollback = False
+        with tracer.round(r0) as rspan:
+            with tracer.span("stage", r0, rounds=k):
+                per_round, idx_block, faults_list = self._superstep_inputs(
+                    r0, k, chaos)
+            snapshot = guard_state = None
+            if guard is not None:
+                snapshot = self._snapshot()
+                # the guard is stateful (its loss window): a replay must
+                # inspect from the same state
+                guard_state = copy.deepcopy(vars(guard))
+            superstep = self._superstep_fn(k, chaos is not None)
+            with tracer.span("dispatch", r0, rounds=k):
+                new_gv, new_st, metrics = superstep(
+                    self.global_variables, self.agg_state, *resident, per_round)
+            with tracer.span("device_wait", r0):
+                synchronize(self.device)
+            if guard is not None:
+                with tracer.span("metrics_fetch", r0):
+                    names = list(metrics)
+                    host = torch.stack([metrics[n].double() for n in names]).cpu()
+                for j in range(k):
+                    r = r0 + j
+                    m_j = {n: float(host[i, j]) for i, n in enumerate(names)}
+                    total = max(m_j.get("total", 1.0), 1.0)
+                    loss = m_j.get("loss_sum", 0.0) / total
+                    # the chunk's final globals stand for round j's: a
+                    # non-finite value persists, and the eager replay then
+                    # finds the round
+                    with tracer.span("guard_verdict", r):
+                        verdict = guard.inspect(r, loss, new_gv)
+                    tracer.event("guard_verdict", round=r, ok=verdict.ok,
+                                 reason=verdict.reason)
+                    if not verdict.ok:
+                        rollback = True
+                        log.warning("guard: %s at round %d inside a %d-round "
+                                    "superstep — chunk rolled back, replaying "
+                                    "eagerly to localize", verdict.reason, r, k)
+                        tracer.event("guard_rollback", round=r, retry=0)
+                        self._ckpt_load(*snapshot)
+                        guard.__dict__.update(guard_state)
+                        break
+            if not rollback:
+                self.global_variables, self.agg_state = new_gv, new_st
+                elapsed = rspan.elapsed()
+                for j in range(k):
+                    r = r0 + j
+                    record = {"round": r, "round_time": elapsed / k,
+                              **{n: v[j] for n, v in metrics.items()}}
+                    if faults_list is not None:
+                        record.update(chaos_summary(faults_list[j]))
+                    if j == k - 1 and self._is_test_round(r):
+                        with tracer.span("eval", r):
+                            record.update(self.local_test_on_all_clients(r))
+                            record.update(self.test_global(r))
+                    records.add(record)
+                records.flush(r0 + k - 1)
+                tracer.event("superstep_committed", round=r0, rounds=k,
+                             k=cfg.rounds_per_dispatch)
+                if ckpt_dir and (r0 + k) % ckpt_every == 0:
+                    with tracer.span("checkpoint", r0 + k - 1):
+                        self.save_checkpoint(ckpt_dir, r0 + k)
+        if rollback:
+            r = r0
+            while r < r0 + k:
+                r = self._eager_round(r, records, chaos=chaos, guard=guard,
+                                      tracer=tracer, ckpt_dir=ckpt_dir,
+                                      ckpt_every=ckpt_every)
+        return r0 + k
 
     def _train_pipelined(self, start_round, ckpt_dir, ckpt_every,
                          metrics_logger, chaos, guard, tracer) -> None:

@@ -1,5 +1,6 @@
-"""The synchronous-round body (PyTorch form of
-``fedml_tpu/core/builder.py::build_round_core``, without LoRA)."""
+"""The synchronous-round body and the codec seam (PyTorch form of
+``fedml_tpu/core/builder.py``'s ``build_round_core``, without LoRA, and
+``wrap_codec``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,21 @@ from typing import Callable
 import torch
 
 from fedml_tpu_torch.utils.pytree import tree_where
+
+
+def wrap_codec(aggregator, codec, slots: int):
+    """The one ``CodecAggregator`` seam: ``aggregator`` wrapped with the
+    compressed update transport at ``slots`` residual rows. A no-op when
+    ``codec`` is None (a round without a codec keeps its aggregator and
+    state) or when the aggregator is wrapped already (``FedAvgAPI`` wraps
+    before ``init_state`` and passes ``codec=None`` down)."""
+    if codec is None:
+        return aggregator
+    from fedml_tpu_torch.codecs.transport import CodecAggregator
+
+    if isinstance(aggregator, CodecAggregator):
+        return aggregator
+    return CodecAggregator(codec, aggregator, slots=slots)
 
 
 def build_round_core(batched_update, aggregator) -> Callable:

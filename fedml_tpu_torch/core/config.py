@@ -1,13 +1,13 @@
 """Typed run configuration for the PyTorch port.
 
 A mirror of ``fedml_tpu/core/config.py::FedConfig`` holding the fields the
-ported paths read (FedAvg, FedOpt, FedNova, robust aggregation, FedProx and
-the stateful client optimizers), with the same names and defaults so
-experiment configs transfer verbatim. The switches of features the port does not run
-yet (codecs, LoRA, buffered aggregation, superstep, sharding,
-personalization) are kept so that ``validate`` can reject one
-that is on with ``NotImplementedError``; other keys of a JAX config land in
-``extra``.
+ported paths read (FedAvg, FedOpt, FedNova, robust aggregation, FedProx,
+the stateful client optimizers, the update codecs, buffered aggregation and
+the superstep), with the same names and defaults so experiment configs
+transfer verbatim. The switches of features the port does not run yet
+(LoRA, sharding, personalization) are kept so that ``validate`` can reject
+one that is on with ``NotImplementedError``; other keys of a JAX config
+land in ``extra``.
 """
 
 from __future__ import annotations
@@ -86,9 +86,19 @@ class FedConfig:
     # O(cohort) Feistel cohort sampler (another seeded trajectory than the
     # default O(N) one)
     fast_sampling: bool = False
+    # >1 runs K rounds per dispatch from the device-resident train store
+    # (the superstep, engine.build_superstep_fn); 1 = the eager loop
     rounds_per_dispatch: int = 1
+    # >0: staleness-aware buffered aggregation (FedBuff,
+    # algorithms/buffered.py) with a buffer of this many updates
     buffer_size: int = 0
+    # an update born at round b and committed at round t weighs
+    # count * (1 + (t - b)) ** -staleness_alpha
+    staleness_alpha: float = 0.5
+    # update transport codec: "none", "int8" or "topk" (fedml_tpu_torch.codecs)
     update_codec: str = "none"
+    codec_k: int = 64  # top-k: entries kept per leaf (clamped to its size)
+    codec_bits: int = 8  # int8: quantization width in bits, 2-8
     dtype: str = "float32"  # compute dtype; params stay float32
 
     extra: dict[str, Any] = field(default_factory=dict, hash=False, compare=False)
@@ -115,6 +125,9 @@ class FedConfig:
         self."""
         if self.backend not in ("vmap", "shard_map"):
             raise ValueError(f"unknown backend {self.backend!r} (vmap or shard_map)")
+        for reason, clash in _exclusions(self):
+            if clash:
+                raise ValueError(reason)
         unported = {
             "backend='shard_map' over more than one device (ROADMAP.md Queue 1 "
             "item 10, multi-device)":
@@ -124,9 +137,6 @@ class FedConfig:
             "shard_step": self.shard_step,
             "personalize": self.personalize,
             "lora_rank > 0": self.lora_rank > 0,
-            "rounds_per_dispatch > 1": self.rounds_per_dispatch > 1,
-            "buffer_size > 0": self.buffer_size > 0,
-            "update_codec": self.update_codec != "none",
         }
         for name, on in unported.items():
             if on:
@@ -169,3 +179,79 @@ class FedConfig:
         if extra:
             known.setdefault("extra", {}).update(extra)
         return cls(**known)
+
+
+# The exclusions of ``fedml_tpu/core/spec.py`` (``EXCLUSIONS`` and
+# ``CONSTRAINTS``) that involve the update codec, buffered aggregation or
+# the superstep, in its order and with its reasons verbatim. The fused
+# kernel's with chaos stays in ``validate``'s fused block.
+_BUFFER_REASON = (
+    "buffer_size (staleness-aware buffered aggregation) drives "
+    "the single-controller vmap engine; the sharded admit/commit "
+    "twin (parallel.sharded.build_sharded_buffer_fns) is a "
+    "program-level building block — combine buffer_size with "
+    "neither backend='shard_map', tensor_shards, nor "
+    "silo_threshold")
+_SUPERSTEP_REASON = (
+    "rounds_per_dispatch (the multi-round superstep) fuses K "
+    "rounds into ONE program on the single-chip vmap engine — "
+    "there is no per-round host gap left for the pipeline or "
+    "buffer to exploit, and the sharded/silo/fused lowerings "
+    "have no superstep twin; combine it with none of "
+    "pipeline_depth / buffer_size / backend='shard_map' / "
+    "tensor_shards / silo_threshold / fused_kernel")
+_PFL_REASON = (
+    "personalize (per-client adapter rows, models/adapter_bank.py) "
+    "drives the single-chip vmap engine's eager or pipelined loop — "
+    "the fused/superstep/buffered/shard_map/tensor/silo lowerings "
+    "have no personal-row seam; drop personalize or the conflicting "
+    "setting")
+
+
+def _exclusions(cfg: FedConfig) -> list:
+    """[(reason, clashes)] for ``cfg``, in spec.py's order."""
+    codec = cfg.update_codec != "none"
+    buffer = cfg.buffer_size > 0
+    superstep = cfg.rounds_per_dispatch > 1
+    silo = cfg.silo_threshold > 0
+    tensor = cfg.tensor_shards > 0
+    shard_map = cfg.backend == "shard_map"
+    fused = cfg.fused_kernel
+    return [
+        ("update_codec has no seam in the silo-grouped lowering "
+         "(silos merge clients before any update crosses a wire) — "
+         "drop one of update_codec / silo_threshold", codec and silo),
+        (_BUFFER_REASON, buffer and shard_map),
+        (_BUFFER_REASON, buffer and tensor),
+        (_BUFFER_REASON, buffer and silo),
+        (_SUPERSTEP_REASON, superstep and cfg.pipeline_depth > 0),
+        (_SUPERSTEP_REASON, superstep and buffer),
+        (_SUPERSTEP_REASON, superstep and shard_map),
+        (_SUPERSTEP_REASON, superstep and tensor),
+        (_SUPERSTEP_REASON, superstep and silo),
+        (_SUPERSTEP_REASON, superstep and fused),
+        ("--fused_kernel is mutually exclusive with --update_codec",
+         fused and codec),
+        ("--fused_kernel is mutually exclusive with --buffer_size "
+         "(buffered admission consumes per-client LocalResults)",
+         fused and buffer),
+        ("--shard_step runs under GSPMD automatic partitioning — the "
+         "codec transports are manual shard_map collectives and do "
+         "not compose with it. Drop --shard_step (the storage-sharded "
+         "tensor round supports codecs) or --update_codec.",
+         codec and tensor and cfg.shard_step),
+        (_PFL_REASON, cfg.personalize and superstep),
+        (_PFL_REASON, cfg.personalize and buffer),
+        ("update codecs compress the WIRE tree, and personal rows "
+         "never reach the wire — a codec on the personalized round "
+         "would stage deltas for a tree the client step does not "
+         "ship; drop one of update_codec / personalize",
+         cfg.personalize and codec),
+        ("update codecs reach LoRA runs only through the tensor-sharded "
+         "round or buffered admission (the adapter-aware transports in "
+         "parallel/tensor.py and the buffered admit) — the vmap/shard_map "
+         "CodecAggregator stages deltas for the full federated tree while "
+         "the LoRA client step ships adapters only; drop one of "
+         "update_codec / lora_rank, or add --tensor_shards / --buffer_size",
+         codec and cfg.lora_rank > 0 and not tensor and not buffer),
+    ]

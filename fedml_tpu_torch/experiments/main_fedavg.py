@@ -32,6 +32,14 @@ FedML's benchmark rows beyond FEMNIST (``fedml_tpu/experiments/configs/``):
   (``--dataset fed_shakespeare`` trains it per position with NWPTrainer)
 With no flags but ``--device cpu`` it runs MNIST logistic regression.
 
+The transport and asynchronous axes (any of them on any config):
+  --update_codec int8|topk [--codec_bits 8] [--codec_k 64]   (codec residuals
+      ride the aggregator state), --buffer_size 5 --staleness_alpha 0.5
+      --chaos 1 --chaos_straggler_rate 0.3 --chaos_straggler_rounds 2
+      (FedBuff under the straggler plan), --rounds_per_dispatch 4 (the
+      superstep: each round's cohort gathered on the device from the
+      resident train store)
+
 Fault-tolerance drive (the participation mask, the quarantine and the
 guard's rollback in one run; ``quarantined_count`` lands in the run
 directory's ``wandb-summary.json``):
@@ -113,6 +121,10 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--chaos_drop_rate", type=float, default=0.0)
     parser.add_argument("--chaos_nan_rate", type=float, default=0.0)
     parser.add_argument("--chaos_corrupt_rate", type=float, default=0.0)
+    # the seeded straggler plan (buffered aggregation): a straggling
+    # client's update arrives 1..straggler_rounds dispatch rounds late
+    parser.add_argument("--chaos_straggler_rate", type=float, default=0.0)
+    parser.add_argument("--chaos_straggler_rounds", type=int, default=0)
     parser.add_argument("--guard", type=int, default=0,
                         help="1 = roll back + re-run rounds whose loss goes "
                              "non-finite or spikes")
@@ -124,6 +136,31 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--pipeline_depth", type=int, default=2,
                         help="cohort prefetch depth of the drive loop "
                              "(0 = eager)")
+    # the superstep: K rounds a dispatch from the device-resident store,
+    # equal to K eager rounds bit for bit; > 1 sets --pipeline_depth to 0
+    parser.add_argument("--rounds_per_dispatch", type=int, default=1,
+                        help="federated rounds a dispatch (1 = eager; needs "
+                             "pipeline_depth 0)")
+    # staleness-aware buffered aggregation (algorithms/buffered.py)
+    parser.add_argument("--buffer_size", type=int, default=0,
+                        help="update-buffer size K for FedBuff-style "
+                             "buffered aggregation (0 = synchronous)")
+    parser.add_argument("--staleness_alpha", type=float, default=0.5,
+                        help="staleness-discount exponent: committed weight "
+                             "= count * (1 + staleness) ** -alpha")
+    # the update transport codec (fedml_tpu_torch.codecs); none = the round
+    # without a codec, bit for bit
+    parser.add_argument("--update_codec", type=str, default="none",
+                        choices=["none", "int8", "topk"],
+                        help="update transport codec: int8 quantization "
+                             "with error feedback, or top-k sparsification "
+                             "with static-shape payloads")
+    parser.add_argument("--codec_k", type=int, default=64,
+                        help="top-k codec: entries kept per leaf (clamped "
+                             "to the leaf size)")
+    parser.add_argument("--codec_bits", type=int, default=8,
+                        help="int8 codec: quantization width in bits (2-8; "
+                             "wire dtype stays int8)")
     # the tracer: TRACE.jsonl is always written to <run_dir>/TRACE.jsonl
     parser.add_argument("--trace_summary", type=int, default=0,
                         help="1 = print an end-of-run per-phase p50/p95 "
@@ -149,7 +186,9 @@ def robustness_from_args(args):
     if args.chaos:
         chaos = FaultPlan(seed=args.chaos_seed, drop_rate=args.chaos_drop_rate,
                           nan_rate=args.chaos_nan_rate,
-                          corrupt_rate=args.chaos_corrupt_rate)
+                          corrupt_rate=args.chaos_corrupt_rate,
+                          straggler_rate=args.chaos_straggler_rate,
+                          straggler_rounds=args.chaos_straggler_rounds)
     if args.guard:
         guard = RoundGuard(spike_factor=args.guard_spike_factor,
                            max_retries=args.guard_max_retries)
@@ -190,6 +229,10 @@ def start_run(args) -> FedConfig:
          if k not in _DRIVE_FLAGS and v is not None}
     d["fused_kernel"] = bool(d.get("fused_kernel", 0))
     d["fast_sampling"] = bool(d.get("fast_sampling", 0))
+    # the superstep leaves no per-round host gap for the pipeline: a run
+    # with it drops the pipeline's default (experiments/common.py:279)
+    if int(d.get("rounds_per_dispatch", 1)) > 1:
+        d["pipeline_depth"] = 0
     return FedConfig.from_dict(d)
 
 

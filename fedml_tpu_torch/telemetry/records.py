@@ -2,7 +2,8 @@
 (PyTorch form of ``fedml_tpu/telemetry/records.py``).
 
 - ``add(record)`` parks a record whose values may still be 0-d tensors on
-  the device (the pipelined loop's deferred train metrics);
+  the device (the pipelined loop's deferred train metrics, the superstep's
+  K rounds of metrics, each a view of a [K] tensor);
 - ``flush()`` fetches every pending tensor in ONE host transfer (stacked on
   the device, one ``.cpu()``, inside a ``metrics_fetch`` span), appends the
   records to ``history`` as Python scalars, mirrors them to the metrics
@@ -41,9 +42,14 @@ def fetch_scalars(values: List[torch.Tensor]) -> List[float]:
 
 class RoundRecordLog:
     """Owns pending round records from `add()` until `flush()` commits them
-    to history, the metrics logger and the telemetry ledger. The client
-    ledger (``_ledger`` blocks) and the adapter bank (``_bank`` blocks) are
-    not ported: a record carrying either raises."""
+    to history, the metrics logger and the telemetry ledger.
+
+    The reserved keys ``_ledger`` (per-cohort client-ledger blocks: the
+    buffered drive attaches them to every record) and ``_bank`` (adapter
+    bank rows) never reach history: as the JAX log does with nothing
+    attached, ``add`` pops them and drops them. The client ledger and the
+    adapter bank themselves are not ported (``FedAvgAPI.train`` refuses
+    ``ledger=`` and ``bank=``)."""
 
     def __init__(self, tracer=None, history: Optional[List[Dict]] = None,
                  metrics_logger=None):
@@ -59,11 +65,10 @@ class RoundRecordLog:
         return len(self._pending)
 
     def add(self, record: Dict[str, Any]) -> None:
+        # no ledger or bank can be attached: their blocks are dropped here,
+        # before the flush's one transfer could fetch what they hold
         for key in ("_ledger", "_bank"):
-            if key in record:
-                raise NotImplementedError(
-                    f"{key} record blocks (the client ledger and the adapter "
-                    f"bank) are not ported to fedml_tpu_torch yet")
+            record.pop(key, None)
         self._pending.append(record)
         self.max_pending = max(self.max_pending, len(self._pending))
 

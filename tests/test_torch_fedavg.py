@@ -175,15 +175,17 @@ def test_cli_runs_a_round_on_cpu(tmp_path):
 
 def test_unported_drive_options_raise():
     """The drive's unported options raise NotImplementedError (the client
-    ledger, the adapter bank, the superstep and buffered drives); the
-    fused kernel under chaos and a negative pipeline depth raise
-    ValueError."""
+    ledger, the adapter bank, LoRA, personalization); the superstep and
+    buffered drives build; the fused kernel under chaos and a negative
+    pipeline depth raise ValueError."""
     ds = _capped(load_dataset("femnist", client_num_in_total=2, seed=0),
                  PackedClients, 20, 32)
     trainer = ClassificationTrainer(CNN_DropOut(output_dim=62))
-    for kw in (dict(rounds_per_dispatch=2), dict(buffer_size=4)):
+    for kw in (dict(lora_rank=4), dict(personalize=True)):
         with pytest.raises(NotImplementedError):
             FedAvgAPI(ds, FedConfig(**kw), trainer, device="cpu")
+    for kw in (dict(rounds_per_dispatch=2), dict(buffer_size=4)):
+        FedAvgAPI(ds, FedConfig(client_num_in_total=2, **kw), trainer, device="cpu")
     api = FedAvgAPI(ds, FedConfig(client_num_in_total=2), trainer, device="cpu")
     for kw in (dict(ledger=object()), dict(bank=object())):
         with pytest.raises(NotImplementedError):

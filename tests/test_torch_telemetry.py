@@ -285,8 +285,13 @@ def test_record_log_flushes_pending_tensors_in_one_transfer(monkeypatch):
     assert fetch["records"] == 3
     log.flush()  # nothing pending: no transfer
     assert calls == [6]
-    with pytest.raises(NotImplementedError, match="client ledger"):
-        log.add({"round": 3, "_ledger": []})
+    # a client-ledger or adapter-bank block is dropped (none can be
+    # attached), and nothing it holds is fetched
+    log.add({"round": 3, "round_time": 0.5, "loss_sum": torch.tensor(1.0),
+             "_ledger": [{"stats": torch.tensor(7.0)}], "_bank": []})
+    log.flush(3)
+    assert calls == [6, 1]
+    assert history[3] == {"round": 3, "round_time": 0.5, "loss_sum": 1.0}
 
 
 def test_fetch_scalars_is_exact_for_float32_and_large_ints():
