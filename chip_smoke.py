@@ -82,9 +82,10 @@ Phases (any failure exits non-zero and prints no result line):
        the loss falls, every global BatchNorm statistic moved from its init
        and is finite, and the evaluation reads the running statistics (an
        eval-mode call returns no new state, and resetting the statistics
-       changes Test/Loss); 2 bf16 rounds of 3 epochs from the float32
-       globals, whose loss falls from the first to the second; and a
-       1-epoch round under the profiler;
+       changes Test/Loss); 2 bf16 rounds of 1 epoch (XS_BF16_EPOCHS) from
+       the float32 globals, whose loss falls from the first to the second;
+       and a 1-epoch round of one silo (XS_PROFILED_SILOS) under the
+       profiler;
      - fed_CIFAR-100 ResNet-18-GN (``fed_cifar100_resnet18_gn.yaml`` under
        ``backend vmap``): 500 clients, 10 a round, batch 20, lr 0.1, 3
        rounds: finite, every global moved (its loss need not fall: this
@@ -230,6 +231,41 @@ Phases (any failure exits non-zero and prints no result line):
        1-2 one dispatch) with the flash launches counted; the device
        sampler against the host's for 3400 clients over SAMPLER_ROUNDS
        rounds.
+ 11. federated LoRA, the client ledger, the personal adapter bank and the
+     multi-tenant scheduler, within PHASE11_BUDGET_S (``--serving-only``
+     builds the kernels, runs phase 3's NWP path for its launch counts, then
+     this phase alone), on cuDNN's deterministic algorithms:
+     - (a) cell 20, cell 2 with ``lora_rank`` 8 at depth 2 for LORA_ROUNDS
+       rounds: the loss falls, each flash kernel's launches within 15% of
+       phase 3's NWP path, the frozen base bit for bit its initial value,
+       the wire tree (the adapters) 32,768 parameters, the adapters-only
+       checkpoint of round 3 resumed to round 5 bit for bit the run, and one
+       more round dispatched under ``set_sync_debug_mode("error")``;
+     - (b) cell 21, (a) personalized from an adapter bank with a client
+       ledger attached and chaos drops at PFL_DROP_RATE: the pipelined run
+       and an eager resume of its round-3 checkpoint (with its bank and
+       ledger files as they stood then) to round 5, bit for bit (globals,
+       records, bank and ledger files); every dropped client's row
+       scattered back as it was gathered and live rows changed;
+       ``Personalization/Lift`` finite; a sync-checked dispatch;
+       ``adapter_clusters`` 4 for 2 rounds on a 4-row bank; then a bank of
+       StackOverflow's BIG_BANK_ROWS train clients (sparse, 44.9 GB
+       logical): BANK_CYCLES random BANK_COHORT-row gather and scatter
+       cycles through ``AdapterBank.apply``, the physical bytes equal to
+       the touched rows' pages, the sampled RSS growing by under
+       RSS_GROWTH_MB MB, rows a second printed (where a probe shows the
+       filesystem reporting a truncated file's holes as allocated: at
+       SMALL_BANK_ROWS rows, said so, and the RSS and rate alone checked);
+     - (c) cell 22, three tenants under one ``Scheduler`` (fair share,
+       ``max_resident`` 2, spilled evictions): cell 1's engine (sync, 4
+       rounds), cell 18's FedBuff with stragglers in partial dispatch (4
+       rounds) and (b)'s personalized tenant (3 rounds, latency-bound with
+       a deadline), submitted after two ticks so that it preempts: each
+       tenant's final parameters bit for bit its solo run's, at least one
+       eviction, the card's allocated bytes falling at each, ``check_slo``'s
+       report, a compile ledger of zeros, flash launches only in the NWP
+       tenant and the fused kernel nowhere; a submission past
+       ``max_queued`` 1 under ``admission="reject"`` bounces.
 
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
@@ -333,8 +369,11 @@ TIME_ROUNDS = 20
 # Cross-silo ResNet-56: the config's 20 local epochs cut to XS_EPOCHS, the
 # most whose round stayed within XS_ROUND_S on the H100 hosts measured (E = 3:
 # 28.6-29.9 s on the slowest); a longer round is reported, not re-cut. The
-# FedAvgM/FedAvg pair checks the aggregator, not local depth: 1 epoch.
-XS_EPOCHS, XS_ROUND_S, XS_PAIR_EPOCHS = 3, 30.0, 1
+# FedAvgM/FedAvg pair checks the aggregator, not local depth: 1 epoch. The
+# bf16 rounds check the type, not local depth either: 1 epoch (3 took 27.5-
+# 31.1 s a round, about 40 s of the script, on an H100 80GB HBM3 at 700 W).
+# The profiled 1-epoch round runs XS_PROFILED_SILOS of the 10 silos.
+XS_EPOCHS, XS_ROUND_S, XS_PAIR_EPOCHS, XS_BF16_EPOCHS, XS_PROFILED_SILOS = 3, 30.0, 1, 1, 1
 # Phase 7: the FEMNIST flagship at its configured 3400 clients, from an mmap
 # shard store. The surrogate's largest client has 480 samples (its clip), so
 # the padded width is 480 rows: 24 SGD steps a client through the fused
@@ -410,6 +449,16 @@ CODEC_ROUNDS, TOPK_K = 5, 64
 BUFF_SIZE, BUFF_ALPHA, BUFF_ROUNDS = 5, 0.5, 8
 STRAGGLER_RATE, STRAGGLER_ROUNDS = 0.3, 2
 SUPERSTEP_K, SUPERSTEP_ROUNDS, SAMPLER_ROUNDS = 4, 8, 1000
+# Phase 11: federated LoRA, personalization and serving (cells 20-22) on cell
+# 2's NWP configuration at rank LORA_RANK, and cells 1 and 18 as tenants
+PHASE11_BUDGET_S = 120.0
+LORA_RANK, LORA_ROUNDS, LORA_WIRE = 8, 5, 32768
+LAUNCH_SLACK = 0.15
+# StackOverflow NWP's train population (BASELINE.md, the reference's
+# benchmark/README.md:59-62): the bank's rows at the federation's real size
+BIG_BANK_ROWS, SMALL_BANK_ROWS = 342_477, 10_000
+BANK_CYCLES, BANK_COHORT, RSS_GROWTH_MB = 20, 50, 64
+SERVE_ROUNDS, PFL_SERVE_ROUNDS, PFL_DEADLINE_S, PFL_DROP_RATE = 4, 3, 600.0, 0.3
 
 
 class Disagreement(RuntimeError):
@@ -1074,7 +1123,8 @@ def timed_aggregation(api, trainer, cfg) -> TimedAggregator:
     from fedml_tpu_torch.algorithms.engine import build_round_fn
 
     timed = TimedAggregator(api.aggregator)
-    api.round_fn = build_round_fn(trainer, cfg, timed, device=api.device)
+    api.round_fn = build_round_fn(trainer, cfg, timed, device=api.device,
+                                  collect_stats=True)
     return timed
 
 
@@ -1252,7 +1302,10 @@ def check_zoo_run(tag: str, api, hist, profile: bool = True, must_fall: bool = T
 
     check_trained(tag, api, hist, must_fall)
     if profile:
-        prof = profile_zoo.profiled_round(api, len(hist))
+        # the device's activity alone: the same readings, without the host
+        # events whose reading took minutes at a ResNet-56 round's 293,000
+        # launches (on an H100 80GB HBM3 at 700 W)
+        prof = profile_zoo.profiled_round(api, len(hist), host_events=False)
         log(profile_zoo.summary(tag, hist, prof))
     else:
         log(f"{tag}: rounds {[round(h['round_time'] * 1e3, 2) for h in hist]} ms, train "
@@ -1381,17 +1434,22 @@ def run_zoo_paths() -> dict:
     check_zoo_run(tag, api, hist, profile=False)
     check_round_budget(tag, hist)
     check_running_statistics(api)
-    bf16 = profile_zoo.make_api("cross_silo", *epochs, "--dtype", "bfloat16")
+    bf16 = profile_zoo.make_api("cross_silo", "--epochs", str(XS_BF16_EPOCHS), "--dtype",
+                                "bfloat16")
     bf16.global_variables = {k: v.clone() for k, v in api.global_variables.items()}
     bhist = zoo_path("cross-silo resnet56 bf16", launches, bf16.train)
-    check_zoo_run(f"cross-silo resnet56 bf16 (E={XS_EPOCHS}, 2 rounds from the float32 "
+    check_zoo_run(f"cross-silo resnet56 bf16 (E={XS_BF16_EPOCHS}, 2 rounds from the float32 "
                   "globals)", bf16, bhist, profile=False)
-    check_round_budget("cross-silo resnet56 bf16", bhist)
-    one = profile_zoo.make_api("cross_silo", "--epochs", "1")
+    # reading a 10-silo round's 293,000 device events took 75-90 s on an
+    # H100 80GB HBM3 at 700 W
+    one = profile_zoo.make_api("cross_silo", "--epochs", "1", "--client_num_per_round",
+                               str(XS_PROFILED_SILOS))
     one.global_variables = api.global_variables
     zoo_path("cross-silo resnet56, profiled round", launches,
-             lambda: log(profile_zoo.summary(f"{tag}; a 1-epoch round profiled", hist,
-                                             profile_zoo.profiled_round(one, 2))))
+             lambda: log(profile_zoo.summary(f"{tag}; a 1-epoch round of "
+                                             f"{XS_PROFILED_SILOS} silo profiled", hist,
+                                             profile_zoo.profiled_round(
+                                                 one, 2, host_events=False))))
     del api, bf16, one
 
     t0 = time.perf_counter()
@@ -1793,7 +1851,11 @@ def dispatch_without_sync(tag: str, api, round_idx: int, chaos=None) -> dict:
     finite."""
     import torch
 
+    from fedml_tpu_torch.telemetry import NULL_TRACER
+
     staged = api.stage_fn(round_idx, chaos=chaos)
+    # a personalized round's rows, gathered as the drive loops do
+    api._gather_personal(staged, NULL_TRACER)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2486,7 +2548,7 @@ def transport_superstep(ds, nwp, device, launches: dict, flash_launches: dict) -
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        _, _, metrics = fn(fused.global_variables, fused.agg_state, *resident, per_round)
+        metrics = fn(fused.global_variables, fused.agg_state, *resident, per_round)[2]
         sync_control(device)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -2567,6 +2629,501 @@ def run_transport(ds, nwp, device, fused_launches: dict, flash_launches: dict) -
     return out
 
 
+# ----------------------------------------------------------------- phase 11
+
+
+def nwp_lora_cfg(**overrides):
+    """Cell 2's FedConfig behind rank-LORA_RANK LoRA (``overrides`` replace
+    its fields)."""
+    from fedml_tpu_torch import FedConfig
+
+    return FedConfig(dataset="stackoverflow_nwp", model="transformer_nwp",
+                     client_num_in_total=NWP_CLIENTS, client_num_per_round=NWP_PER_ROUND,
+                     batch_size=NWP_BATCH, lr=NWP_LR, grad_clip=1.0, epochs=1,
+                     comm_round=LORA_ROUNDS, seed=SEED, lora_rank=LORA_RANK,
+                     pipeline_depth=PIPE_DEPTH).replace(**overrides)
+
+
+def nwp_trainer(nwp):
+    from fedml_tpu_torch import NWPTrainer, create_model
+
+    return NWPTrainer(create_model("transformer_nwp", output_dim=nwp.class_num))
+
+
+def nwp_lora_api(nwp, **overrides):
+    """FedAvgAPI on the card for cell 2 behind LoRA."""
+    from fedml_tpu_torch import FedAvgAPI
+
+    return FedAvgAPI(nwp, nwp_lora_cfg(**overrides), nwp_trainer(nwp), device="cuda")
+
+
+def adapter_template(api) -> dict:
+    """The personal row's template: the API's adapters."""
+    from fedml_tpu_torch.models.lora import strip_lora_base
+    from fedml_tpu_torch.utils.pytree import split_variables
+
+    return split_variables(strip_lora_base(api.global_variables))[0]
+
+
+def resume_from(src: str, dst: str, step: int) -> None:
+    """Copy checkpoint directory ``src`` to ``dst`` keeping the steps up to
+    ``step``: a resume from ``dst`` starts after round ``step``."""
+    import os
+    import shutil
+
+    from fedml_tpu_torch.utils.checkpoint import all_checkpoint_steps
+
+    shutil.copytree(src, dst)
+    for s in all_checkpoint_steps(dst):
+        if s > step:
+            os.remove(os.path.join(dst, f"meta_{s}.json"))
+            shutil.rmtree(os.path.join(dst, f"ckpt_{s}"))
+
+
+def records(hist, evals: bool = True) -> list:
+    """The records without their times and, unless ``evals``, without the
+    evaluations."""
+    return [{k: v for k, v in h.items() if k != "round_time" and (evals or not k.startswith(
+        ("Train/", "Test/", "Personalization/")))} for h in hist]
+
+
+def dir_bytes(root: str) -> dict:
+    import os
+
+    return {n: open(os.path.join(root, n), "rb").read() for n in sorted(os.listdir(root))}
+
+
+def serving_lora(nwp, reference: dict, flash_launches: dict, tmp: str) -> dict:
+    """Phase 11 (a): cell 20, LoRA on cell 2."""
+    import os
+
+    import torch
+
+    from fedml_tpu_torch.models.lora import lora_base, strip_lora_base
+    from fedml_tpu_torch.ops import attention
+
+    # every round evaluates, as phase 3's NWP path does, so the launch
+    # counts compare
+    api = nwp_lora_api(nwp, frequency_of_the_test=1)
+    base0 = {k: v.clone() for k, v in lora_base(api.global_variables).items()}
+    wire = sum(v.numel() for v in strip_lora_base(api.global_variables).values())
+    total = wire + sum(v.numel() for v in base0.values())
+    if wire != LORA_WIRE:
+        raise RuntimeError(f"nwp lora: the wire tree holds {wire} parameters, not "
+                           f"{LORA_WIRE}")
+    ckpt = os.path.join(tmp, "lora_ckpt")
+    flash = list(attention.launches)
+    t0 = time.perf_counter()
+    hist, flash_launches["lora nwp"] = with_launches(
+        "lora nwp", flash, lambda: api.train(ckpt_dir=ckpt, ckpt_every=3))
+    seconds = time.perf_counter() - t0
+    losses = check_trained("lora nwp", api, hist)
+    counts = flash_launches["lora nwp"]
+    for k in flash:
+        if abs(counts[k] - reference[k]) > LAUNCH_SLACK * reference[k]:
+            raise RuntimeError(f"lora nwp: {k} launched {counts[k]} times, phase 3's NWP "
+                               f"path {reference[k]}")
+    same_bits("lora nwp: the frozen base across the run", lora_base(api.global_variables),
+              base0)
+    resumed_dir = os.path.join(tmp, "lora_resume")
+    resume_from(ckpt, resumed_dir, 3)
+    resumed = nwp_lora_api(nwp, frequency_of_the_test=1)
+    rhist = resumed.train(ckpt_dir=resumed_dir)
+    same_bits("lora nwp resumed 3 + 2", resumed.global_variables, api.global_variables)
+    if records(rhist) != records(hist):
+        raise Disagreement("lora nwp resumed 3 + 2: the records differ")
+    dispatch_without_sync("lora nwp", api, LORA_ROUNDS)
+    out = {"wire_params": wire, "params": total, "shrink": round(total / wire, 2),
+           "train_loss": [round(v, 4) for v in losses],
+           "test_acc": round(hist[-1]["Test/Acc"], 4),
+           "median_round_ms": round(statistics.median(h["round_time"] * 1e3
+                                                      for h in hist[1:]), 2),
+           "seconds": round(seconds, 1), "launches": counts,
+           "phase3_launches": {k: reference[k] for k in flash}}
+    log(f"lora nwp (rank {LORA_RANK}): base bit for bit, resumed 3 + 2 bit for bit; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def pfl_run(nwp, tmp: str, tag: str, depth: int, rounds: int = LORA_ROUNDS,
+            ckpt: bool = False, chaos=None, watch=None, **overrides):
+    """A personalized NWP drive with a client ledger, from the bank and
+    ledger directories named by ``tag`` under ``tmp`` (created on first
+    use, reopened after). With ``ckpt`` the drive checkpoints every 3
+    rounds into ``{tag}_ckpt``, and at step 3 also copies its bank and
+    ledger directories to ``{tag}_bank@3`` and ``{tag}_ledger@3``: the
+    files a resume from that checkpoint starts from. ``watch`` is called
+    with the bank before the drive. Returns (api, history, bank, ledger)."""
+    import os
+    import shutil
+
+    from fedml_tpu_torch.models import adapter_bank
+    from fedml_tpu_torch.telemetry import client_ledger
+
+    api = nwp_lora_api(nwp, personalize=True, pipeline_depth=depth, comm_round=rounds,
+                       frequency_of_the_test=LORA_ROUNDS, **overrides)
+    clusters = api.cfg.adapter_clusters
+    ledger = client_ledger.open_or_create(os.path.join(tmp, f"{tag}_ledger"), NWP_CLIENTS)
+    bank = adapter_bank.open_or_create(os.path.join(tmp, f"{tag}_bank"),
+                                       clusters or NWP_CLIENTS, adapter_template(api))
+    if watch is not None:
+        watch(bank)
+    if ckpt:
+        save = api.save_checkpoint
+
+        def save_with_files(ckpt_dir, step):
+            save(ckpt_dir, step)
+            if step == 3:
+                bank.flush()
+                ledger.flush()
+                for what, d in (("bank", bank.root), ("ledger", ledger.root)):
+                    shutil.copytree(d, os.path.join(tmp, f"{tag}_{what}@3"))
+
+        api.save_checkpoint = save_with_files
+    hist = api.train(ckpt_dir=os.path.join(tmp, f"{tag}_ckpt") if ckpt else None,
+                     ckpt_every=3, chaos=chaos, ledger=ledger, bank=bank)
+    ledger.flush()
+    return api, hist, bank, ledger
+
+
+def watch_dead_rows(plan) -> tuple:
+    """(watch, seen): ``watch(bank)`` wraps the bank's gather and apply so
+    that every cohort block the drive scatters is held against the rows
+    it gathered for that cohort: a client ``plan`` dropped must get its row
+    back bit for bit. ``seen`` counts the dead rows checked and names the
+    leaves whose live rows changed."""
+    import numpy as np
+
+    seen = {"dead": 0, "changed": set()}
+
+    def watch(bank):
+        gather, apply = bank.gather, bank.apply
+        gathered = []
+
+        def spy_gather(rows):
+            out = gather(rows)
+            gathered.append((np.array(rows, copy=True),
+                             {k: np.array(v, copy=True) for k, v in out.items()}))
+            return out
+
+        def spy_apply(block):
+            if "rows" in block:
+                idx = np.asarray(block["client_idx"])
+                before = next(g for r, g in reversed(gathered) if np.array_equal(r, idx))
+                alive = np.asarray(plan.events(block["round"], len(idx)).participation, bool)
+                for k, new in block["rows"].items():
+                    new = np.asarray(new)[:len(idx)]
+                    if not np.array_equal(new[~alive], before[k][~alive]):
+                        raise Disagreement(f"chaos: round {block['round']} changed a dead "
+                                           f"client's row {k}")
+                    if not np.array_equal(new[alive], before[k][alive]):
+                        seen["changed"].add(k)
+                seen["dead"] += int((~alive).sum())
+            apply(block)
+
+        bank.gather, bank.apply = spy_gather, spy_apply
+
+    return watch, seen
+
+
+def rss_mb() -> float:
+    import os
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2 ** 20
+
+
+def keeps_holes(root: str) -> bool:
+    """Whether the filesystem under ``root`` reports a truncated file's
+    holes as unallocated (a probe of 64 MiB, removed after)."""
+    import os
+
+    probe = os.path.join(root, "probe")
+    with open(probe, "wb") as f:
+        f.truncate(RSS_GROWTH_MB * 2 ** 20)
+    try:
+        return os.stat(probe).st_blocks * 512 < 2 ** 20
+    finally:
+        os.remove(probe)
+
+
+def check_big_bank(template: dict) -> dict:
+    """Phase 11 (b)'s bank at StackOverflow's population: BANK_CYCLES
+    gather/scatter cycles of BANK_COHORT random rows through
+    ``AdapterBank.apply``; the sampled RSS may grow by under RSS_GROWTH_MB
+    MB, and the physical bytes must be the touched rows' pages. Where the
+    filesystem reports a truncated file as allocated (a probe file says so
+    before the bank is made), the bank has SMALL_BANK_ROWS rows and only
+    the RSS and the rate are checked: there the physical bytes cannot show
+    which pages were written."""
+    import shutil
+
+    import numpy as np
+
+    from fedml_tpu_torch.models import adapter_bank
+
+    root = tempfile.mkdtemp(prefix="bank_")
+    try:
+        sparse = keeps_holes(root)
+        rows = BIG_BANK_ROWS if sparse else SMALL_BANK_ROWS
+        if not sparse:
+            log(f"bank: the filesystem reports a truncated file's holes as allocated: the "
+                f"check runs at {rows} rows, not {BIG_BANK_ROWS}, and holds the RSS and the "
+                f"rate alone (the physical bytes cannot show the pages written)")
+        bank = adapter_bank.create_bank(root, rows, template)
+        rng = np.random.RandomState(SEED)
+        touched = set()
+        rss0 = peak = rss_mb()
+        t0 = time.perf_counter()
+        for cycle in range(BANK_CYCLES):
+            ids = rng.choice(rows, BANK_COHORT, replace=False)
+            got = bank.gather(ids)
+            bank.apply({"round": cycle, "client_idx": ids,
+                        "rows": {k: v + np.float32(cycle + 1) for k, v in got.items()}})
+            touched.update(int(i) for i in ids)
+            peak = max(peak, rss_mb())
+        seconds = time.perf_counter() - t0
+        nb = bank.row_nbytes
+        pages = {p for r in touched for p in range(r * nb // 4096, ((r + 1) * nb - 1) // 4096 + 1)}
+        physical = bank.bytes_physical()
+        want = 4096 * len(pages) if sparse else None
+        out = {"rows": rows, "logical_gb": round(rows * nb / 1e9, 2),
+               "touched_rows": len(touched), "bytes_physical": physical,
+               "bytes_expected": want, "rss_growth_mb": round(peak - rss0, 2),
+               "rows_per_s": round(2 * BANK_CYCLES * BANK_COHORT / seconds, 1),
+               "sparse": sparse}
+        bank.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if sparse and physical != want:
+        raise RuntimeError(f"bank: {physical} physical bytes, expected {want}")
+    if out["rss_growth_mb"] >= RSS_GROWTH_MB:
+        raise RuntimeError(f"bank: RSS grew {out['rss_growth_mb']} MB")
+    log(f"bank at {rows} rows: {json.dumps(out)}")
+    return out
+
+
+def serving_personal(nwp, flash_launches: dict, tmp: str) -> dict:
+    """Phase 11 (b): cell 21, personalized NWP from an adapter bank."""
+    import os
+    import shutil
+
+    from fedml_tpu_torch.ops import attention
+    from fedml_tpu_torch.robustness.chaos import FaultPlan
+
+    flash = list(attention.launches)
+    plan = FaultPlan(seed=SEED, drop_rate=PFL_DROP_RATE)
+    watch, seen = watch_dead_rows(plan)
+    t0 = time.perf_counter()
+    (pipe, phist, pbank, pledger), flash_launches["personalized nwp"] = with_launches(
+        "personalized nwp", flash,
+        lambda: pfl_run(nwp, tmp, "pipe", PIPE_DEPTH, ckpt=True, chaos=plan, watch=watch))
+    seconds = time.perf_counter() - t0
+    check_trained("personalized nwp", pipe, phist)
+    lift = phist[-1].get("Personalization/Lift")
+    if lift is None or not math.isfinite(lift):
+        raise RuntimeError(f"personalized nwp: Personalization/Lift {lift}")
+    template = adapter_template(pipe)
+    if seen["dead"] == 0 or seen["changed"] != set(template):
+        raise RuntimeError(f"chaos: {seen['dead']} dead rows checked, live rows changed in "
+                           f"{sorted(seen['changed'])} of {sorted(template)}")
+    # the pipelined run's round-3 checkpoint, bank and ledger, resumed
+    # eagerly to round 5
+    resume_from(os.path.join(tmp, "pipe_ckpt"), os.path.join(tmp, "resumed_ckpt"), 3)
+    for what in ("bank", "ledger"):
+        shutil.copytree(os.path.join(tmp, f"pipe_{what}@3"), os.path.join(tmp, f"resumed_{what}"))
+    resumed, rhist, rbank, rledger = pfl_run(nwp, tmp, "resumed", 0, ckpt=True, chaos=plan)
+    tag = "eager resume 3 + 2 vs pipelined"
+    same_bits(f"personalized nwp {tag}", resumed.global_variables, pipe.global_variables)
+    if records(rhist) != records(phist):
+        raise Disagreement(f"personalized nwp {tag}: the records differ")
+    for what, a, b in (("bank", rbank.root, pbank.root), ("ledger", rledger.root,
+                                                          pledger.root)):
+        if dir_bytes(a) != dir_bytes(b):
+            raise Disagreement(f"personalized nwp {tag}: the {what} files differ")
+    dispatch_without_sync("personalized nwp", pipe, LORA_ROUNDS, chaos=plan)
+    # cluster rows: 4 shared rows assigned from the ledger's EMA loss
+    capi, chist, cbank, _ = pfl_run(nwp, tmp, "clusters", 0, rounds=2, adapter_clusters=4)
+    check_trained("personalized nwp, 4 clusters", capi, chist, must_fall=False)
+    mat = cbank.materialized_column()
+    if mat.shape != (4,) or not mat.any():
+        raise RuntimeError(f"clusters: bank rows {mat}")
+    for bank in (pbank, rbank, cbank):
+        bank.close()
+    out = {"lift": lift, "dead_rows": seen["dead"], "cluster_rows_used": int(mat.sum()),
+           "median_round_ms": round(statistics.median(h["round_time"] * 1e3
+                                                      for h in phist[1:]), 2),
+           "seconds": round(seconds, 1), "launches": flash_launches["personalized nwp"],
+           "bank": check_big_bank(template)}
+    log(f"personalized nwp (drops at {PFL_DROP_RATE}): pipelined and its eager resume 3 + 2 "
+        f"bit for bit (globals, records, bank, ledger); dead rows kept; {json.dumps(out)}")
+    return out
+
+
+def serving_tenants(ds, nwp, flash_launches: dict, tmp: str) -> dict:
+    """Phase 11 (c): cell 22, three tenants under one Scheduler."""
+    import os
+
+    import torch
+
+    import dataclasses
+    import gc
+
+    from fedml_tpu_torch import ClassificationTrainer, FedConfig, create_model, telemetry
+    from fedml_tpu_torch.models import adapter_bank
+    from fedml_tpu_torch.ops import attention, fused_sgd
+    from fedml_tpu_torch.robustness.chaos import FaultPlan
+    from fedml_tpu_torch.serving import JobDescriptor, Scheduler, params_equal
+
+    femnist = FedConfig(dataset="femnist", model="cnn", client_num_in_total=FEMNIST_CLIENTS,
+                        client_num_per_round=10, batch_size=BATCH, lr=0.1, grad_clip=1.0,
+                        epochs=1, comm_round=SERVE_ROUNDS, seed=SEED)
+    pfl_cfg = nwp_lora_cfg(personalize=True, comm_round=PFL_SERVE_ROUNDS,
+                           frequency_of_the_test=PFL_SERVE_ROUNDS)
+
+    def cnn():
+        return ClassificationTrainer(create_model("cnn", output_dim=ds.class_num))
+
+    def tenants(bank):
+        return [JobDescriptor("femnist-sync", femnist, ds, trainer_factory=cnn),
+                JobDescriptor("femnist-fedbuff", femnist.replace(
+                    buffer_size=BUFF_SIZE, staleness_alpha=BUFF_ALPHA), ds,
+                    trainer_factory=cnn, partial_dispatch=True,
+                    chaos=FaultPlan(seed=SEED, straggler_rate=STRAGGLER_RATE,
+                                    straggler_rounds=STRAGGLER_ROUNDS)),
+                JobDescriptor("nwp-personalized", pfl_cfg, nwp, bank=bank, slo="latency",
+                              deadline_s=PFL_DEADLINE_S,
+                              trainer_factory=lambda: nwp_trainer(nwp))]
+
+    template = adapter_template(nwp_lora_api(nwp))
+
+    def bank(tag):
+        return adapter_bank.create_bank(os.path.join(tmp, tag), NWP_CLIENTS, template)
+
+    # each tenant alone: partial dispatch runs as a lone job (the drive
+    # loops have no partial mode), the others through FedAvgAPI.train
+    solo_bank = bank("solo_bank")
+    solo = {}
+    for desc in tenants(solo_bank):
+        if desc.partial_dispatch:
+            job, tracer = desc.build(), telemetry.Tracer()
+            while not job.step(tracer):
+                pass
+            solo[desc.name] = job.final_params()
+        else:
+            api = desc.build_api()
+            api.train(chaos=desc.chaos, bank=desc.bank)
+            solo[desc.name] = {k: v.cpu() for k, v in api.global_variables.items()}
+    del api, job
+    solo_bank.close()
+    torch.cuda.synchronize()
+    served_bank = bank("served_bank")
+    tracer = telemetry.Tracer()
+    sched = Scheduler("fair_share", tracer=tracer, max_resident=2,
+                      spill_dir=os.path.join(tmp, "spill"))
+    freed = []
+    evict = sched._evict
+
+    def measured_evict(job, reason="preempted"):
+        # the eviction collects cyclic garbage: collect the process's first,
+        # so the fall is the tenant's alone
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        evict(job, reason)
+        torch.cuda.synchronize()
+        freed.append((job.name, before, torch.cuda.memory_allocated()))
+
+    sched._evict = measured_evict
+    sync, fedbuff, pfl = tenants(served_bank)
+    launches = {d.name: {"fused_epoch": 0, **dict.fromkeys(attention.launches, 0)}
+                for d in (sync, fedbuff, pfl)}
+    sched.submit(sync)
+    sched.submit(fedbuff)
+    order = []
+    t0 = time.perf_counter()
+    while True:
+        if len(order) == 2:
+            sched.submit(pfl)
+        fused_sgd.launches = 0
+        for k in attention.launches:
+            attention.launches[k] = 0
+        name = sched.tick()
+        if name is None:
+            break
+        order.append(name)
+        for k, v in {"fused_epoch": fused_sgd.launches, **attention.launches}.items():
+            launches[name][k] += v
+    seconds = time.perf_counter() - t0
+    slo_ok, slo_report = sched.check_slo()
+    sched.close()
+    served_bank.close()
+    for name, want in solo.items():
+        job = sched.queue.get(name)
+        if not job.done or not params_equal(job.final_params(), want):
+            raise Disagreement(f"serving: tenant {name} differs from its solo run")
+    if dir_bytes(served_bank.root) != dir_bytes(solo_bank.root):
+        raise Disagreement("serving: the personalized tenant's bank differs from its solo "
+                           "run's")
+    if sched.evictions < 1 or not freed:
+        raise RuntimeError(f"serving: no eviction (order {order})")
+    for name, before, after in freed:
+        if not after < before:
+            raise RuntimeError(f"serving: evicting {name} left the allocated bytes at "
+                               f"{after} (from {before})")
+    if any(any(c.values()) for c in sched.compile_ledger.values()):
+        raise RuntimeError(f"serving: compile ledger {sched.compile_ledger}")
+    for name, counts in launches.items():
+        flash = sum(counts[k] for k in attention.launches)
+        if counts["fused_epoch"] or (flash > 0) != (name == "nwp-personalized"):
+            raise RuntimeError(f"serving: tenant {name} launched {counts}")
+    flash_launches["serving nwp tenant"] = {k: launches["nwp-personalized"][k]
+                                            for k in attention.launches}
+    log(f"serving: check_slo ok={slo_ok}\n{slo_report}")
+    # admission control: past max_queued 1, "reject" bounces a submission
+    gate_tracer = telemetry.Tracer()
+    gate = Scheduler(tracer=gate_tracer, admission="reject", max_queued=1, max_resident=1)
+    first = gate.submit(sync)
+    bounced = gate.submit(dataclasses.replace(fedbuff, name="fourth"))
+    gate.close()
+    if first is None or bounced is not None or gate.rejections != 1:
+        raise RuntimeError("serving: admission reject did not bounce the fourth submission")
+    out = {"order": order, "evictions": sched.evictions,
+           "freed_mb": [round((b - a) / 2 ** 20, 2) for _, b, a in freed],
+           "resumptions": len(tracer.find_events("job_resumed")),
+           "launches": launches, "slo_ok": slo_ok, "seconds": round(seconds, 1),
+           "latency_s": sched.slo_ledger.get("nwp-personalized", {}).get("latency_s")}
+    log(f"serving (fair share, 2 slots): every tenant bit for bit its solo run; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def run_serving(ds, nwp, reference: dict, flash_launches: dict) -> dict:
+    """Phase 11: LoRA, personalization and serving (see the module
+    docstring). ``reference`` is phase 3's NWP flash launches. Returns the
+    phase's numbers."""
+    import torch
+
+    started = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = {"lora": serving_lora(nwp, reference, flash_launches, tmp),
+                   "personalized": serving_personal(nwp, flash_launches, tmp),
+                   "tenants": serving_tenants(ds, nwp, flash_launches, tmp)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    if seconds > PHASE11_BUDGET_S:
+        log(f"WARNING phase 11 took {seconds:.1f} s, over its {PHASE11_BUDGET_S:.0f} s "
+            f"budget")
+    out["seconds"] = round(seconds, 1)
+    log(f"phase 11: {seconds:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2585,6 +3142,11 @@ def main(argv=None) -> int:
     parser.add_argument("--transport-only", action="store_true",
                         help="build the kernels, then run phase 10 alone (the codecs, "
                         "FedBuff and the superstep), checking it and printing no result")
+    parser.add_argument("--serving-only", action="store_true",
+                        help="build the kernels, then run phase 3's NWP path (for its "
+                        "launch counts) and phase 11 alone (LoRA, the client ledger, the "
+                        "adapter bank and the scheduler), checking it and printing no "
+                        "result")
     opts = parser.parse_args(argv)
     calibrate = opts.calibrate
     started = time.perf_counter()
@@ -2618,7 +3180,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if opts.launcher_only or opts.privacy_only or opts.transport_only:
+    if opts.launcher_only or opts.privacy_only or opts.transport_only or opts.serving_only:
         if opts.launcher_only:
             run_launcher({})
         if opts.privacy_only:
@@ -2629,6 +3191,15 @@ def main(argv=None) -> int:
             ds = capped(load_dataset("femnist", client_num_in_total=FEMNIST_CLIENTS,
                                      seed=SEED), CAP)
             run_transport(ds, load_nwp(), dev, {}, {})
+        if opts.serving_only:
+            from fedml_tpu_torch import load_dataset
+
+            ds = capped(load_dataset("femnist", client_num_in_total=FEMNIST_CLIENTS,
+                                     seed=SEED), CAP)
+            nwp = load_nwp()
+            _, reference = with_launches("nwp fedavg", list(attention.launches),
+                                         lambda: run_nwp_path(nwp))
+            run_serving(ds, nwp, reference, {})
         log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
         return 0
     if calibrate:
@@ -2703,6 +3274,10 @@ def main(argv=None) -> int:
     # ---- phase 10: the transport and asynchronous axes (codecs, FedBuff,
     # the superstep) on phase 3's data and configuration
     transport = run_transport(ds, nwp, dev, fused_launches, flash_launches)
+
+    # ---- phase 11: federated LoRA, the client ledger, the adapter bank and
+    # the multi-tenant scheduler (cells 20-22)
+    serving = run_serving(ds, nwp, flash_launches["nwp fedavg"], flash_launches)
     del ds, nwp
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
@@ -2745,6 +3320,7 @@ def main(argv=None) -> int:
     log(f"launcher: {json.dumps(launcher)}")
     log(f"privacy: {json.dumps(privacy)}")
     log(f"transport: {json.dumps(transport)}")
+    log(f"serving: {json.dumps(serving)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -327,9 +327,12 @@ def build_buffer_commit(aggregator, discount_fn):
     participation-mask path, so a full buffer with zero staleness feeds the
     aggregator the synchronous round's inputs. When every row quarantines,
     globals and aggregator state pass through unchanged. The buffer is only
-    read; the metrics are 0-d tensors on the device."""
+    read; the metrics are 0-d tensors on the device. Under LoRA the rows
+    are adapters only: the aggregator sees the stripped globals, and the
+    server's frozen base re-attaches to its output."""
     from fedml_tpu_torch.algorithms.engine import LocalResult
     from fedml_tpu_torch.core.builder import _select_state
+    from fedml_tpu_torch.models.lora import attach_lora_base, strip_lora_base
     from fedml_tpu_torch.utils.device import to_device
     from fedml_tpu_torch.utils.pytree import tree_where
 
@@ -345,10 +348,11 @@ def build_buffer_commit(aggregator, discount_fn):
         result = LocalResult(buf["vars"], buf["steps"], buf["metrics"])
         result, weights, alive, quarantined = quarantine_stage(
             result, weights, participation)
-        new_global, new_state = aggregator(global_variables, result, weights,
-                                           rng, agg_state)
+        trained = strip_lora_base(global_variables)
+        new_global, new_state = aggregator(trained, result, weights, rng, agg_state)
         any_alive = alive.any()
-        new_global = tree_where(any_alive, new_global, global_variables)
+        new_global = tree_where(any_alive, new_global, trained)
+        new_global = attach_lora_base(new_global, global_variables)
         new_state = _select_state(any_alive, new_state, agg_state)
         metrics = {n: v.sum() for n, v in result.metrics.items()}
         metrics["participated_count"] = alive.sum().float()

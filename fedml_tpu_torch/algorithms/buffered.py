@@ -46,8 +46,9 @@ from fedml_tpu_torch.algorithms.aggregators import (build_buffer_admit,
                                                     build_buffer_commit,
                                                     init_buffer,
                                                     make_staleness_discount)
-from fedml_tpu_torch.algorithms.engine import _batched_update
+from fedml_tpu_torch.algorithms.engine import _batched_update, cohort_stats
 from fedml_tpu_torch.data.prefetch import CohortPrefetcher
+from fedml_tpu_torch.models.lora import strip_lora_base
 from fedml_tpu_torch.robustness.chaos import summarize as chaos_summary
 from fedml_tpu_torch.telemetry.records import RoundRecordLog, fetch_scalars
 from fedml_tpu_torch.utils.pytree import tree_map
@@ -56,16 +57,19 @@ log = logging.getLogger(__name__)
 
 
 def build_client_step_fn(trainer, cfg):
-    """client_step(global_variables, x, y, counts, rng, host_counts) ->
-    stacked LocalResult: the synchronous round's client loop without the
-    aggregation, drawing the clients' streams from ``rng`` as the round
-    does, so a buffered and a synchronous run at the same generator train
-    the same client updates bit for bit."""
+    """client_step(global_variables, x, y, counts, rng, host_counts, stats)
+    -> (stacked LocalResult, ledger stats rows or None): the synchronous
+    round's client loop without the aggregation, drawing the clients'
+    streams from ``rng`` as the round does, so a buffered and a synchronous
+    run at the same generator train the same client updates bit for bit.
+    The stats rows (``engine.cohort_stats``) are computed when ``stats``;
+    they only read the results."""
     batched = _batched_update(trainer, cfg)
 
-    def client_step(global_variables, x, y, counts, rng, host_counts=None):
-        return batched(global_variables, x, y, counts, rng, None, None,
-                       host_counts)
+    def client_step(global_variables, x, y, counts, rng, host_counts=None, stats=True):
+        result = batched(global_variables, x, y, counts, rng, None, None, host_counts)
+        return result, (cohort_stats(strip_lora_base(global_variables), result)
+                        if stats else None)
 
     return client_step
 
@@ -189,8 +193,8 @@ class BufferedRunner:
         tracer.event("buffer_committed", round=commit_round, size=host.fill,
                      staleness_p50=p50, staleness_max=int(smax))
         telemetry.gauge("staleness", round=commit_round, p50=p50, max=int(smax))
-        # per-client staleness for a client ledger (dropped by the record
-        # log while none can be attached)
+        # per-client staleness for the client ledger (the record log drops
+        # it when none is attached)
         ledger_blocks.append({"round": commit_round,
                               "client_idx": np.asarray(host.row_clients, np.int64),
                               "staleness": np.asarray(staleness, np.int32)})
@@ -212,11 +216,13 @@ class BufferedRunner:
             src = host.pending[birth]
             with tracer.span("admit", now):
                 # a codec's admit decodes the row's delta against the
-                # current globals, the reference the commit applies it to
+                # current globals, the reference the commit applies it to;
+                # stripped: under LoRA the rows are adapters only
                 api._buffer = self.admit_fn(
                     api._buffer, src["vars"], src["steps"], src["metrics"],
                     src["counts"], slot, host.fill,
-                    api.global_variables if self.codec is not None else None)
+                    strip_lora_base(api.global_variables)
+                    if self.codec is not None else None)
             host.fill += 1
             self.in_flight -= 1
             host.births.append(birth)
@@ -243,9 +249,11 @@ class BufferedRunner:
         if staged is not None:
             staged.wait()
             with tracer.span("dispatch", round_idx):
-                result = self.client_step(api.global_variables, staged.x,
-                                          staged.y, staged.counts, rng_round,
-                                          staged.host_counts())
+                # the ledger's rows, while one is attached
+                result, stats = self.client_step(api.global_variables, staged.x,
+                                                 staged.y, staged.counts, rng_round,
+                                                 staged.host_counts(),
+                                                 api._drive_ledger is not None)
             if api._buffer is None:
                 api._buffer = init_buffer(result, self.k)
             n = len(staged.client_idx)
@@ -266,7 +274,7 @@ class BufferedRunner:
                             if staged.faults is not None else np.ones(n, bool))
             ledger_blocks.append({"round": round_idx,
                                   "client_idx": np.asarray(staged.client_idx),
-                                  "participated": participated})
+                                  "participated": participated, "stats": stats})
             staged.release()
         commit_metrics: list = []
         n_commits = self.process_arrivals(round_idx, rng_round, commit_metrics,
@@ -308,7 +316,7 @@ def _sum_metrics(commit_metrics: list) -> dict:
 
 
 def train_buffered(api, start_round: int, ckpt_dir, ckpt_every, metrics_logger,
-                   chaos, guard, tracer, discount_fn=None) -> None:
+                   chaos, guard, tracer, ledger=None, discount_fn=None) -> None:
     """The buffered drive loop (``cfg.buffer_size > 0``), called from
     ``FedAvgAPI.train`` inside its tracer and checkpoint scaffolding.
 
@@ -322,7 +330,7 @@ def train_buffered(api, start_round: int, ckpt_dir, ckpt_every, metrics_logger,
     runner = BufferedRunner(api, chaos=chaos, discount_fn=discount_fn)
     api._last_runner = runner
     host = runner.host
-    records = RoundRecordLog(tracer, api.history, metrics_logger)
+    records = RoundRecordLog(tracer, api.history, metrics_logger, ledger=ledger)
     prefetcher = None
     if cfg.pipeline_depth > 0:
         prefetcher = CohortPrefetcher(lambda r: api.stage_fn(r, chaos=chaos),

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.core.config import FedConfig
+from fedml_tpu_torch.models.lora import lora_base, strip_lora_base
 from fedml_tpu_torch.utils.device import resolve_device, to_device
 from fedml_tpu_torch.utils.pytree import split_variables
 
@@ -202,14 +203,17 @@ def make_local_optimizer(cfg: FedConfig) -> Optimizer:
 
 def _build_epoch_fn(trainer, cfg: FedConfig, opt: Optimizer) -> Callable:
     """epoch_fn(params, state, opt_state, global_params, x, y, count,
-    generator, perm) -> (params, state, opt_state, steps, metric sums): one
-    local epoch of minibatch steps over one client. With ``cfg.fedprox_mu``
-    the loss gains FedProx's 0.5 * mu * sum ||p - g||^2 against the round's
-    global parameters."""
+    generator, perm, frozen) -> (params, state, opt_state, steps, metric
+    sums): one local epoch of minibatch steps over one client. With
+    ``cfg.fedprox_mu`` the loss gains FedProx's 0.5 * mu * sum ||p - g||^2
+    against the round's global parameters. ``frozen`` (LoRA's base, keys
+    under ``lora_base/``) joins the variables the loss reads, and nothing
+    differentiates or updates it."""
     full = cfg.assume_full_clients
     mu = cfg.fedprox_mu
 
-    def epoch_fn(params, state, opt_state, global_params, x, y, count, generator, perm):
+    def epoch_fn(params, state, opt_state, global_params, x, y, count, generator, perm,
+                 frozen):
         n_max = x.shape[0]
         b = n_max if cfg.batch_size <= 0 else min(cfg.batch_size, n_max)
         nb = math.ceil(n_max / b)
@@ -238,8 +242,8 @@ def _build_epoch_fn(trainer, cfg: FedConfig, opt: Optimizer) -> Callable:
                 continue  # an all-padding batch is no step: params and state stay
             batch = {"x": xe[i], "y": ye[i], "mask": mask[i]}
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            loss, (new_state, aux) = trainer.loss_fn({**leaves, **state}, batch, generator,
-                                                     True)
+            loss, (new_state, aux) = trainer.loss_fn({**leaves, **state, **frozen}, batch,
+                                                     generator, True)
             if mu > 0.0:
                 sq = sum(((leaves[k] - global_params[k]) ** 2).sum() for k in keys)
                 loss = loss + 0.5 * mu * sq
@@ -262,41 +266,74 @@ def build_local_update(trainer, cfg: FedConfig) -> Callable:
     LocalResult for one client. x: [n_max, ...]; count: valid rows (int);
     perms: [epochs, n_max] or None (stored order). Runs cfg.epochs epochs
     with one optimizer state over the parameters, made here and carried
-    across batches and epochs; the metrics are those of the last epoch."""
+    across batches and epochs; the metrics are those of the last epoch.
+
+    Federated LoRA (``models/lora.py``): the frozen base leaves the client's
+    result here, so the cohort-stacked tree never holds C copies of it;
+    aggregation, codecs, the buffer and the wire see adapters only, and the
+    round re-attaches the server's base."""
     if cfg.epochs < 1:
         raise ValueError(f"cfg.epochs must be >= 1, got {cfg.epochs}")
     opt = make_local_optimizer(cfg)
     epoch_fn = _build_epoch_fn(trainer, cfg, opt)
 
     def local_update(global_variables, x, y, count, generator, perms=None):
-        params, state = split_variables(global_variables)
+        frozen = lora_base(global_variables)
+        trained = strip_lora_base(global_variables)
+        params, state = split_variables(trained)
         global_params = params
         opt_state = opt.init(params)
         steps = 0
         for e in range(cfg.epochs):
             perm = perms[e] if perms is not None else None
             params, state, opt_state, n, metrics = epoch_fn(
-                params, state, opt_state, global_params, x, y, count, generator, perm)
+                params, state, opt_state, global_params, x, y, count, generator, perm,
+                frozen)
             steps += n
-        variables = {k: params[k] if k in params else state[k] for k in global_variables}
+        variables = {k: params[k] if k in params else state[k] for k in trained}
         return LocalResult(variables, steps, metrics)
 
     return local_update
 
 
-def _batched_update(trainer, cfg: FedConfig) -> Callable:
+def build_personal_local_update(trainer, cfg: FedConfig) -> Callable:
+    """personal_update(gv, x, y, count, generator, perms, personal) ->
+    (LocalResult, new_personal): the personalized client step.
+
+    The client trains the EFFECTIVE adapters ``gv``'s parameters plus its
+    personal row (the zero row, a client the bank never wrote, is the
+    identity, so that client's step is the shared round's bit for bit)
+    through the shared round's ``local_update``. The trained adapters go to
+    the aggregator as in the shared round; the client's new personal row
+    is the residual ``trained - global`` and returns beside the result,
+    never entering aggregation or the wire."""
+    local_update = build_local_update(trainer, cfg)
+
+    def personal_update(global_variables, x, y, count, generator, perms, personal):
+        effective = {**global_variables,
+                     **{k: global_variables[k] + p for k, p in personal.items()}}
+        result = local_update(effective, x, y, count, generator, perms)
+        new_personal = {k: result.variables[k] - global_variables[k] for k in personal}
+        return result, new_personal
+
+    return personal_update
+
+
+def _batched_update(trainer, cfg: FedConfig, personal: bool = False) -> Callable:
     """batched(gv, x[C, ...], y, counts, rng, seeds, perms, host_counts)
     -> LocalResult stacked over clients: the client axis as a loop over
-    local_update.
+    local_update. With ``personal`` the call takes one more argument, the
+    cohort's stacked personal rows [C, ...], and returns (LocalResult, new
+    personal rows stacked [C, ...]) (``build_personal_local_update``).
 
     ``host_counts`` is a host copy of ``counts`` (the staged cohort's
     pinned source): the loop reads the counts there and not from the
     device, which would wait for the work queued before the round. The
     permutations reach the device in one pinned copy a round."""
-    local_update = build_local_update(trainer, cfg)
+    update = (build_personal_local_update if personal else build_local_update)(trainer, cfg)
 
     def batched(global_variables, x, y, counts, rng, seeds=None, perms=None,
-                host_counts=None):
+                host_counts=None, personal_rows=None):
         cl, n_max = x.shape[0], x.shape[1]
         counts_host = [int(c) for c in (counts.cpu() if host_counts is None
                                         else host_counts)]
@@ -308,19 +345,27 @@ def _batched_update(trainer, cfg: FedConfig) -> Callable:
             perms = drawn_perms
         if perms is not None:
             perms = to_device(perms, x.device)
-        results = []
+        results, rows = [], []
         for c in range(cl):
             gen = torch.Generator(device=x.device).manual_seed(int(seeds[c]))
-            results.append(local_update(
-                global_variables, x[c], y[c], counts_host[c], gen,
-                perms[c] if perms is not None else None))
+            args = (global_variables, x[c], y[c], counts_host[c], gen,
+                    perms[c] if perms is not None else None)
+            if personal:
+                out, row = update(*args, {k: v[c] for k, v in personal_rows.items()})
+                rows.append(row)
+            else:
+                out = update(*args)
+            results.append(out)
         variables = {k: torch.stack([r.variables[k] for r in results])
                      for k in results[0].variables}
         metrics = {k: torch.stack([r.metrics[k] for r in results])
                    for k in results[0].metrics}
         steps = to_device(torch.tensor([r.num_steps for r in results],
                                        dtype=torch.int32), x.device)
-        return LocalResult(variables, steps, metrics)
+        result = LocalResult(variables, steps, metrics)
+        if personal:
+            return result, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        return result
 
     return batched
 
@@ -349,7 +394,8 @@ def cohort_stats(global_variables: dict, result: LocalResult) -> dict:
 
 
 def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
-                   param_sharding=None, device="cuda") -> Callable:
+                   param_sharding=None, device="cuda",
+                   collect_stats: bool = False) -> Callable:
     """Synchronous round: every sampled client's local update, then the
     aggregator. Runs on ``device`` (``cuda`` unless the caller asks for the
     CPU); x, y and counts are moved there.
@@ -362,6 +408,13 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
     compressed update transport (``core.builder.wrap_codec``, one residual
     row a cohort slot); its state is then ``{"agg": ..., "codec": ...}``.
     ``codec=None`` builds the round without a codec.
+
+    ``collect_stats=True`` makes the round return a fourth output, the
+    client ledger's per-client rows (``cohort_stats``), from the same
+    round: (new_global, agg_state, metrics, stats). A call's ``stats=False``
+    skips computing them (the fourth output is then None): ``FedAvgAPI``
+    asks for them only while a ledger is attached. They only read the
+    round's results, so the other outputs are the same bits either way.
     """
     device = resolve_device(device)
     cfg.validate(device=device)
@@ -383,7 +436,7 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
         specialized: dict = {}
 
         def fused_round(gv, agg_state, x, y, counts, rng, participation=None,
-                        seeds=None, perms=None, host_counts=None):
+                        seeds=None, perms=None, host_counts=None, stats=collect_stats):
             # the per-client sample count is data geometry: one spec per
             # cohort shape
             key = tuple(x.shape)
@@ -395,10 +448,10 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
                     compute_dtype=module.dtype,
                     drop1=float(module.drop1), drop2=float(module.drop2))
                 specialized[key] = build_fused_round_fn(
-                    spec, aggregator, shuffle=cfg.shuffle)
+                    spec, aggregator, shuffle=cfg.shuffle, collect_stats=collect_stats)
             return specialized[key](gv, agg_state, x.to(device), y.to(device),
                                     counts.to(device), rng, participation,
-                                    seeds, perms)
+                                    seeds, perms, stats=stats)
 
         return fused_round
     if param_sharding is not None:
@@ -410,29 +463,72 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
     # already (FedAvgAPI does, before init_state, so that its state holds
     # the residuals)
     aggregator = wrap_codec(aggregator, codec, slots=cfg.client_num_per_round)
-    core = build_round_core(_batched_update(trainer, cfg), aggregator)
+    core = build_round_core(_batched_update(trainer, cfg), aggregator, collect_stats)
 
     def round_fn(gv, agg_state, x, y, counts, rng, participation=None,
-                 seeds=None, perms=None, host_counts=None):
+                 seeds=None, perms=None, host_counts=None, stats=collect_stats):
         if participation is not None:
             participation = participation.to(device)
-        return core(gv, agg_state, x.to(device), y.to(device),
-                    counts.to(device), rng, participation, seeds, perms,
-                    host_counts)
+        out = core(gv, agg_state, x.to(device), y.to(device),
+                   counts.to(device), rng, participation, seeds, perms,
+                   host_counts, stats)
+        return out if collect_stats else out[:3]
+
+    return round_fn
+
+
+def build_personal_round_fn(trainer, cfg: FedConfig, aggregator, device="cuda",
+                            collect_stats: bool = False) -> Callable:
+    """The personalized round: the personal client step over the cohort,
+    then the shared round's aggregation, returning the cohort's updated
+    personal adapter rows UNAGGREGATED:
+
+        round_fn(gv, agg_state, x, y, counts, rng, personal,
+                 participation=None, seeds=None, perms=None, host_counts=None,
+                 stats=collect_stats)
+            -> (new_global, agg_state, metrics[, stats], new_personal)
+
+    ``personal`` is the [C, ...] stacked adapter rows of the cohort
+    (``models/adapter_bank.py``'s gather, on the device); the drive
+    scatters ``new_personal`` back through the record log's deferred fetch.
+    The aggregator sees the TRAINED effective adapters; the personal rows
+    never reach it. There is no codec argument by design: codec x
+    personalization is excluded (``core/config.py``). Requires a LoRA
+    trainer (``lora_rank`` > 0). Dropped and quarantined clients keep their
+    OLD rows bit for bit (``core.builder.build_personal_round_core``)."""
+    device = resolve_device(device)
+    cfg.validate(device=device)
+    from fedml_tpu_torch.core.builder import build_personal_round_core
+
+    core = build_personal_round_core(_batched_update(trainer, cfg, personal=True),
+                                     aggregator, collect_stats)
+
+    def round_fn(gv, agg_state, x, y, counts, rng, personal, participation=None,
+                 seeds=None, perms=None, host_counts=None, stats=collect_stats):
+        if participation is not None:
+            participation = participation.to(device)
+        out = core(gv, agg_state, x.to(device), y.to(device), counts.to(device), rng,
+                   participation, personal, seeds, perms, host_counts, stats)
+        return out if collect_stats else out[:3] + out[4:]
 
     return round_fn
 
 
 def build_superstep_fn(trainer, cfg: FedConfig, aggregator, num_rounds: int, *,
-                       client_num_in_total: int, chaos_armed: bool = False) -> Callable:
+                       client_num_in_total: int, chaos_armed: bool = False,
+                       collect_stats: bool = False) -> Callable:
     """K federated rounds in one dispatch, each the synchronous round's core
     (``core.builder.build_round_core``) on the round's generator
     ``fedavg.round_generator(seed, round_idx)``: bit for bit K eager rounds
     (tests/test_torch_superstep.py). The caller passes the aggregator its
     eager round uses (codec-wrapped and all), so the states line up.
 
-    superstep(gv, agg_state, data_x, data_y, data_counts, per_round)
-        -> (gv, agg_state, metrics with a leading [K] axis)
+    superstep(gv, agg_state, data_x, data_y, data_counts, per_round,
+              stats=collect_stats)
+        -> (gv, agg_state, metrics with a leading [K] axis[, stats [K, C]])
+
+    (the stats with ``collect_stats``, None for a call's ``stats=False``, as
+    ``build_round_fn``).
 
     ``data_*`` is the whole train store on the device
     (``data.packed_store.resident_train_arrays``); each round gathers its
@@ -460,17 +556,17 @@ def build_superstep_fn(trainer, cfg: FedConfig, aggregator, num_rounds: int, *,
     from fedml_tpu_torch.algorithms.fedavg import round_generator
     from fedml_tpu_torch.core.builder import build_round_core
 
-    core = build_round_core(_batched_update(trainer, cfg), aggregator)
+    core = build_round_core(_batched_update(trainer, cfg), aggregator, collect_stats)
     cohort = min(cfg.client_num_per_round, int(client_num_in_total))
 
     def superstep(global_variables, agg_state, data_x, data_y, data_counts,
-                  per_round):
+                  per_round, stats=collect_stats):
         gv, st = global_variables, agg_state
         rounds = list(per_round["round_idx"])
         if len(rounds) != num_rounds:
             raise ValueError(f"a {num_rounds}-round superstep was handed "
                              f"{len(rounds)} rounds")
-        out = []
+        out, rows = [], []
         for j, round_idx in enumerate(rounds):
             idx = per_round["idx"][j]
             xs = data_x.index_select(0, idx)
@@ -486,11 +582,16 @@ def build_superstep_fn(trainer, cfg: FedConfig, aggregator, num_rounds: int, *,
                                             device=xs.device), xs)
                 participation = per_round["participation"][j]
             rng = round_generator(cfg.seed, int(round_idx))
-            gv, st, metrics = core(gv, st, xs, ys, cs, rng, participation,
-                                   None, None, per_round["host_counts"][j])
+            gv, st, metrics, round_rows = core(gv, st, xs, ys, cs, rng, participation,
+                                               None, None, per_round["host_counts"][j],
+                                               stats)
             out.append(metrics)
+            rows.append(round_rows)
         metrics = {k: torch.stack([m[k] for m in out]) for k in out[0]}
-        return gv, st, metrics
+        if not collect_stats:
+            return gv, st, metrics
+        return gv, st, metrics, ({k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+                                 if stats else None)
 
     return superstep
 
@@ -548,3 +649,41 @@ def build_eval_fn(trainer) -> Callable:
         return sums
 
     return eval_fn
+
+
+def build_client_eval_fn(trainer) -> Callable:
+    """eval(variables, x[C, n_max, ...], y, counts) -> per-client metric
+    sums, each [C]: every client's rows masked to its count, one forward
+    pass per client (the JAX package's vmap over clients)."""
+
+    @torch.no_grad()
+    def eval_fn(variables, x, y, counts):
+        rows = _per_client_eval(trainer, [variables] * x.shape[0], x, y, counts)
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    return eval_fn
+
+
+def build_personal_client_eval_fn(trainer) -> Callable:
+    """eval(variables, personal[C, ...], x[C, n_max, ...], y, counts) ->
+    per-client metric sums, each [C], client c under its EFFECTIVE
+    adapters: ``variables``' plus its personal row (the personalization
+    lift's probe). The same masked eval as ``build_client_eval_fn``."""
+
+    @torch.no_grad()
+    def eval_fn(variables, personal, x, y, counts):
+        per_client = [{**variables, **{k: variables[k] + p[c] for k, p in personal.items()}}
+                      for c in range(x.shape[0])]
+        rows = _per_client_eval(trainer, per_client, x, y, counts)
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    return eval_fn
+
+
+def _per_client_eval(trainer, variables_list, x, y, counts) -> list:
+    """Client c's eval sums under ``variables_list[c]``, its rows past its
+    count masked."""
+    mask = (torch.arange(x.shape[1], device=x.device)[None]
+            < counts.to(x.device)[:, None]).to(torch.float32)
+    return [trainer.eval_fn(v, {"x": x[c], "y": y[c], "mask": mask[c]})
+            for c, v in enumerate(variables_list)]

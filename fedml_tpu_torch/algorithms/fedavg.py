@@ -11,8 +11,12 @@ deferred transfer), the buffered loop (``cfg.buffer_size`` > 0,
 > 1: K rounds a dispatch from the device-resident store), the update
 codecs (``cfg.update_codec``), chaos faults, the round guard's rollback
 and salted retry, checkpoints and resume, the tracer and the metrics
-logger, ``test_global`` and ``local_test_on_all_clients``. The client
-ledger and the adapter bank raise ``NotImplementedError`` when asked for.
+logger, ``test_global`` and ``local_test_on_all_clients``; federated LoRA
+(``cfg.lora_rank``: adapters-only rounds and checkpoints), the client
+ledger (``train(ledger=)``) and per-client personalization from the
+adapter bank (``cfg.personalize`` with ``train(bank=)``: the personalized
+round in the eager and pipelined loops, ``--adapter_clusters`` rows and
+``personalization_lift``).
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ import torch
 
 from fedml_tpu_torch import telemetry
 from fedml_tpu_torch.algorithms.aggregators import make_aggregator
-from fedml_tpu_torch.algorithms.engine import (build_eval_fn, build_round_fn,
+from fedml_tpu_torch.algorithms.engine import (build_client_eval_fn, build_eval_fn,
+                                               build_personal_client_eval_fn,
+                                               build_personal_round_fn, build_round_fn,
                                                stage_to_device)
 from fedml_tpu_torch.algorithms.sampling import feistel_host
 from fedml_tpu_torch.codecs import make_codec
@@ -37,6 +43,7 @@ from fedml_tpu_torch.core.config import FedConfig
 from fedml_tpu_torch.data.packing import pack_eval_batches, pad_clients
 from fedml_tpu_torch.data.prefetch import CohortPrefetcher, StagedCohort
 from fedml_tpu_torch.data.registry import FederatedDataset
+from fedml_tpu_torch.models.lora import attach_lora_base, maybe_wrap_lora, strip_lora_base
 from fedml_tpu_torch.robustness.chaos import apply_faults, summarize as chaos_summary
 from fedml_tpu_torch.telemetry.records import RoundRecordLog, fetch_scalars
 from fedml_tpu_torch.utils.checkpoint import Checkpointable
@@ -51,6 +58,9 @@ log = logging.getLogger(__name__)
 # 20 x 10,004, so there the logits bound the pass (512 MiB of float32).
 _EVAL_ROWS = 4096
 _EVAL_LOGITS = 2 ** 27
+_NEEDS_BANK = ("personalize=True needs an attached adapter bank "
+               "(models/adapter_bank.py) — pass --adapter_bank_dir on the "
+               "CLI or train(bank=...)")
 
 
 def client_sampling(round_idx: int, client_num_in_total: int,
@@ -99,7 +109,13 @@ class FedAvgAPI(Checkpointable):
     the caller passes ``device="cpu"``). ``global_variables`` holds the
     model's parameters and its state (a BatchNorm's running statistics);
     the rounds carry both, and the evaluations read the running
-    statistics (eval mode)."""
+    statistics (eval mode).
+
+    With ``cfg.lora_rank`` > 0 the trainer is wrapped in LoRA
+    (``models.lora.maybe_wrap_lora``; a LoRA trainer passes as it is): the
+    globals then hold the adapters and the frozen base under
+    ``lora_base/``, and the aggregator, its state and the checkpoints see
+    the adapters only."""
 
     def __init__(self, dataset: FederatedDataset, config: FedConfig,
                  model_trainer, aggregator_name: str = "fedavg",
@@ -107,6 +123,7 @@ class FedAvgAPI(Checkpointable):
         self.device = resolve_device(device)
         self.dataset = dataset
         self.cfg = config.validate(device=self.device)
+        model_trainer = maybe_wrap_lora(model_trainer, config)
         self.trainer = model_trainer
         self.aggregator = make_aggregator(aggregator_name, config)
         # the compressed update transport: None keeps every path as it was
@@ -119,13 +136,27 @@ class FedAvgAPI(Checkpointable):
             self.aggregator = wrap_codec(
                 self.aggregator, self.codec,
                 min(config.client_num_per_round, dataset.client_num))
-        self.round_fn = build_round_fn(model_trainer, config, self.aggregator,
-                                       device=self.device)
+        # the rounds compute the client ledger's stats rows while a ledger
+        # is attached (_dispatch's stats flag); the rows only read a round's
+        # results, so the globals are the same bits with a ledger or without
+        self._personalized = bool(config.personalize)
+        build = build_personal_round_fn if self._personalized else build_round_fn
+        self.round_fn = build(model_trainer, config, self.aggregator, device=self.device,
+                              collect_stats=True)
+        #: the attached personal adapter bank (models/adapter_bank.py), set
+        #: by train(bank=...) or directly; a personalized run needs one
+        self.bank = None
+        self._drive_ledger = None
+        self._last_dispatch = None
+        self._last_personal = None
         self.eval_fn = build_eval_fn(model_trainer)
+        self.client_eval_fn = build_client_eval_fn(model_trainer)
+        self._personal_eval_fn = (build_personal_client_eval_fn(model_trainer)
+                                  if self._personalized else None)
         self.history: list[dict[str, Any]] = []
         self.global_variables = model_trainer.init(
             torch.Generator().manual_seed(config.seed), self.device)
-        self.agg_state = self.aggregator.init_state(self.global_variables)
+        self.agg_state = self.aggregator.init_state(strip_lora_base(self.global_variables))
         bs = config.batch_size if config.batch_size > 0 else 256
         self._test_batches = tuple(
             torch.from_numpy(a).to(self.device)
@@ -156,6 +187,7 @@ class FedAvgAPI(Checkpointable):
         if tracer is None:
             tracer = telemetry.get_tracer() or telemetry.NULL_TRACER
         staged = self.stage_fn(round_idx, faults=faults, tracer=tracer)
+        self._gather_personal(staged, tracer)
         with tracer.span("dispatch", round_idx):
             metrics = self._dispatch(staged, rng_salt)
         with tracer.span("metrics_fetch", round_idx):
@@ -167,13 +199,24 @@ class FedAvgAPI(Checkpointable):
         """Run the round on a staged cohort; returns the train metrics as
         0-d tensors on the device. On the card the compute stream first
         waits for the cohort's copies, and the round reads the counts from
-        their pinned source: nothing in the round waits for the device."""
+        their pinned source: nothing in the round waits for the device.
+        The round's ledger stats (computed only while a ledger is attached)
+        and, personalized, the new personal rows (of the cohort's gathered
+        ``personal``) stay on the device in ``_last_dispatch`` /
+        ``_last_personal`` until the record log's deferred fetch."""
         staged.wait()
         rng = round_generator(self.cfg.seed, staged.round_idx, rng_salt)
-        self.global_variables, self.agg_state, metrics = self.round_fn(
-            self.global_variables, self.agg_state, staged.x, staged.y,
-            staged.counts, rng, staged.participation, None, None,
-            staged.host_counts())
+        args = [self.global_variables, self.agg_state, staged.x, staged.y,
+                staged.counts, rng]
+        if self._personalized:
+            args.append(staged.personal["tree"])
+        # the last argument: whether the round computes the ledger's rows
+        out = self.round_fn(*args, staged.participation, None, None,
+                            staged.host_counts(), self._drive_ledger is not None)
+        self.global_variables, self.agg_state, metrics, stats = out[:4]
+        self._last_dispatch = (staged, stats)
+        self._last_personal = ((staged.personal["rows"], out[4])
+                               if self._personalized else None)
         return metrics
 
     @staticmethod
@@ -202,13 +245,26 @@ class FedAvgAPI(Checkpointable):
         to the checkpoints when ``ckpt_dir`` is given) and closed at the
         end. The tracer is installed as the telemetry seam for the drive,
         so the chaos harness, the prefetcher and checkpoints emit into it,
-        from the stager thread too. ``ledger`` and ``bank`` are not ported
-        and raise."""
-        for name, value in (("ledger", ledger), ("bank", bank)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"train({name}=...) is not ported to fedml_tpu_torch yet")
+        from the stager thread too.
+
+        ``ledger`` (``telemetry.client_ledger.ClientLedger``) attaches the
+        per-client health ledger: every round's stats rows scatter into it
+        from the record log's flush. It changes no round and adds no sync
+        point: the globals are the same bits with it on or off.
+
+        ``bank`` (``models.adapter_bank.AdapterBank``) attaches the personal
+        adapter bank a personalized run needs: the cohort's rows are
+        gathered when the loop takes the cohort, the round's updated rows ride the record log's
+        deferred fetch and scatter back at its flush, and test rounds
+        measure ``personalization_lift``. Cluster rows
+        (``cfg.adapter_clusters``) are assigned from the attached ledger's
+        ``ema_loss`` column."""
         cfg = self.cfg.validate(chaos=chaos is not None, device=self.device)
+        if bank is not None:
+            self.bank = bank
+        if cfg.personalize and self.bank is None:
+            raise ValueError(_NEEDS_BANK)
+        self._drive_ledger = ledger
         owns_tracer = tracer is None
         if tracer is None:
             tracer = telemetry.Tracer(
@@ -229,11 +285,14 @@ class FedAvgAPI(Checkpointable):
                             else self._train_eager)
                     args = ()
                 loop(*args, start_round, ckpt_dir, ckpt_every, metrics_logger,
-                     chaos, guard, tracer)
+                     chaos, guard, tracer, ledger)
                 if ckpt_dir:
                     with tracer.span("checkpoint"):
                         self.save_checkpoint(ckpt_dir, cfg.comm_round)
         finally:
+            if self.bank is not None:
+                # a resumed run must read the bank's rows bit for bit
+                self.bank.flush()
             telemetry.uninstall(tracer)
             if owns_tracer:
                 tracer.close()
@@ -244,12 +303,16 @@ class FedAvgAPI(Checkpointable):
         return (round_idx % cfg.frequency_of_the_test == 0
                 or round_idx == cfg.comm_round - 1)
 
+    def _records(self, tracer, metrics_logger, ledger) -> RoundRecordLog:
+        return RoundRecordLog(tracer, self.history, metrics_logger, ledger=ledger,
+                              bank=self.bank)
+
     def _train_eager(self, start_round, ckpt_dir, ckpt_every, metrics_logger,
-                     chaos, guard, tracer) -> None:
+                     chaos, guard, tracer, ledger=None) -> None:
         """Synchronous drive loop: stage, dispatch, wait, fetch, every phase
         in turn. Records commit through the RoundRecordLog of the pipelined
         loop, flushed every round."""
-        records = RoundRecordLog(tracer, self.history, metrics_logger)
+        records = self._records(tracer, metrics_logger, ledger)
         round_idx = start_round
         while round_idx < self.cfg.comm_round:
             round_idx = self._eager_round(round_idx, records, chaos=chaos,
@@ -279,7 +342,7 @@ class FedAvgAPI(Checkpointable):
                     retries += 1
                     continue
                 self._commit(round_idx, rspan, train_metrics, faults, guard,
-                             retries, records, tracer)
+                             retries, records, tracer, self._round_blocks(round_idx))
                 records.flush(round_idx)
                 self._maybe_save(ckpt_dir, ckpt_every, round_idx, tracer)
             return round_idx + 1
@@ -309,13 +372,13 @@ class FedAvgAPI(Checkpointable):
         return False
 
     def _commit(self, round_idx, rspan, train_metrics, faults, guard, retries,
-                records, tracer) -> None:
+                records, tracer, blocks=None) -> None:
         """Assemble the round's history record (train metrics, which may
         still be tensors on the device, the chaos counts, the guard's
-        retries and, on test rounds, the evaluations) and add it to
-        ``records``."""
+        retries, ``blocks``: the ``_ledger``/``_bank`` blocks, and on test
+        rounds the evaluations) and add it to ``records``."""
         record = {"round": round_idx, "round_time": rspan.elapsed(),
-                  **train_metrics}
+                  **train_metrics, **(blocks or {})}
         if faults is not None:
             record.update(chaos_summary(faults))
         if guard is not None and retries:
@@ -324,7 +387,68 @@ class FedAvgAPI(Checkpointable):
             with tracer.span("eval", round_idx):
                 record.update(self.local_test_on_all_clients(round_idx))
                 record.update(self.test_global(round_idx))
+                record.update(self.personalization_lift(round_idx))
         records.add(record)
+
+    def _round_blocks(self, round_idx: int) -> dict:
+        """The last dispatch's ``_ledger`` and ``_bank`` record blocks:
+        device tensors until the record log's deferred fetch."""
+        staged, stats = self._last_dispatch
+        blocks = {}
+        block = self._ledger_block(round_idx, staged, stats)
+        if block is not None:
+            blocks["_ledger"] = [block]
+        if self._last_personal is not None:
+            rows, new_personal = self._last_personal
+            blocks["_bank"] = [{"round": round_idx, "client_idx": np.asarray(rows),
+                                "rows": new_personal}]
+        return blocks
+
+    @staticmethod
+    def _ledger_block(round_idx, staged, stats):
+        """One cohort's stats block for a record's ``_ledger`` key (None
+        without stats)."""
+        if stats is None:
+            return None
+        n = len(staged.client_idx)
+        participated = (np.asarray(staged.faults.participation, bool)
+                        if staged.faults is not None else np.ones(n, bool))
+        return {"round": round_idx, "client_idx": np.asarray(staged.client_idx),
+                "participated": participated, "stats": stats}
+
+    def _bank_rows(self, idx) -> np.ndarray:
+        """The bank rows of a cohort: the client ids (one row a client), or
+        with ``cfg.adapter_clusters`` K their EMA-loss cluster buckets
+        (``adapter_bank.cluster_rows``) from the attached ledger's
+        ``ema_loss`` column (a missing ledger reads as loss 0, bucket 0)."""
+        idx = np.asarray(idx, np.int64)
+        k = self.cfg.adapter_clusters
+        if k <= 0:
+            return idx
+        from fedml_tpu_torch.models.adapter_bank import cluster_rows
+
+        ledger = self._drive_ledger
+        ema = (np.asarray(ledger.column("ema_loss"))[idx] if ledger is not None
+               else np.zeros(idx.size, np.float32))
+        return cluster_rows(ema, k)
+
+    def _gather_personal(self, staged: StagedCohort, tracer) -> None:
+        """Personalized, set ``staged.personal`` to {"rows": the cohort's
+        bank rows, "tree": their adapters on the device}: the host gather
+        (O(cohort) preads), then pinned copies that do not wait for the
+        device. A loop calls it when it takes a cohort to dispatch, after
+        the previous rounds' ``_bank`` scatters (read after write); a
+        no-op for a shared run."""
+        if not self._personalized:
+            return
+        if self.bank is None:
+            raise ValueError(_NEEDS_BANK)
+        rows = self._bank_rows(staged.client_idx)
+        with tracer.span("bank_gather", staged.round_idx, rows=len(rows)):
+            gathered = self.bank.gather(rows)
+        staged.personal = {"rows": rows,
+                           "tree": {k: to_device(torch.from_numpy(a), self.device)
+                                    for k, a in gathered.items()}}
 
     def _maybe_save(self, ckpt_dir, ckpt_every, round_idx, tracer) -> None:
         if ckpt_dir and (round_idx + 1) % ckpt_every == 0:
@@ -408,7 +532,7 @@ class FedAvgAPI(Checkpointable):
             fn = build_superstep_fn(self.trainer, self.cfg, self.aggregator,
                                     num_rounds,
                                     client_num_in_total=self.dataset.client_num,
-                                    chaos_armed=chaos_armed)
+                                    chaos_armed=chaos_armed, collect_stats=True)
             self._superstep_cache[key] = fn
         return fn
 
@@ -428,7 +552,7 @@ class FedAvgAPI(Checkpointable):
         return k_max
 
     def _train_superstep(self, start_round, ckpt_dir, ckpt_every,
-                         metrics_logger, chaos, guard, tracer) -> None:
+                         metrics_logger, chaos, guard, tracer, ledger=None) -> None:
         """The superstep loop (``cfg.rounds_per_dispatch`` K > 1): up to K
         rounds a dispatch (``engine.build_superstep_fn``), their cohorts
         gathered on the device from the resident train store, the chaos
@@ -454,9 +578,9 @@ class FedAvgAPI(Checkpointable):
             log.warning("superstep (rounds_per_dispatch=%d) unavailable: %s — "
                         "running the eager loop", cfg.rounds_per_dispatch, reason)
             self._train_eager(start_round, ckpt_dir, ckpt_every, metrics_logger,
-                              chaos, guard, tracer)
+                              chaos, guard, tracer, ledger)
             return
-        records = RoundRecordLog(tracer, self.history, metrics_logger)
+        records = self._records(tracer, metrics_logger, ledger)
         round_idx = start_round
         while round_idx < cfg.comm_round:
             k = self._superstep_k(round_idx, ckpt_dir, ckpt_every)
@@ -512,8 +636,9 @@ class FedAvgAPI(Checkpointable):
                 guard_state = copy.deepcopy(vars(guard))
             superstep = self._superstep_fn(k, chaos is not None)
             with tracer.span("dispatch", r0, rounds=k):
-                new_gv, new_st, metrics = superstep(
-                    self.global_variables, self.agg_state, *resident, per_round)
+                new_gv, new_st, metrics, stats = superstep(
+                    self.global_variables, self.agg_state, *resident, per_round,
+                    stats=self._drive_ledger is not None)
             with tracer.span("device_wait", r0):
                 synchronize(self.device)
             if guard is not None:
@@ -548,6 +673,13 @@ class FedAvgAPI(Checkpointable):
                     r = r0 + j
                     record = {"round": r, "round_time": elapsed / k,
                               **{n: v[j] for n, v in metrics.items()}}
+                    if stats is not None:
+                        participated = (np.asarray(faults_list[j].participation, bool)
+                                        if faults_list is not None
+                                        else np.ones(idx_block.shape[1], bool))
+                        record["_ledger"] = [{"round": r, "client_idx": idx_block[j],
+                                              "participated": participated,
+                                              "stats": {n: v[j] for n, v in stats.items()}}]
                     if faults_list is not None:
                         record.update(chaos_summary(faults_list[j]))
                     if j == k - 1 and self._is_test_round(r):
@@ -570,7 +702,7 @@ class FedAvgAPI(Checkpointable):
         return r0 + k
 
     def _train_pipelined(self, start_round, ckpt_dir, ckpt_every,
-                         metrics_logger, chaos, guard, tracer) -> None:
+                         metrics_logger, chaos, guard, tracer, ledger=None) -> None:
         """Asynchronous drive loop (``cfg.pipeline_depth`` > 0).
 
         While round t runs, a background stager prepares cohorts
@@ -586,13 +718,19 @@ class FedAvgAPI(Checkpointable):
         A guard rollback restores the snapshot, drops every in-flight
         staging (``invalidate``) and re-stages the retried round on demand:
         staging is pure in the round, so the retry sees the same bytes and
-        the salted generator, as in the eager loop."""
+        the salted generator, as in the eager loop.
+
+        Personalized, a round's personal rows are gathered when it is taken
+        from the prefetcher, after the record log has flushed the previous
+        rounds' ``_bank`` scatters: its cohort was staged before those
+        writes (read after write), and the eager loop's order of writes and
+        reads is kept, so the two loops agree bit for bit."""
         cfg = self.cfg
         depth = cfg.pipeline_depth
         prefetcher = CohortPrefetcher(
             lambda r: self.stage_fn(r, chaos=chaos), depth=depth)
         self._last_prefetcher = prefetcher
-        records = RoundRecordLog(tracer, self.history, metrics_logger)
+        records = self._records(tracer, metrics_logger, ledger)
         self._last_records = records
         inflight: deque = deque()  # (done event or None, staged cohort)
         round_idx = start_round
@@ -606,6 +744,9 @@ class FedAvgAPI(Checkpointable):
                         raise RuntimeError(
                             f"round {round_idx} was handed round "
                             f"{staged.round_idx}'s cohort")
+                    if self._personalized:
+                        records.flush(round_idx)
+                    self._gather_personal(staged, tracer)
                     for ahead in range(1, depth + 1):
                         if round_idx + ahead < cfg.comm_round:
                             prefetcher.prefetch(round_idx + ahead)
@@ -628,7 +769,8 @@ class FedAvgAPI(Checkpointable):
                                 self._retire(inflight.popleft())
                             continue
                     self._commit(round_idx, rspan, train_metrics, staged.faults,
-                                 guard, retries, records, tracer)
+                                 guard, retries, records, tracer,
+                                 self._round_blocks(round_idx))
                     retries = 0
                     if (guard is not None or self._is_test_round(round_idx)
                             or is_ckpt or len(records) >= max(4, 2 * depth)):
@@ -660,9 +802,12 @@ class FedAvgAPI(Checkpointable):
 
     # -- checkpoint state (utils.checkpoint.Checkpointable): the globals
     # (model state included), the aggregator's state (a server optimizer's
-    # moments) and the history
+    # moments) and the history. Under LoRA the globals are stored adapters
+    # only: the frozen base is a pure function of cfg.seed, and resume and
+    # rollback re-attach the live one.
     def _ckpt_tree(self):
-        return {"variables": self.global_variables, "agg_state": self.agg_state}
+        return {"variables": strip_lora_base(self.global_variables),
+                "agg_state": self.agg_state}
 
     def _ckpt_meta(self):
         # a copy: the snapshot must not alias the list a later flush extends
@@ -675,7 +820,7 @@ class FedAvgAPI(Checkpointable):
         return tree_map(torch.clone, self._ckpt_tree()), self._ckpt_meta()
 
     def _ckpt_load(self, tree, meta):
-        self.global_variables = tree["variables"]
+        self.global_variables = attach_lora_base(tree["variables"], self.global_variables)
         self.agg_state = tree["agg_state"]
         # in place: the drive loop's RoundRecordLog holds this list
         self.history[:] = meta.get("history", [])
@@ -687,6 +832,30 @@ class FedAvgAPI(Checkpointable):
         total = max(m.get("test_total", 1.0), 1.0)
         return {"Test/Acc": m.get("test_correct", 0.0) / total,
                 "Test/Loss": m.get("test_loss", 0.0) / total}
+
+    def personalization_lift(self, round_idx: int, probe: int = 64) -> dict[str, float]:
+        """The accuracy lift of the personalized model over the global one
+        on a sampled probe cohort: each probe client evaluates on its test
+        split under the globals plus its personal row AND under the bare
+        globals; the per-client difference goes to the bank's lift column
+        and its mean is logged as ``Personalization/Lift``. O(probe) reads
+        and work. {} when the run does not personalize."""
+        if self.bank is None or not self.cfg.personalize:
+            return {}
+        ds = self.dataset
+        idx = client_sampling(round_idx, ds.client_num, min(probe, ds.client_num))
+        rows = self._bank_rows(idx)
+        x, y, counts = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                        for a in (ds.test or ds.train).select(idx))
+        personal = {k: torch.from_numpy(a).to(self.device)
+                    for k, a in self.bank.gather(rows).items()}
+        m_p = self._personal_eval_fn(self.global_variables, personal, x, y, counts)
+        m_g = self.client_eval_fn(self.global_variables, x, y, counts)
+        correct_p, correct_g, total = (m[k].double().cpu().numpy() for m, k in (
+            (m_p, "test_correct"), (m_g, "test_correct"), (m_g, "test_total")))
+        lift = (correct_p - correct_g) / np.maximum(total, 1.0)
+        self.bank.write_lift(rows, lift)
+        return {"Personalization/Lift": float(lift.mean())}
 
     def local_test_on_all_clients(self, round_idx: int) -> dict[str, float]:
         """The global model on every client's train and test split,

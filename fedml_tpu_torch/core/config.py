@@ -2,12 +2,12 @@
 
 A mirror of ``fedml_tpu/core/config.py::FedConfig`` holding the fields the
 ported paths read (FedAvg, FedOpt, FedNova, robust aggregation, FedProx,
-the stateful client optimizers, the update codecs, buffered aggregation and
-the superstep), with the same names and defaults so experiment configs
-transfer verbatim. The switches of features the port does not run yet
-(LoRA, sharding, personalization) are kept so that ``validate`` can reject
-one that is on with ``NotImplementedError``; other keys of a JAX config
-land in ``extra``.
+the stateful client optimizers, the update codecs, buffered aggregation,
+the superstep, federated LoRA and personalization), with the same names and
+defaults so experiment configs transfer verbatim. The switches of features
+the port does not run yet (tensor sharding, silos, a mesh of more than one
+device) are kept so that ``validate`` can reject one that is on with
+``NotImplementedError``; other keys of a JAX config land in ``extra``.
 """
 
 from __future__ import annotations
@@ -78,7 +78,16 @@ class FedConfig:
     silo_threshold: int = 0
     tensor_shards: int = 0
     shard_step: bool = False
+    # per-client personal adapter rows from the mmap bank
+    # (models/adapter_bank.py) on top of the shared adapters; needs
+    # lora_rank > 0 and a bank attached to the drive
     personalize: bool = False
+    # with personalize: > 0 shares K bank rows, one per EMA-loss cluster of
+    # the client ledger, instead of one row per client
+    adapter_clusters: int = 0
+    # > 0 wraps the trainer in LoRA (models/lora.py): the base frozen under
+    # "lora_base/", rank-r adapters federated, aggregated and checkpointed
+    # alone; 0 leaves the trainer unwrapped
     lora_rank: int = 0
     # route the local epoch through the hand-written fused CUDA kernel
     # (ops/fused_sgd.py) — CNN_DropOut only
@@ -125,7 +134,7 @@ class FedConfig:
         self."""
         if self.backend not in ("vmap", "shard_map"):
             raise ValueError(f"unknown backend {self.backend!r} (vmap or shard_map)")
-        for reason, clash in _exclusions(self):
+        for reason, clash in _exclusions(self, chaos):
             if clash:
                 raise ValueError(reason)
         unported = {
@@ -135,14 +144,17 @@ class FedConfig:
             "silo_threshold > 0": self.silo_threshold > 0,
             "tensor_shards > 0": self.tensor_shards > 0,
             "shard_step": self.shard_step,
-            "personalize": self.personalize,
-            "lora_rank > 0": self.lora_rank > 0,
         }
         for name, on in unported.items():
             if on:
                 raise NotImplementedError(
                     f"{name} is not ported to fedml_tpu_torch yet "
                     f"(see ROADMAP.md Queue 1)")
+        if self.personalize and self.lora_rank <= 0:
+            # spec.py's REQUIREMENTS row (the exclusion above fires first)
+            raise ValueError(
+                "personalize requires lora_rank > 0 — the personal row "
+                "is a rank-r adapter tree (models/adapter_bank.py)")
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown dtype {self.dtype!r}")
         if self.pipeline_depth < 0:
@@ -161,12 +173,6 @@ class FedConfig:
                 raise ValueError(
                     "the fused kernel clips unconditionally (reference "
                     "semantics) — grad_clip must be set")
-            if chaos:
-                # spec.py's (fused, chaos) exclusion, its reason verbatim
-                raise ValueError(
-                    "the fused kernel round has no participation/quarantine "
-                    "stage — run without chaos faults or cohort padding, or "
-                    "drop --fused_kernel")
         return self
 
     @classmethod
@@ -182,9 +188,9 @@ class FedConfig:
 
 
 # The exclusions of ``fedml_tpu/core/spec.py`` (``EXCLUSIONS`` and
-# ``CONSTRAINTS``) that involve the update codec, buffered aggregation or
-# the superstep, in its order and with its reasons verbatim. The fused
-# kernel's with chaos stays in ``validate``'s fused block.
+# ``CONSTRAINTS``) that involve the update codec, buffered aggregation, the
+# superstep, LoRA or personalization, in its order and with its reasons
+# verbatim.
 _BUFFER_REASON = (
     "buffer_size (staleness-aware buffered aggregation) drives "
     "the single-controller vmap engine; the sharded admit/commit "
@@ -208,8 +214,9 @@ _PFL_REASON = (
     "setting")
 
 
-def _exclusions(cfg: FedConfig) -> list:
-    """[(reason, clashes)] for ``cfg``, in spec.py's order."""
+def _exclusions(cfg: FedConfig, chaos: bool = False) -> list:
+    """[(reason, clashes)] for ``cfg`` (``chaos``: whether the drive arms
+    a fault plan), in spec.py's order."""
     codec = cfg.update_codec != "none"
     buffer = cfg.buffer_size > 0
     superstep = cfg.rounds_per_dispatch > 1
@@ -217,6 +224,8 @@ def _exclusions(cfg: FedConfig) -> list:
     tensor = cfg.tensor_shards > 0
     shard_map = cfg.backend == "shard_map"
     fused = cfg.fused_kernel
+    lora = cfg.lora_rank > 0
+    pfl = cfg.personalize
     return [
         ("update_codec has no seam in the silo-grouped lowering "
          "(silos merge clients before any update crosses a wire) — "
@@ -235,23 +244,37 @@ def _exclusions(cfg: FedConfig) -> list:
         ("--fused_kernel is mutually exclusive with --buffer_size "
          "(buffered admission consumes per-client LocalResults)",
          fused and buffer),
+        ("--fused_kernel is mutually exclusive with --lora_rank "
+         "(the kernel trains the raw CNN param layout)",
+         fused and lora),
         ("--shard_step runs under GSPMD automatic partitioning — the "
          "codec transports are manual shard_map collectives and do "
          "not compose with it. Drop --shard_step (the storage-sharded "
          "tensor round supports codecs) or --update_codec.",
          codec and tensor and cfg.shard_step),
-        (_PFL_REASON, cfg.personalize and superstep),
-        (_PFL_REASON, cfg.personalize and buffer),
+        ("the fused kernel round has no participation/quarantine "
+         "stage — run without chaos faults or cohort padding, or "
+         "drop --fused_kernel", fused and chaos),
+        (_PFL_REASON, pfl and fused),
+        (_PFL_REASON, pfl and superstep),
+        (_PFL_REASON, pfl and buffer),
+        (_PFL_REASON, pfl and shard_map),
+        (_PFL_REASON, pfl and tensor),
+        (_PFL_REASON, pfl and silo),
         ("update codecs compress the WIRE tree, and personal rows "
          "never reach the wire — a codec on the personalized round "
          "would stage deltas for a tree the client step does not "
          "ship; drop one of update_codec / personalize",
-         cfg.personalize and codec),
+         pfl and codec),
+        ("personalize trains a PERSONAL rank-r adapter per client on "
+         "top of the shared adapters — it requires lora_rank > 0 "
+         "(models/adapter_bank.py rows are LoRA adapter trees)",
+         pfl and not lora),
         ("update codecs reach LoRA runs only through the tensor-sharded "
          "round or buffered admission (the adapter-aware transports in "
          "parallel/tensor.py and the buffered admit) — the vmap/shard_map "
          "CodecAggregator stages deltas for the full federated tree while "
          "the LoRA client step ships adapters only; drop one of "
          "update_codec / lora_rank, or add --tensor_shards / --buffer_size",
-         codec and cfg.lora_rank > 0 and not tensor and not buffer),
+         codec and lora and not tensor and not buffer),
     ]

@@ -17,6 +17,10 @@ Contract (``tests/test_torch_drive.py``):
 - a consumed cohort leaves the prefetcher;
 - ``invalidate()`` (guard rollback) drops every in-flight staging, so a
   retried round never consumes a cohort staged before the rollback.
+
+The serving scheduler (``serving/scheduler.py``) shares one prefetcher
+across tenant jobs: stagings are keyed by ``(job, round_idx)``, and
+``invalidate(job=X)`` drops only X's.
 """
 
 from __future__ import annotations
@@ -43,7 +47,11 @@ class StagedCohort:
     copies run on a side stream: ``ready`` is the event recorded there
     after them, and ``host`` holds their pinned sources until the copies
     are known to be done (``wait``, ``release``). Both are None on the
-    CPU."""
+    CPU. ``personal`` (None unless the run personalizes) is ``{"rows": host
+    bank row ids, "tree": {key: [C, ...] tensor on the device}}``, the
+    cohort's personal adapter rows, gathered when the drive takes the
+    cohort to dispatch (after the previous rounds' bank writes), so the
+    scatter back targets exactly the rows that were fed."""
 
     round_idx: int
     x: Any
@@ -54,6 +62,7 @@ class StagedCohort:
     client_idx: np.ndarray
     ready: Any | None = None
     host: tuple | None = None
+    personal: Any | None = None
 
     def host_counts(self):
         """The counts on the host: their pinned source on the card, the
@@ -84,85 +93,110 @@ class StagedCohort:
         self.host = None
 
 
+#: invalidate()'s default scope: every job's in-flight stagings
+_ALL_JOBS = object()
+
+
 class CohortPrefetcher:
-    """Depth-bounded background stager keyed by round index.
+    """Depth-bounded background stager keyed by (job, round index).
 
     `prefetch(r)` schedules staging of round r if there is room; `get(r)`
     returns round r's StagedCohort, staging it on demand on a miss (first
     round, guard retry after `invalidate()`, depth exhausted);
     `invalidate()` forgets every in-flight staging. `staged_rounds`,
     `consumed_rounds`, `misses` and `invalidations` expose the schedule.
-    (The JAX prefetcher's `job=` keys serve its multi-tenant scheduler,
-    which is not ported.)"""
 
-    def __init__(self, stage_fn: Callable[[int], StagedCohort], depth: int = 2):
+    Multi-tenant scope (`job=` on prefetch, get and invalidate): the
+    serving scheduler shares ONE prefetcher across its tenants, so
+    stagings are keyed by `(job, round_idx)` and `invalidate(job=X)` drops
+    only X's: one tenant's rollback or eviction never drops another's
+    staged rounds. `job=None` everywhere (the single-job drive loops) is
+    the single-job behaviour, `invalidate()` dropping all. With a job the
+    staging callback is called as `stage_fn(round_idx, job)`, under
+    `telemetry.job_scope(job)`, so the stager thread's spans carry the
+    tenant's label."""
+
+    def __init__(self, stage_fn: Callable[..., StagedCohort], depth: int = 2):
         if depth < 1:
             raise ValueError(f"pipeline depth must be >= 1, got {depth}")
         self._stage_fn = stage_fn
         self.depth = int(depth)
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="cohort-prefetch")
-        self._inflight: dict[int, Future] = {}
+        # (job, round_idx) -> Future; job is None for single-job drives
+        self._inflight: dict[tuple, Future] = {}
         self._lock = threading.Lock()
         self.staged_rounds: list[int] = []   # every staging that actually ran
         self.consumed_rounds: list[int] = []
         self.misses = 0
         self.invalidations = 0
-        self._staged_at: dict[int, float] = {}  # round -> staging-done time
+        self._staged_at: dict[tuple, float] = {}  # key -> staging-done time
 
-    def _submit(self, round_idx: int) -> Future:
+    def _submit(self, round_idx: int, job=None) -> Future:
         def work():
             # one worker: the appends are ordered
             self.staged_rounds.append(round_idx)
-            staged = self._stage_fn(round_idx)
+            if job is None:
+                staged = self._stage_fn(round_idx)
+            else:
+                with telemetry.job_scope(job):
+                    staged = self._stage_fn(round_idx, job)
             # under the lock: the write must not resurrect a round that
             # invalidate() cleared meanwhile
             with self._lock:
-                self._staged_at[round_idx] = time.monotonic()
+                self._staged_at[(job, round_idx)] = time.monotonic()
             return staged
 
         return self._pool.submit(work)
 
-    def prefetch(self, round_idx: int) -> bool:
-        """Schedule round `round_idx` for background staging. False when it
-        is already in flight or the pipeline is at depth."""
+    def prefetch(self, round_idx: int, job=None) -> bool:
+        """Schedule round `round_idx` (of `job`, when serving) for
+        background staging. False when it is already in flight or the
+        pipeline is at depth."""
+        key = (job, round_idx)
         with self._lock:
-            if round_idx in self._inflight or len(self._inflight) >= self.depth:
+            if key in self._inflight or len(self._inflight) >= self.depth:
                 return False
-            self._inflight[round_idx] = self._submit(round_idx)
+            self._inflight[key] = self._submit(round_idx, job)
             return True
 
-    def get(self, round_idx: int) -> StagedCohort:
+    def get(self, round_idx: int, job=None) -> StagedCohort:
         """Round `round_idx`'s staged cohort; blocks until it is staged. The
         cohort leaves the prefetcher. A miss stages on demand (the same
         bytes: staging is pure)."""
+        key = (job, round_idx)
         with self._lock:
-            fut = self._inflight.pop(round_idx, None)
+            fut = self._inflight.pop(key, None)
             miss = fut is None
             depth_in_flight = len(self._inflight)
             if miss:
                 self.misses += 1
-                fut = self._submit(round_idx)
+                fut = self._submit(round_idx, job)
         staged = fut.result()
         self.consumed_rounds.append(round_idx)
         # how deep the pipeline was when this round was consumed, and how
         # long its cohort sat staged (0 on a miss)
         with self._lock:
-            done_at = self._staged_at.pop(round_idx, None)
+            done_at = self._staged_at.pop(key, None)
         ahead_s = max(0.0, time.monotonic() - done_at) if done_at else 0.0
         telemetry.gauge("prefetch_occupancy", round=round_idx,
                         inflight=depth_in_flight, ahead_s=round(ahead_s, 6),
                         miss=miss)
         return staged
 
-    def invalidate(self) -> None:
-        """Drop every in-flight staging (guard rollback): the retried round
-        re-stages from scratch. A staging that already ran is waited for
-        and released, so its pinned sources outlive its copies."""
+    def invalidate(self, job=_ALL_JOBS) -> None:
+        """Drop in-flight stagings (guard rollback, eviction): the retried
+        round re-stages from scratch. The default scope is every job;
+        `invalidate(job=X)` drops only job X's. A staging that already ran
+        is waited for and released, so its pinned sources outlive its
+        copies."""
         with self._lock:
-            dropped = list(self._inflight.values())
-            self._inflight.clear()
-            self._staged_at.clear()
+            keys = [k for k in self._inflight if job is _ALL_JOBS or k[0] == job]
+            dropped = [self._inflight.pop(k) for k in keys]
+            for k in keys:
+                self._staged_at.pop(k, None)
+            if job is _ALL_JOBS:
+                self._staged_at.clear()
         for fut in dropped:
             if not fut.cancel() and fut.exception() is None:
                 fut.result().release()

@@ -40,6 +40,15 @@ The transport and asynchronous axes (any of them on any config):
       superstep: each round's cohort gathered on the device from the
       resident train store)
 
+Federated LoRA, the client ledger and personalization:
+  --lora_rank 8 (the base frozen, rank-8 adapters federated; the scale is
+      alpha / rank, alpha from the config's ``lora_alpha`` extra, default
+      the rank), --client_ledger_dir DIR (the
+      per-client health ledger, resumable), --adapter_bank_dir DIR (turns
+      personalization on: one personal adapter row a client in a sparse
+      mmap bank; needs --lora_rank > 0), --adapter_clusters K (K shared rows,
+      one per EMA-loss bucket of the ledger)
+
 Fault-tolerance drive (the participation mask, the quarantine and the
 guard's rollback in one run; ``quarantined_count`` lands in the run
 directory's ``wandb-summary.json``):
@@ -63,6 +72,7 @@ from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
 from fedml_tpu_torch.core.config import FedConfig
 from fedml_tpu_torch.core.trainer import ClassificationTrainer, NWPTrainer
 from fedml_tpu_torch.data.registry import load_dataset
+from fedml_tpu_torch.models.lora import maybe_wrap_lora
 from fedml_tpu_torch.models.registry import create_model
 from fedml_tpu_torch.robustness.chaos import FaultPlan
 from fedml_tpu_torch.robustness.guard import RoundGuard
@@ -70,7 +80,8 @@ from fedml_tpu_torch.utils.logging import MetricsLogger
 
 # flags that configure the drive's sinks and devices, not the round
 _DRIVE_FLAGS = ("data_dir", "device", "ckpt_dir", "run_dir", "trace_summary",
-                "trace_wandb", "profile_rounds", "profile_dir", "trace_max_mb")
+                "trace_wandb", "profile_rounds", "profile_dir", "trace_max_mb",
+                "client_ledger_dir", "adapter_bank_dir")
 
 
 def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -177,6 +188,26 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--trace_max_mb", type=float, default=0,
                         help="rotate TRACE.jsonl when it exceeds this many "
                              "MB (archived as TRACE.jsonl.NNN; 0 = never)")
+    # federated LoRA (models/lora.py): frozen base + rank-r adapters; only
+    # the adapters cross the wire, reach the aggregator and are checkpointed
+    parser.add_argument("--lora_rank", type=int, default=0,
+                        help="LoRA adapter rank; 0 = full fine-tuning (the "
+                             "trainer is not wrapped)")
+    # the per-client health ledger (telemetry/client_ledger.py)
+    parser.add_argument("--client_ledger_dir", type=str, default=None,
+                        help="directory of the mmap-backed per-client health "
+                             "ledger (None = ledger off)")
+    # personalization (models/adapter_bank.py): per-client rank-r adapter
+    # rows in a sparse mmap bank, O(cohort) gather and scatter a round
+    parser.add_argument("--adapter_bank_dir", type=str, default=None,
+                        help="directory of the personal adapter bank; "
+                             "setting it turns personalization ON (requires "
+                             "--lora_rank > 0); reopening checks rows and "
+                             "layout")
+    parser.add_argument("--adapter_clusters", type=int, default=0,
+                        help="share K cluster rows instead of one row per "
+                             "client (assignment: a static EMA-loss bucket "
+                             "from the client ledger; 0 = per-client rows)")
     return parser
 
 
@@ -217,6 +248,35 @@ def tracer_from_args(args, metrics_logger=None) -> telemetry.Tracer:
                   "pipeline_depth": args.pipeline_depth})
 
 
+def ledger_from_args(args, num_clients: int):
+    """The run's ClientLedger (``--client_ledger_dir``), or None. It is
+    opened against the dataset's whole population: its disk is
+    O(num_clients) (sparse), its writes O(cohort) a round."""
+    ledger_dir = getattr(args, "client_ledger_dir", None)
+    if not ledger_dir:
+        return None
+    from fedml_tpu_torch.telemetry.client_ledger import open_or_create
+
+    return open_or_create(ledger_dir, num_clients)
+
+
+def bank_from_args(args, num_clients: int, api):
+    """The run's AdapterBank (``--adapter_bank_dir``), or None. Its rows are
+    the whole population (or ``--adapter_clusters`` K); the row template is
+    the API's live adapter dict, so a resumed bank's layout is checked
+    against this run's model and rank."""
+    bank_dir = getattr(args, "adapter_bank_dir", None)
+    if not bank_dir:
+        return None
+    from fedml_tpu_torch.models.adapter_bank import open_or_create
+    from fedml_tpu_torch.models.lora import strip_lora_base
+    from fedml_tpu_torch.utils.pytree import split_variables
+
+    template = split_variables(strip_lora_base(api.global_variables))[0]
+    clusters = int(getattr(args, "adapter_clusters", 0) or 0)
+    return open_or_create(bank_dir, clusters if clusters > 0 else num_clients, template)
+
+
 def start_run(args) -> FedConfig:
     """Logging + seeds; the run's FedConfig from the parsed flags (flags
     that are not its fields land in ``extra``)."""
@@ -227,6 +287,10 @@ def start_run(args) -> FedConfig:
     torch.manual_seed(args.seed)
     d = {k: v for k, v in vars(args).items()
          if k not in _DRIVE_FLAGS and v is not None}
+    # --adapter_bank_dir is the personalization switch: the bank's place is
+    # the drive's concern, the personalize bit the config's
+    if getattr(args, "adapter_bank_dir", None):
+        d["personalize"] = True
     d["fused_kernel"] = bool(d.get("fused_kernel", 0))
     d["fast_sampling"] = bool(d.get("fast_sampling", 0))
     # the superstep leaves no per-round host gap for the pipeline: a run
@@ -237,7 +301,8 @@ def start_run(args) -> FedConfig:
 
 
 def setup_run(args):
-    """Seeds + logging + data + model + trainer."""
+    """Seeds + logging + data + model + trainer (wrapped in LoRA when
+    ``--lora_rank`` > 0)."""
     cfg = start_run(args)
     extra_load = {}
     if args.dataset == "mnist":
@@ -254,8 +319,12 @@ def setup_run(args):
     # task trainer by dataset (reference FedAvgAPI.py:33-39)
     if ds.meta.get("task") == "nwp" or args.dataset in ("fed_shakespeare",
                                                        "stackoverflow_nwp"):
-        return cfg, ds, NWPTrainer(module, pad_id=0)
-    return cfg, ds, ClassificationTrainer(module)
+        trainer = NWPTrainer(module, pad_id=0)
+    else:
+        trainer = ClassificationTrainer(module)
+    # after the task trainer, so the adapter seam is task-agnostic;
+    # --lora_rank 0 returns the trainer unchanged
+    return cfg, ds, maybe_wrap_lora(trainer, cfg)
 
 
 def contextual_model(args) -> tuple[str, dict]:
@@ -289,11 +358,18 @@ def main(argv=None, aggregator_name: str = "fedavg", extra_args=None):
                     device=args.device)
     chaos, guard = robustness_from_args(args)
     tracer = tracer_from_args(args, metrics_logger=logger)
+    ledger = ledger_from_args(args, ds.client_num)
+    bank = bank_from_args(args, ds.client_num, api)
     try:
         history = api.train(ckpt_dir=args.ckpt_dir, metrics_logger=logger,
-                            chaos=chaos, guard=guard, tracer=tracer)
+                            chaos=chaos, guard=guard, tracer=tracer, ledger=ledger,
+                            bank=bank)
     finally:
         tracer.close()
+        if ledger is not None:
+            ledger.close()
+        if bank is not None:
+            bank.close()
     logger.finish()
     if args.trace_summary:
         print(tracer.summary_table(), flush=True)

@@ -42,7 +42,7 @@ import math
 
 import torch
 
-from fedml_tpu_torch.algorithms.engine import (LocalResult,
+from fedml_tpu_torch.algorithms.engine import (LocalResult, cohort_stats,
                                                draw_client_randomness)
 from fedml_tpu_torch.ops import _build
 from fedml_tpu_torch.utils.device import to_device
@@ -431,7 +431,8 @@ def _run_library(lib, spec: FusedEpochSpec, params: dict, x, y, seeds, stream):
     return rows, met
 
 
-def build_fused_round_fn(spec: FusedEpochSpec, aggregator, shuffle=True):
+def build_fused_round_fn(spec: FusedEpochSpec, aggregator, shuffle=True,
+                         collect_stats: bool = False):
     """Engine-signature round over the fused epoch:
     round_fn(gv, agg_state, x, y, counts, rng, participation=None,
     seeds=None, perms=None, host_counts=None) -> (gv, agg_state, metrics).
@@ -442,10 +443,12 @@ def build_fused_round_fn(spec: FusedEpochSpec, aggregator, shuffle=True):
     card through pinned memory without a host sync. The kernel has no
     participation/quarantine stage: a participation mask raises.
     ``host_counts`` is the engine round's argument; the fused round reads
-    no count on the host."""
+    no count on the host. ``collect_stats`` adds the client ledger's rows
+    as a fourth output (``engine.cohort_stats`` of the kernel's results;
+    None for a call's ``stats=False``)."""
 
     def round_fn(gv, agg_state, x, y, counts, rng, participation=None,
-                 seeds=None, perms=None, host_counts=None):
+                 seeds=None, perms=None, host_counts=None, stats=collect_stats):
         if participation is not None:
             raise ValueError(
                 "the fused kernel round has no participation/quarantine "
@@ -470,7 +473,9 @@ def build_fused_round_fn(spec: FusedEpochSpec, aggregator, shuffle=True):
             num_steps=torch.full((cl,), spec.steps, dtype=torch.int32,
                                  device=x.device),
             metrics=metrics)
+        rows = cohort_stats(gv, result) if stats else None
         gv, agg_state = aggregator(gv, result, counts.float(), rng, agg_state)
-        return gv, agg_state, {k: v.sum() for k, v in metrics.items()}
+        metrics = {k: v.sum() for k, v in metrics.items()}
+        return (gv, agg_state, metrics, rows) if collect_stats else (gv, agg_state, metrics)
 
     return round_fn

@@ -4,11 +4,12 @@
 - ``add(record)`` parks a record whose values may still be 0-d tensors on
   the device (the pipelined loop's deferred train metrics, the superstep's
   K rounds of metrics, each a view of a [K] tensor);
-- ``flush()`` fetches every pending tensor in ONE host transfer (stacked on
-  the device, one ``.cpu()``, inside a ``metrics_fetch`` span), appends the
-  records to ``history`` as Python scalars, mirrors them to the metrics
-  logger, logs the round line and emits a ``round_committed`` event with
-  the robustness counters.
+- ``flush()`` fetches every pending tensor in ONE host transfer per dtype
+  (concatenated on the device, one ``.cpu()``, inside a ``metrics_fetch``
+  span), applies the ``_ledger`` and ``_bank`` blocks to an attached client
+  ledger and adapter bank, appends the records to ``history`` as Python
+  scalars, mirrors them to the metrics logger, logs the round line and
+  emits a ``round_committed`` event with the robustness counters.
 
 The eager loop calls ``add`` + ``flush`` every round; the pipelined loop
 calls ``flush`` only at its sync points (guard, eval, checkpoint, a
@@ -40,22 +41,56 @@ def fetch_scalars(values: List[torch.Tensor]) -> List[float]:
     return torch.stack([v.detach().double() for v in values]).cpu().tolist()
 
 
+def fetch_tree(tree):
+    """``tree`` (dicts, lists and tuples) with every tensor replaced by its
+    host numpy array: one transfer per device and dtype (the tensors of a
+    group concatenated flat on their device), so a flush fetches a
+    cohort's stats rows and personal adapter rows together. Bits are kept:
+    nothing is converted."""
+    from fedml_tpu_torch.utils.pytree import tree_leaves
+
+    tensors = [t for _, t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    groups: Dict[tuple, list] = {}
+    for t in tensors:
+        groups.setdefault((t.device, t.dtype), []).append(t)
+    host: Dict[int, Any] = {}
+    for ts in groups.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in ts]).cpu().numpy()
+        offset = 0
+        for t in ts:
+            host[id(t)] = flat[offset:offset + t.numel()].reshape(tuple(t.shape))
+            offset += t.numel()
+
+    def rebuild(node):
+        if isinstance(node, torch.Tensor):
+            return host[id(node)]
+        if isinstance(node, dict):
+            return {k: rebuild(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v) for v in node)
+        return node
+
+    return rebuild(tree)
+
+
 class RoundRecordLog:
     """Owns pending round records from `add()` until `flush()` commits them
     to history, the metrics logger and the telemetry ledger.
 
-    The reserved keys ``_ledger`` (per-cohort client-ledger blocks: the
-    buffered drive attaches them to every record) and ``_bank`` (adapter
-    bank rows) never reach history: as the JAX log does with nothing
-    attached, ``add`` pops them and drops them. The client ledger and the
-    adapter bank themselves are not ported (``FedAvgAPI.train`` refuses
-    ``ledger=`` and ``bank=``)."""
+    The reserved keys ``_ledger`` (per-cohort client-ledger blocks: stats
+    rows and staleness) and ``_bank`` (personal adapter rows) never reach
+    history. Their tensors ride the flush's transfer, then the blocks go to
+    ``ledger.apply`` (``telemetry/client_ledger.py``) and ``bank.apply``
+    (``models/adapter_bank.py``). With nothing attached, ``add`` drops
+    them, before the transfer could fetch what they hold."""
 
     def __init__(self, tracer=None, history: Optional[List[Dict]] = None,
-                 metrics_logger=None):
+                 metrics_logger=None, ledger=None, bank=None):
         self.tracer = tracer or NULL_TRACER
         self.history = history if history is not None else []
         self.metrics_logger = metrics_logger
+        self.ledger = ledger
+        self.bank = bank
         self._pending: List[Dict[str, Any]] = []
         #: high-water mark of pending records (the pipelined loop's bounded
         #: backlog)
@@ -65,10 +100,10 @@ class RoundRecordLog:
         return len(self._pending)
 
     def add(self, record: Dict[str, Any]) -> None:
-        # no ledger or bank can be attached: their blocks are dropped here,
-        # before the flush's one transfer could fetch what they hold
-        for key in ("_ledger", "_bank"):
-            record.pop(key, None)
+        if self.ledger is None:
+            record.pop("_ledger", None)
+        if self.bank is None:
+            record.pop("_bank", None)
         self._pending.append(record)
         self.max_pending = max(self.max_pending, len(self._pending))
 
@@ -84,7 +119,24 @@ class RoundRecordLog:
             fetched = fetch_scalars([pending[i][k] for i, k in slots])
             for (i, k), v in zip(slots, fetched):
                 pending[i][k] = v
+            blocks = [rec[k] for rec in pending for k in ("_ledger", "_bank") if k in rec]
+            if blocks:
+                host = fetch_tree(blocks)
+                for rec in pending:
+                    for k in ("_ledger", "_bank"):
+                        if k in rec:
+                            rec[k] = host.pop(0)
         for rec in pending:
+            ledger_blocks = rec.pop("_ledger", None)
+            if ledger_blocks:
+                with self.tracer.span("ledger_write", round_idx, blocks=len(ledger_blocks)):
+                    for block in ledger_blocks:
+                        self.ledger.apply(block)
+            bank_blocks = rec.pop("_bank", None)
+            if bank_blocks:
+                with self.tracer.span("bank_write", round_idx, blocks=len(bank_blocks)):
+                    for block in bank_blocks:
+                        self.bank.apply(block)
             self.history.append(rec)
             if self.metrics_logger is not None:
                 self.metrics_logger.log(

@@ -22,6 +22,12 @@ kind:
     ``weight_ih`` [4H, in], ``weight_hh`` [4H, H] and ``bias`` [4H], each
     the gates' transposed kernels or biases stacked in the order i, f, g, o.
 
+LoRA (``models/lora.py``): the ``lora_base`` collection, a frozen params
+tree, converts as one and lands under the ``lora_base/`` prefix; an
+adapter node ``{"lora_A": [d_in, r], "lora_B": [r, d_out]}`` where a
+``kernel`` was is copied as is (the port keeps flax's adapter layout) to
+``<layer>.weight.lora_A`` and ``.lora_B``.
+
 Both functions accept leading batch axes (a client-stacked tree converts
 leaf by leaf). Without ``module`` a kernel of 4 or more axes is a 2-D conv
 kernel and any other a dense one; with it, each kernel's own rank comes from
@@ -89,6 +95,10 @@ def flax_to_torch(tree, device="cpu", dtype=torch.float32, module=None) -> dict:
                 [np.asarray(node[f"h{g}"]["bias"]) for g in _GATES], -1))
             return
         for name, value in node.items():
+            if name == "kernel" and hasattr(value, "items"):  # a LoRA adapter
+                for leaf in ("lora_A", "lora_B"):
+                    put(f"{prefix}weight.{leaf}", np.asarray(value[leaf]))
+                continue
             if hasattr(value, "items"):  # a module's subtree (dict or FrozenDict)
                 walk(value, f"{prefix}{name}.")
                 continue
@@ -104,6 +114,9 @@ def flax_to_torch(tree, device="cpu", dtype=torch.float32, module=None) -> dict:
         walk(tree.get("batch_stats", {}), "")
     else:
         walk(tree, "")
+    if "lora_base" in tree:
+        base = flax_to_torch(tree["lora_base"], device, dtype, module)
+        out.update({f"lora_base/{k}": v for k, v in base.items()})
     return out
 
 
@@ -135,9 +148,19 @@ def torch_to_flax(state: dict, module: nn.Module | None = None) -> dict:
             node = node.setdefault(part, {})
         return node
 
+    base = {k[len("lora_base/"):]: v for k, v in state.items()
+            if k.startswith("lora_base/")}
+    if base:
+        trees["lora_base"] = torch_to_flax(base, module)["params"]
     for key, value in state.items():
+        if key.startswith("lora_base/"):
+            continue
         path, kind = key.rsplit(".", 1)
         a = value.detach().float().cpu().numpy()
+        if kind in ("lora_A", "lora_B"):  # an adapter, in flax's layout already
+            node_at("params", path.rpartition(".")[0]).setdefault(
+                "kernel", {})[kind] = np.ascontiguousarray(a)
+            continue
         if kind in STATE_LEAVES:
             node_at("batch_stats", path)[kind] = np.ascontiguousarray(a)
             continue

@@ -174,22 +174,23 @@ def test_cli_runs_a_round_on_cpu(tmp_path):
 
 
 def test_unported_drive_options_raise():
-    """The drive's unported options raise NotImplementedError (the client
-    ledger, the adapter bank, LoRA, personalization); the superstep and
-    buffered drives build; the fused kernel under chaos and a negative
-    pipeline depth raise ValueError."""
+    """The drive's options: the superstep, buffered, LoRA and personalized
+    drives build (the client ledger and the adapter bank are ported,
+    ``tests/test_torch_client_ledger.py``, ``tests/test_torch_adapter_bank.py``);
+    personalization without LoRA, or without a bank at train time, the
+    fused kernel under chaos and a negative pipeline depth raise
+    ValueError."""
     ds = _capped(load_dataset("femnist", client_num_in_total=2, seed=0),
                  PackedClients, 20, 32)
     trainer = ClassificationTrainer(CNN_DropOut(output_dim=62))
-    for kw in (dict(lora_rank=4), dict(personalize=True)):
-        with pytest.raises(NotImplementedError):
-            FedAvgAPI(ds, FedConfig(**kw), trainer, device="cpu")
-    for kw in (dict(rounds_per_dispatch=2), dict(buffer_size=4)):
+    with pytest.raises(ValueError, match="requires lora_rank > 0"):
+        FedAvgAPI(ds, FedConfig(personalize=True), trainer, device="cpu")
+    for kw in (dict(rounds_per_dispatch=2), dict(buffer_size=4), dict(lora_rank=4)):
         FedAvgAPI(ds, FedConfig(client_num_in_total=2, **kw), trainer, device="cpu")
-    api = FedAvgAPI(ds, FedConfig(client_num_in_total=2), trainer, device="cpu")
-    for kw in (dict(ledger=object()), dict(bank=object())):
-        with pytest.raises(NotImplementedError):
-            api.train(**kw)
+    api = FedAvgAPI(ds, FedConfig(client_num_in_total=2, lora_rank=4, personalize=True),
+                    trainer, device="cpu")
+    with pytest.raises(ValueError, match="needs an attached adapter bank"):
+        api.train()
     with pytest.raises(ValueError, match="pipeline_depth"):
         FedAvgAPI(ds, FedConfig(pipeline_depth=-1), trainer, device="cpu")
     fused = FedAvgAPI(ds, FedConfig(client_num_in_total=2, batch_size=20, fused_kernel=True),
