@@ -267,6 +267,40 @@ Phases (any failure exits non-zero and prints no result line):
        tenant and the fused kernel nowhere; a submission past
        ``max_queued`` 1 under ``admission="reject"`` bounces.
 
+ 12. the FedAvg family's last datasets, within PHASE12_BUDGET_S
+     (``--datasets-only`` builds the kernels and runs this phase alone), on
+     cuDNN's deterministic algorithms, every path's launches of the four
+     kernels counted and printed (each must read 0: none is on these
+     paths), its cuts of scale in PHASE12_CUTS; whether PIL imports is
+     printed first (the streaming paths decode JPEG trees with it, and
+     fail without it):
+     - (a) cell 23, stackoverflow_lr with ``lr`` at full width (10,000
+       words -> 500 tags) on its 200 surrogate clients, 10 a round, 3
+       rounds, TagPredictionTrainer: the BCE falls, the test precision and
+       recall in [0, 1], no ``correct`` sum in the records; round times
+       and one profiled round's device-busy share;
+     - (b) cell 24, rank-8 LoRA over ``rnn_stackoverflow``'s gate kernels
+       (embedding 96, one LSTM of 670, vocab 10,004) on cell 2's data, 50
+       clients a round, batch 16, 3 rounds at depth 2: the frozen base bit
+       for bit, the wire's parameters beside the model's, the training loss
+       and the global test loss (before and after) fall; then one LoRA
+       round of the Shakespeare LSTM;
+     - (c) cell 25, gld23k streamed at its federation (233 users, 203
+       classes, 23,080 rows at 64 px over GLD_POOL distinct seeded images)
+       in the loader's csv layout, ``mobilenet_v3``, 10 users a round, 3
+       rounds, evaluating in CI mode (STREAM_EVAL_CI), under a
+       STREAM_BUDGET byte budget: after every ``select``
+       of either split the resident bytes within the budget, the sampled
+       clients resident and every resident client sampled; evictions;
+       per round its time, its ``stage`` span and the peak RSS;
+     - (d) cell 26, one ILSVRC2012 round at 224 px with ``resnet18_gn``:
+       100 class-blocked clients over 1,000 classes (INET_TRAIN_PER_CLASS
+       images a class), 10 sampled, the checks of (c);
+     - (e) cell 27, one CIFAR-10 ResNet-20 round with
+       ``cifar_train_augment`` as the trainer's ``augment_fn``, its draws
+       from the clients' generators on the card, run twice: bit for bit;
+       an augmented batch differs from its input.
+
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
 "device": {...}}``.
@@ -459,6 +493,53 @@ LAUNCH_SLACK = 0.15
 BIG_BANK_ROWS, SMALL_BANK_ROWS = 342_477, 10_000
 BANK_CYCLES, BANK_COHORT, RSS_GROWTH_MB = 20, 50, 64
 SERVE_ROUNDS, PFL_SERVE_ROUNDS, PFL_DEADLINE_S, PFL_DROP_RATE = 4, 3, 600.0, 0.3
+# Phase 12: the FedAvg family's last datasets (cells 23-27) at full width,
+# each path with the four kernels' launches counted (each must read 0),
+# within PHASE12_BUDGET_S. Cuts of scale, each beside its constant:
+PHASE12_BUDGET_S = 90.0
+# (a) stackoverflow_lr: the surrogate's 200 clients (all of it), 3 rounds
+SO_LR_CLIENTS, SO_LR_PER_ROUND, SO_LR_BATCH, SO_LR_LR, SO_LR_ROUNDS = 200, 10, 10, 1.0, 3
+# (b) rank-8 LoRA over rnn_stackoverflow on cell 2's data, 3 rounds (of the
+# config's 1500), then one round of the Shakespeare LSTM. The adapters of a
+# near-uniform random LSTM move its loss by float32 noise in 3 rounds at
+# BASELINE.md's lr 10**-0.5 (a CPU probe: 0.4605729 -> 0.4605728); lr 10
+# (no published LoRA config names one) makes the fall plain (-> 0.4605620)
+LSTM_LORA_ROUNDS, LSTM_LORA_LR = 3, 10.0
+# (c) gld23k: its 233 users and 23,080 train rows at 64 px, the rows
+# naming GLD_POOL distinct seeded images (each decoded once a row); the
+# test csv cut to GLD_TEST_ROWS rows (of 19,526); 3 rounds
+GLD_USERS, GLD_CLASSES, GLD_ROWS, GLD_SIDE = 233, 203, 23_080, 64
+GLD_POOL, GLD_TEST_ROWS, GLD_PER_ROUND, GLD_ROUNDS, GLD_BATCH, GLD_LR = (
+    2_048, 2_330, 10, 3, 32, 0.05)
+# (d) ILSVRC2012 at 224 px: 100 class-blocked clients over 1,000 classes,
+# INET_TRAIN_PER_CLASS train images a class (of about 1,300) and
+# INET_VAL_PER_CLASS val images (of 50), copies of INET_POOL seeded JPEGs;
+# one round
+INET_CLIENTS, INET_CLASSES, INET_SIDE, INET_POOL = 100, 1000, 224, 256
+INET_TRAIN_PER_CLASS, INET_VAL_PER_CLASS, INET_PER_ROUND, INET_BATCH = 2, 1, 10, 20
+# both streaming paths decode under this budget, below either federation;
+# gld23k evaluates in the JAX config's CI mode (one client's splits): a
+# round that evaluated all 233 users' 25,410 rows took 26.1-28.8 s on an
+# H100 80GB HBM3 at 700 W, most of it host decodes (ILSVRC2012's one round
+# evaluates all 100 clients, and its 3,000 rows are what evict)
+STREAM_BUDGET = 256 << 20
+STREAM_EVAL_CI = 1
+# (e) CIFAR-10 ResNet-20 with the train transform: 10 hetero clients, one
+# round, twice
+AUG_CLIENTS, AUG_BATCH, AUG_LR = 10, 64, 0.1
+PHASE12_CUTS = {
+    "stackoverflow_lr": [f"comm_round={SO_LR_ROUNDS}"],
+    "lora rnn_stackoverflow": [f"comm_round={LSTM_LORA_ROUNDS}",
+                               f"client_num_in_total={NWP_CLIENTS} (of 342,477)"],
+    "lora rnn": ["comm_round=1"],
+    "gld23k": [f"distinct images {GLD_POOL} (of {GLD_ROWS})",
+               f"test rows {GLD_TEST_ROWS} (of 19,526)", f"comm_round={GLD_ROUNDS}",
+               f"ci={STREAM_EVAL_CI}"],
+    "ILSVRC2012": [f"train images a class {INET_TRAIN_PER_CLASS} (of ~1,300)",
+                   f"val images a class {INET_VAL_PER_CLASS} (of 50)",
+                   f"distinct images {INET_POOL}", "comm_round=1"],
+    "cifar10 augment": ["comm_round=1"],
+}
 
 
 class Disagreement(RuntimeError):
@@ -3124,6 +3205,403 @@ def run_serving(ds, nwp, reference: dict, flash_launches: dict) -> dict:
     return out
 
 
+# ---- phase 12: the FedAvg family's last datasets (cells 23-27)
+
+
+def dataset_path(tag: str, fused_launches: dict, flash_launches: dict, fn):
+    """A phase 12 path: ``fn()`` with the four kernels' launches counted
+    (each must read 0, see ``zoo_path``), filed under ``tag``. The earlier
+    paths' garbage is collected first, so that the RSS a streamed round
+    samples is not theirs."""
+    import gc
+
+    from fedml_tpu_torch.ops import attention
+
+    gc.collect()
+    counts: dict = {}
+    out = zoo_path(tag, counts, fn)
+    fused_launches[tag] = counts[tag]["fused_epoch"]
+    flash_launches[tag] = {k: counts[tag][k] for k in attention.launches}
+    return out
+
+
+def run_tag_prediction() -> dict:
+    """Phase 12 (a), cell 23: stackoverflow_lr with lr at full width."""
+    from fedml_tpu_torch import FedAvgAPI, FedConfig, create_model, load_dataset
+    from fedml_tpu_torch.core.trainer import TagPredictionTrainer
+    from fedml_tpu_torch.experiments import profile_zoo
+
+    t0 = time.perf_counter()
+    ds = load_dataset("stackoverflow_lr", client_num_in_total=SO_LR_CLIENTS, seed=SEED)
+    built = time.perf_counter() - t0
+    cfg = FedConfig(dataset="stackoverflow_lr", model="lr", client_num_in_total=SO_LR_CLIENTS,
+                    client_num_per_round=SO_LR_PER_ROUND, batch_size=SO_LR_BATCH,
+                    lr=SO_LR_LR, epochs=1, comm_round=SO_LR_ROUNDS, seed=SEED)
+    trainer = TagPredictionTrainer(create_model("lr", output_dim=ds.class_num,
+                                                input_shape=ds.train.x.shape[2:]))
+    api = FedAvgAPI(ds, cfg, trainer, device="cuda")
+    hist = api.train()
+    losses = check_trained("stackoverflow_lr", api, hist)
+    m = {k: float(v) for k, v in api.eval_fn(api.global_variables,
+                                              *api._test_batches).items()}
+    precision = m["test_precision"] / m["test_total"]
+    recall = m["test_recall"] / m["test_total"]
+    if not (0.0 <= precision <= 1.0 and 0.0 <= recall <= 1.0):
+        raise RuntimeError(f"stackoverflow_lr: precision {precision}, recall {recall}")
+    if "correct" in hist[-1]:
+        raise RuntimeError("stackoverflow_lr: a train record carries the classifier's "
+                           "'correct' sum")
+    # one more round under the profiler, the device's activity alone
+    prof = profile_zoo.profiled_round(api, len(hist), host_events=False)
+    log(profile_zoo.summary("stackoverflow_lr", hist, prof))
+    out = {"params": sum(v.numel() for v in api.global_variables.values()),
+           "train_bce": [round(v, 5) for v in losses],
+           "test_precision": round(precision, 4), "test_recall": round(recall, 4),
+           "exact_match": round(m["test_correct"] / m["test_total"], 4),
+           "round_ms": [round(h["round_time"] * 1e3, 2) for h in hist],
+           "set_up_s": round(built, 1), "profiled_wall_ms": round(prof["wall_ms"], 2),
+           "busy_ms": round(prof["busy_ms"], 2),
+           "busy_share": round(prof["busy_ms"] / prof["wall_ms"], 4)}
+    log(f"stackoverflow_lr (lr 10,000 -> 500, {SO_LR_CLIENTS} clients): {json.dumps(out)}")
+    return out
+
+
+def lora_lstm_run(tag: str, ds, model: str, rounds: int, **cfg_kw) -> dict:
+    """A LoRA (rank LORA_RANK) drive of an LSTM on the card: the frozen
+    base bit for bit, the wire's parameters beside the model's; over more
+    than one round the training loss and the global test loss (one fixed
+    set, before and after) fall."""
+    from fedml_tpu_torch import FedAvgAPI, FedConfig, NWPTrainer, create_model
+    from fedml_tpu_torch.core.trainer import ClassificationTrainer
+    from fedml_tpu_torch.models.lora import lora_base, strip_lora_base
+
+    module = create_model(model, output_dim=ds.class_num)
+    trainer = (NWPTrainer(module) if ds.meta.get("task") == "nwp"
+               else ClassificationTrainer(module))
+    cfg = FedConfig(model=model, lora_rank=LORA_RANK, epochs=1, comm_round=rounds,
+                    seed=SEED, frequency_of_the_test=rounds, **cfg_kw)
+    api = FedAvgAPI(ds, cfg, trainer, device="cuda")
+    base0 = {k: v.clone() for k, v in lora_base(api.global_variables).items()}
+    wire = sum(v.numel() for v in strip_lora_base(api.global_variables).values())
+    total = sum(v.numel() for v in base0.values())
+    before = api.test_global(-1)["Test/Loss"]
+    hist = api.train()
+    losses = check_trained(tag, api, hist, must_fall=rounds > 1)
+    after = api.test_global(rounds)["Test/Loss"]
+    if rounds > 1 and not after < before:
+        raise RuntimeError(f"{tag}: the global test loss did not fall: {before} -> {after}")
+    same_bits(f"{tag}: the frozen base across the run", lora_base(api.global_variables),
+              base0)
+    out = {"wire_params": wire, "model_params": total, "shrink": round(total / wire, 2),
+           "train_loss": [round(v, 5) for v in losses],
+           "test_loss": [before, after],
+           "round_ms": [round(h["round_time"] * 1e3, 2) for h in hist]}
+    log(f"{tag} (rank {LORA_RANK}): base bit for bit; {json.dumps(out)}")
+    return out
+
+
+def run_lora_stackoverflow(nwp) -> dict:
+    """Phase 12 (b), cell 24: LoRA over rnn_stackoverflow's gate kernels on
+    cell 2's data, pipelined."""
+    return lora_lstm_run("lora rnn_stackoverflow", nwp, "rnn_stackoverflow", LSTM_LORA_ROUNDS,
+                         dataset="stackoverflow_nwp", client_num_in_total=NWP_CLIENTS,
+                         client_num_per_round=NWP_PER_ROUND, batch_size=NWP_BATCH,
+                         lr=LSTM_LORA_LR, grad_clip=1.0, pipeline_depth=PIPE_DEPTH)
+
+
+def run_lora_shakespeare() -> dict:
+    """Phase 12 (b): one LoRA round of the Shakespeare LSTM (phase 5's
+    configuration)."""
+    from fedml_tpu_torch import load_dataset
+
+    shakespeare = load_dataset("shakespeare", client_num_in_total=715, seed=SEED)
+    return lora_lstm_run("lora rnn", shakespeare, "rnn", 1, dataset="shakespeare",
+                         client_num_in_total=715, client_num_per_round=10, batch_size=10,
+                         lr=0.8)
+
+
+class BudgetWatch:
+    """Wraps a streaming store's ``select`` to check, after every call,
+    that the resident bytes are within its budget, that every sampled
+    client is resident and every resident one was sampled by some select;
+    counts evictions and samples the process's RSS (MiB) with the time."""
+
+    def __init__(self, tag: str, store):
+        self.tag, self.store = tag, store
+        self.selects = self.evictions = 0
+        self.sampled: set = set()
+        self.rss: list = []
+        self._select = store.select
+        store.select = self
+
+    def __call__(self, idx):
+        before = set(self.store.resident_clients())
+        out = self._select(idx)
+        resident = set(self.store.resident_clients())
+        self.sampled |= {int(k) for k in idx}
+        self.selects += 1
+        self.evictions += len(before - resident)
+        if self.store.resident_bytes > self.store.byte_budget:
+            raise RuntimeError(f"{self.tag}: {self.store.resident_bytes} resident bytes over "
+                               f"the {self.store.byte_budget}-byte budget")
+        if not {int(k) for k in idx} <= resident or not resident <= self.sampled:
+            raise RuntimeError(f"{self.tag}: resident clients {sorted(resident)} after "
+                               f"sampling {sorted(int(k) for k in idx)}")
+        self.rss.append((time.perf_counter(), rss_mb()))
+        return out
+
+
+def streamed_rounds(tag: str, ds, cfg, trainer) -> dict:
+    """The drive over a streaming dataset on the card, each split's
+    ``select`` watched (``BudgetWatch``); per round: its time, its
+    ``stage`` span and the peak RSS sampled in it. At least one eviction."""
+    from fedml_tpu_torch import FedAvgAPI
+    from fedml_tpu_torch.telemetry import Tracer
+
+    watches = [BudgetWatch(f"{tag} {split}", getattr(ds, split)) for split in ("train", "test")]
+    api = FedAvgAPI(ds, cfg, trainer, device="cuda")
+    tracer = Tracer()
+    hist = api.train(tracer=tracer)
+    check_trained(tag, api, hist, must_fall=False)
+    rounds = []
+    for span in tracer.find_spans("round"):
+        t0, t1 = span["t0"], span["t0"] + span["dur_s"]
+        peak = max((m for t, m in watches[0].rss + watches[1].rss if t0 <= t <= t1),
+                   default=rss_mb())
+        stage = sum(s["dur_s"] for s in tracer.find_spans("stage", span["round"]))
+        rounds.append({"round": span["round"], "round_ms": round(span["dur_s"] * 1e3, 2),
+                       "stage_ms": round(stage * 1e3, 2), "peak_rss_mb": round(peak, 1)})
+    evictions = sum(w.evictions for w in watches)
+    if evictions == 0:
+        raise RuntimeError(f"{tag}: no client was evicted under the "
+                           f"{ds.train.byte_budget}-byte budget")
+    resident = tracer.gauge_summary()["store_resident_bytes"]["last"]
+    out = {"rounds": rounds, "selects": sum(w.selects for w in watches),
+           "evictions": evictions, "budget_mb": ds.train.byte_budget >> 20,
+           "row_mb": round(ds.train.row_bytes() / 2 ** 20, 2),
+           "last_resident_gauge": resident,
+           "train_loss": [round(h["loss_sum"] / h["total"], 4) for h in hist]}
+    log(f"{tag}: every select within the budget; {json.dumps(out)}")
+    return out
+
+
+def seeded_pool(n: int, side: int, classes: int, seed: int) -> list:
+    """n seeded uint8 images [side, side, 3], image p a noisy copy of
+    class p % classes's prototype (so the labels can be learned)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    protos = rng.rand(classes, side, side, 3).astype(np.float32)
+    return [((0.7 * protos[p % classes] + 0.3 * rng.rand(side, side, 3)) * 255).astype(np.uint8)
+            for p in range(n)]
+
+
+def write_pool(root: str, pool) -> list:
+    """The pool's images as JPEG files under ``root``."""
+    import os
+
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for p, img in enumerate(pool):
+        paths.append(os.path.join(root, f"p{p:05d}.jpg"))
+        Image.fromarray(img).save(paths[-1], quality=90)
+    return paths
+
+
+def gld_users(rng) -> list:
+    """GLD_USERS seeded per-user row counts (at least 30, as gld23k's
+    users hold) summing to GLD_ROWS."""
+    import numpy as np
+
+    n = np.clip(rng.lognormal(np.log(GLD_ROWS / GLD_USERS), 0.45, GLD_USERS), 30, 300)
+    n = np.maximum(30, np.floor(n * GLD_ROWS / n.sum())).astype(int)
+    short = GLD_ROWS - int(n.sum())
+    n[np.argsort(-n)[:abs(short)]] += int(np.sign(short))
+    return [int(v) for v in n]
+
+
+def run_gld23k(root: str) -> dict:
+    """Phase 12 (c), cell 25: gld23k streamed at its published federation."""
+    import os
+
+    import numpy as np
+
+    from fedml_tpu_torch import FedConfig, create_model, load_dataset
+    from fedml_tpu_torch.core.trainer import ClassificationTrainer
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 25)
+    # the images at <root>/images/<image_id>.jpg, a place the loader reads
+    write_pool(os.path.join(root, "images"),
+               seeded_pool(GLD_POOL, GLD_SIDE, GLD_CLASSES, SEED + 25))
+    per_class = [list(range(c, GLD_POOL, GLD_CLASSES)) for c in range(GLD_CLASSES)]
+
+    def rows(n):
+        cls = rng.randint(0, GLD_CLASSES, n)
+        return [(int(c), per_class[c][rng.randint(len(per_class[c]))]) for c in cls]
+
+    users = [rows(n) for n in gld_users(rng)]
+    os.makedirs(os.path.join(root, "data_user_dict"))
+    for split, table in (("train", [(u, r) for u, rs in enumerate(users) for r in rs]),
+                         ("test", [(0, r) for r in rows(GLD_TEST_ROWS)])):
+        with open(os.path.join(root, "data_user_dict", f"gld23k_user_dict_{split}.csv"),
+                  "w") as f:
+            f.write("user_id,image_id,class\n")
+            f.writelines(f"{u},p{p:05d},{c}\n" for u, (c, p) in table)
+    written = time.perf_counter() - t0
+    budget = os.environ.get("FEDML_TPU_STREAM_BUDGET")
+    os.environ["FEDML_TPU_STREAM_BUDGET"] = str(STREAM_BUDGET)
+    try:
+        ds = load_dataset("gld23k", data_dir=root, image_size=GLD_SIDE, seed=SEED)
+    finally:
+        if budget is None:
+            del os.environ["FEDML_TPU_STREAM_BUDGET"]
+        else:
+            os.environ["FEDML_TPU_STREAM_BUDGET"] = budget
+    loaded = time.perf_counter() - t0 - written
+    if (ds.train.num_clients, ds.train.total_samples) != (GLD_USERS, GLD_ROWS):
+        raise RuntimeError(f"gld23k: {ds.train.num_clients} users, "
+                           f"{ds.train.total_samples} rows")
+    cfg = FedConfig(dataset="gld23k", model="mobilenet_v3", client_num_in_total=GLD_USERS,
+                    client_num_per_round=GLD_PER_ROUND, batch_size=GLD_BATCH, lr=GLD_LR,
+                    epochs=1, comm_round=GLD_ROUNDS, frequency_of_the_test=GLD_ROUNDS,
+                    ci=STREAM_EVAL_CI, seed=SEED)
+    trainer = ClassificationTrainer(create_model("mobilenet_v3", output_dim=ds.class_num,
+                                                 input_shape=ds.train.x.shape[2:]))
+    out = streamed_rounds("gld23k streaming", ds, cfg, trainer)
+    out.update(users=GLD_USERS, rows=GLD_ROWS, distinct_images=GLD_POOL, n_max=ds.train.n_max,
+               class_num=ds.class_num, written_s=round(written, 1), load_s=round(loaded, 1),
+               decoded_federation_gb=round(GLD_ROWS * GLD_SIDE ** 2 * 3 * 4 / 1e9, 3))
+    return out
+
+
+def run_imagenet(root: str) -> dict:
+    """Phase 12 (d), cell 26: one ILSVRC2012 round at 224 px, streamed."""
+    import os
+    import shutil
+
+    from fedml_tpu_torch import FedConfig, create_model, load_dataset
+    from fedml_tpu_torch.core.trainer import ClassificationTrainer
+
+    t0 = time.perf_counter()
+    pool = write_pool(os.path.join(root, "pool"),
+                      seeded_pool(INET_POOL, INET_SIDE, 16, SEED + 26))
+    for split, per in (("train", INET_TRAIN_PER_CLASS), ("val", INET_VAL_PER_CLASS)):
+        for c in range(INET_CLASSES):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d)
+            for i in range(per):
+                shutil.copyfile(pool[(c * per + i) % INET_POOL], os.path.join(d, f"img_{i}.jpg"))
+    written = time.perf_counter() - t0
+    ds = load_dataset("ILSVRC2012", data_dir=root, client_num_in_total=INET_CLIENTS,
+                      image_size=INET_SIDE, byte_budget=STREAM_BUDGET, seed=SEED)
+    loaded = time.perf_counter() - t0 - written
+    cfg = FedConfig(dataset="ILSVRC2012", model="resnet18_gn", client_num_in_total=INET_CLIENTS,
+                    client_num_per_round=INET_PER_ROUND, batch_size=INET_BATCH, lr=0.1,
+                    epochs=1, comm_round=1, seed=SEED)
+    trainer = ClassificationTrainer(create_model("resnet18_gn", output_dim=ds.class_num,
+                                                 input_shape=ds.train.x.shape[2:]))
+    out = streamed_rounds("ILSVRC2012 streaming", ds, cfg, trainer)
+    out.update(clients=INET_CLIENTS, classes=ds.class_num, n_max=ds.train.n_max,
+               written_s=round(written, 1), load_s=round(loaded, 1))
+    return out
+
+
+def run_augment() -> dict:
+    """Phase 12 (e), cell 27: a CIFAR-10 ResNet-20 round with the reference's
+    train transform as the trainer's augment_fn, twice from one seed (bit
+    for bit under cuDNN's deterministic algorithms)."""
+    import torch
+
+    from fedml_tpu_torch import FedAvgAPI, FedConfig, create_model, load_dataset
+    from fedml_tpu_torch.core.trainer import ClassificationTrainer
+    from fedml_tpu_torch.data.augment import cifar_train_augment
+
+    ds = load_dataset("cifar10", client_num_in_total=AUG_CLIENTS, partition_method="hetero",
+                      partition_alpha=0.5, seed=SEED)
+    calls = []
+
+    def augment(generator, x):
+        if generator.device != x.device:
+            raise RuntimeError(f"cifar10 augment: a {generator.device} generator for a "
+                               f"batch on {x.device}")
+        calls.append(1)
+        return cifar_train_augment(generator, x)
+
+    runs = []
+    for _ in range(2):
+        cfg = FedConfig(dataset="cifar10", model="resnet20", client_num_in_total=AUG_CLIENTS,
+                        client_num_per_round=AUG_CLIENTS, batch_size=AUG_BATCH, lr=AUG_LR,
+                        epochs=1, comm_round=1, seed=SEED)
+        trainer = ClassificationTrainer(create_model("resnet20", output_dim=ds.class_num),
+                                        augment_fn=augment)
+        api = FedAvgAPI(ds, cfg, trainer, device="cuda")
+        hist = api.train()
+        check_trained("cifar10 augment", api, hist, must_fall=False)
+        runs.append((api, hist, len(calls)))
+    same_bits("cifar10 augment: two runs from one seed", runs[1][0].global_variables,
+              runs[0][0].global_variables)
+    steps = runs[0][2]
+    if steps == 0 or runs[1][2] != 2 * steps:
+        raise RuntimeError(f"cifar10 augment: {steps} and {runs[1][2] - steps} augmented "
+                           "batches")
+    dev = runs[0][0].device
+    x = torch.from_numpy(ds.train.x[0][:AUG_BATCH]).to(dev)
+    y = cifar_train_augment(torch.Generator(device=dev).manual_seed(SEED), x)
+    if y.shape != x.shape or torch.equal(y, x):
+        raise RuntimeError("cifar10 augment: the augmented batch is the input")
+    out = {"augmented_batches": steps, "round_ms": round(runs[0][1][0]["round_time"] * 1e3, 2),
+           "second_run_ms": round(runs[1][1][0]["round_time"] * 1e3, 2),
+           "changed_share": round(float((y != x).float().mean()), 4)}
+    log(f"cifar10 resnet20 with cifar_train_augment: two runs bit for bit; {json.dumps(out)}")
+    return out
+
+
+def run_datasets(nwp, fused_launches: dict, flash_launches: dict) -> dict:
+    """Phase 12: the FedAvg family's last datasets (cells 23-27; see the
+    module docstring), every path's kernel launches counted."""
+    import importlib.util
+
+    import torch
+
+    started = time.perf_counter()
+    # decided once, here: the streaming loaders decode with PIL
+    pil = importlib.util.find_spec("PIL") is not None
+    log(f"phase 12: PIL {'imports' if pil else 'is absent'} on this machine")
+    if not pil:
+        raise RuntimeError("phase 12's streaming paths decode JPEG trees with PIL, "
+                           "which this machine lacks")
+    log(f"phase 12 cuts: {json.dumps(PHASE12_CUTS)}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        def path(tag, fn):
+            return dataset_path(tag, fused_launches, flash_launches, fn)
+
+        out["stackoverflow_lr"] = path("stackoverflow_lr", run_tag_prediction)
+        out["lora_rnn_stackoverflow"] = path("lora rnn_stackoverflow",
+                                             lambda: run_lora_stackoverflow(nwp))
+        out["lora_rnn"] = path("lora rnn", run_lora_shakespeare)
+        with tempfile.TemporaryDirectory() as tmp:
+            out["gld23k"] = path("gld23k streaming", lambda: run_gld23k(f"{tmp}/gld"))
+            out["ILSVRC2012"] = path("ILSVRC2012 streaming",
+                                     lambda: run_imagenet(f"{tmp}/inet"))
+        out["cifar10_augment"] = path("cifar10 augment", run_augment)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    if seconds > PHASE12_BUDGET_S:
+        log(f"WARNING phase 12 took {seconds:.1f} s, over its {PHASE12_BUDGET_S:.0f} s "
+            f"budget")
+    out["seconds"] = round(seconds, 1)
+    log(f"phase 12: {seconds:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3142,6 +3620,10 @@ def main(argv=None) -> int:
     parser.add_argument("--transport-only", action="store_true",
                         help="build the kernels, then run phase 10 alone (the codecs, "
                         "FedBuff and the superstep), checking it and printing no result")
+    parser.add_argument("--datasets-only", action="store_true",
+                        help="build the kernels, then run phase 12 alone (stackoverflow_lr, "
+                        "LoRA over the LSTMs, the streaming gld23k and ILSVRC2012 paths and "
+                        "train-time augmentation), checking it and printing no result")
     parser.add_argument("--serving-only", action="store_true",
                         help="build the kernels, then run phase 3's NWP path (for its "
                         "launch counts) and phase 11 alone (LoRA, the client ledger, the "
@@ -3180,7 +3662,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if opts.launcher_only or opts.privacy_only or opts.transport_only or opts.serving_only:
+    if (opts.launcher_only or opts.privacy_only or opts.transport_only or opts.serving_only
+            or opts.datasets_only):
         if opts.launcher_only:
             run_launcher({})
         if opts.privacy_only:
@@ -3200,6 +3683,8 @@ def main(argv=None) -> int:
             _, reference = with_launches("nwp fedavg", list(attention.launches),
                                          lambda: run_nwp_path(nwp))
             run_serving(ds, nwp, reference, {})
+        if opts.datasets_only:
+            run_datasets(load_nwp(), {}, {})
         log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
         return 0
     if calibrate:
@@ -3278,6 +3763,10 @@ def main(argv=None) -> int:
     # ---- phase 11: federated LoRA, the client ledger, the adapter bank and
     # the multi-tenant scheduler (cells 20-22)
     serving = run_serving(ds, nwp, flash_launches["nwp fedavg"], flash_launches)
+
+    # ---- phase 12: the FedAvg family's last datasets (cells 23-27; no kernel
+    # runs on their paths)
+    datasets = run_datasets(nwp, fused_launches, flash_launches)
     del ds, nwp
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
@@ -3321,6 +3810,7 @@ def main(argv=None) -> int:
     log(f"privacy: {json.dumps(privacy)}")
     log(f"transport: {json.dumps(transport)}")
     log(f"serving: {json.dumps(serving)}")
+    log(f"datasets: {json.dumps(datasets)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -211,6 +211,7 @@ def _build_epoch_fn(trainer, cfg: FedConfig, opt: Optimizer) -> Callable:
     differentiates or updates it."""
     full = cfg.assume_full_clients
     mu = cfg.fedprox_mu
+    aux_keys = getattr(trainer, "aux_keys", ("loss_sum", "correct", "total"))
 
     def epoch_fn(params, state, opt_state, global_params, x, y, count, generator, perm,
                  frozen):
@@ -254,8 +255,9 @@ def _build_epoch_fn(trainer, cfg: FedConfig, opt: Optimizer) -> Callable:
             steps += 1
             sums = aux if sums is None else {k: sums[k] + aux[k] for k in aux}
         if sums is None:
+            # the trainer's own keys, as the JAX scan's masked sums carry them
             zero = torch.zeros((), device=x.device)
-            sums = {"loss_sum": zero, "correct": zero, "total": zero}
+            sums = {k: zero for k in aux_keys}
         return params, state, opt_state, steps, sums
 
     return epoch_fn

@@ -884,6 +884,14 @@ class FedAvgAPI(Checkpointable):
         per_row = self.dataset.class_num * int(np.prod(packed.y.shape[2:], dtype=np.int64))
         rows = min(_EVAL_ROWS, _EVAL_LOGITS // max(per_row, 1))
         k = max(1, min(num, rows // max(n_max, 1)))
+        budget = getattr(packed, "byte_budget", None)
+        if budget is not None:
+            # a streaming split decodes a chunk at a time, never the whole
+            # split (the JAX drive's rule: no resident eval of a lazy store),
+            # and a chunk's rows all stay pinned in its LRU at once
+            k = max(1, min(k, budget // packed.row_bytes()))
+            log.info("eval of a streaming (lazy-decode) split: chunked, %d clients a "
+                     "chunk under its %d MiB budget", k, budget >> 20)
         for start in range(0, num, k):
             x, y, counts = packed.select(np.arange(start, min(start + k, num)))
             x, y, counts = pad_clients(x, y, counts, k)

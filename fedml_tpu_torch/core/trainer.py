@@ -1,5 +1,5 @@
 """Trainers — PyTorch form of ``fedml_tpu/core/trainer.py``'s
-``ClassificationTrainer`` and ``NWPTrainer``.
+``ClassificationTrainer``, ``NWPTrainer`` and ``TagPredictionTrainer``.
 
 A trainer is a bundle of functions over a variables dict (the port's
 "variables": ``{"layer.weight": tensor, ...}``, a model's parameters and
@@ -65,7 +65,11 @@ def flax_default_init(module: nn.Module, generator: torch.Generator, device) -> 
 
 
 class ModelTrainer:
-    """A module plus its init and apply; the task trainers add the loss."""
+    """A module plus its init and apply; the task trainers add the loss.
+    ``aux_keys`` names the train metric sums of ``loss_fn``'s aux (the
+    engine gives a client that takes no step zeros under these keys)."""
+
+    aux_keys = ("loss_sum", "correct", "total")
 
     def __init__(self, module):
         self.module = module
@@ -90,10 +94,22 @@ class ModelTrainer:
 class ClassificationTrainer(ModelTrainer):
     """Cross-entropy classification: the loss is the masked mean of
     per-sample CE; metric sums are float32; argmax ties go to the first
-    index (``torch.argmax`` returns the first maximal index)."""
+    index (``torch.argmax`` returns the first maximal index).
+
+    ``augment_fn(generator, x) -> x`` (``data/augment.py``) transforms a
+    training batch on its device before the forward pass, drawing from the
+    client's generator; it runs only when training with a generator, as
+    the JAX trainer's hook does."""
+
+    def __init__(self, module, augment_fn=None):
+        super().__init__(module)
+        self.augment_fn = augment_fn
 
     def loss_fn(self, variables, batch, generator, train: bool = True):
-        logits, state = self.apply(variables, batch["x"], generator, train)
+        x = batch["x"]
+        if train and self.augment_fn is not None and generator is not None:
+            x = self.augment_fn(generator, x)
+        logits, state = self.apply(variables, x, generator, train)
         per = F.cross_entropy(logits, batch["y"].long(), reduction="none")
         mask = batch["mask"].to(per.dtype)
         loss = (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -160,3 +176,53 @@ class NWPTrainer(ModelTrainer):
         return {"test_correct": correct,
                 "test_loss": (loss / torch.clamp(tokens, min=1.0) * samples).sum(),
                 "test_total": mask.sum()}
+
+
+class TagPredictionTrainer(ModelTrainer):
+    """Multi-label tag prediction (reference
+    my_model_trainer_tag_prediction.py): ``y`` is a multi-hot [b, tags]
+    row; the loss is the BCE-with-logits mean over tags, masked per
+    sample. Its aux has no ``correct``: a train round records
+    ``loss_sum`` and ``total`` only, as the JAX trainer's does."""
+
+    aux_keys = ("loss_sum", "total")
+
+    def loss_fn(self, variables, batch, generator, train: bool = True):
+        logits, state = self.apply(variables, batch["x"], generator, train)
+        y = batch["y"].to(logits.dtype)
+        per = F.binary_cross_entropy_with_logits(logits, y, reduction="none").mean(-1)
+        mask = batch["mask"].to(per.dtype)
+        loss_sum = (per * mask).sum()
+        loss = loss_sum / torch.clamp(mask.sum(), min=1.0)
+        aux = {"loss_sum": loss_sum.detach(), "total": mask.detach().sum()}
+        return loss, (state, aux)
+
+    @torch.no_grad()
+    def eval_fn(self, variables, batch):
+        """The reference metric contract (my_model_trainer_tag_prediction.py
+        test():75-96), in float32: the BCE summed over every tag with the
+        1e-7 clamp, times the client's sample count (divided back out by
+        ``test_total``); exact-match ``test_correct``; per-sample precision
+        and recall sums at threshold 0.5 with the 1e-13 guard. A batch of
+        ``clients`` blocks scales each block's BCE by its own count, as the
+        JAX drive evaluates one client per vmapped call."""
+        logits, _ = self.apply(variables, batch["x"], None, False)
+        y = batch["y"].float()
+        probs = torch.sigmoid(logits).float()
+        predicted = (probs > 0.5).float()
+        samp = batch["mask"].float()
+        eps = 1e-7
+        bce = -(y * torch.log(torch.clamp(probs, min=eps))
+                + (1 - y) * torch.log(torch.clamp(1 - probs, min=eps)))
+        clients = batch.get("clients", 1)
+        loss = (bce.sum(-1) * samp).reshape(clients, -1).sum(1)
+        n_valid = samp.reshape(clients, -1).sum(1)
+        exact = ((predicted - y).abs().amax(-1) < 0.5).float()
+        tp = ((y * predicted) > 0.1).float().sum(-1)
+        precision = tp / (predicted.sum(-1) + 1e-13)
+        recall = tp / (y.sum(-1) + 1e-13)
+        return {"test_correct": (exact * samp).sum(),
+                "test_loss": (loss * n_valid).sum(),
+                "test_precision": (precision * samp).sum(),
+                "test_recall": (recall * samp).sum(),
+                "test_total": samp.sum()}

@@ -1,13 +1,22 @@
-"""Dataset loaders (the mnist, emnist, fmnist, raw_mnist, synthetic,
-cifar10, cifar100, cinic10, fed_cifar100, femnist, shakespeare,
-fed_shakespeare, stackoverflow_nwp, adult, purchase100, texas100, har,
-chmnist and har_subject parts of ``fedml_tpu/data/loaders.py``).
+"""Dataset loaders (every part of ``fedml_tpu/data/loaders.py`` but
+pascal_voc: mnist, emnist, fmnist, raw_mnist, synthetic, cifar10,
+cifar100, cinic10, fed_cifar100, femnist, shakespeare, fed_shakespeare,
+stackoverflow_nwp, stackoverflow_lr, adult, purchase100, texas100, har,
+chmnist, har_subject, and the streaming ILSVRC2012, gld23k and gld160k).
 
 A globally pooled dataset is split across clients by ``homo``, ``hetero``
 (LDA), ``p-hetero`` or ``hetero-fix`` (a recorded ``net_dataidx_map.txt``,
 ``readers.find_hetero_fix_map``), the train split by the method asked for
 and the test split homo unless the method is homo or p-hetero, both from
 one ``RandomState(seed)``; a naturally split one keeps its clients.
+
+ILSVRC2012 and Google Landmarks stream when their files are present
+(``data/streaming.py``): only file paths are scanned at load, a round
+decodes its sampled clients under an LRU byte budget
+(``FEDML_TPU_STREAM_BUDGET``, 8 GiB for ILSVRC2012 and 4 GiB for
+Landmarks by default), and ``train_global``/``test_global`` hold seeded
+decoded subsets of ``global_cap`` images. Without the files each loads a
+small seeded surrogate in RAM, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -153,6 +162,195 @@ def load_cinic10(data_dir="./data", client_num_in_total=10, partition_method="he
                         partition_file=partition_file)
 
 
+@register_loader("ILSVRC2012")
+def load_imagenet(data_dir="./data", client_num_in_total=100, seed=0, image_size=224,
+                  cap_per_class=None, byte_budget=None, global_cap=512,
+                  samples_per_client=1024, **_):
+    """ImageNet split into class blocks: with 100 clients each owns 10
+    consecutive classes, with 1000 each owns one (reference
+    ImageNet/data_loader.py:190-240, datasets.py:81-129 net_dataidx_map).
+
+    With the ILSVRC2012 tree (<data_dir>/{train,val}/<wnid>/*) present the
+    dataset streams: a round's ``select()`` decodes only its sampled
+    clients (the full train split at 224 px would be about 700 GB of
+    float32). ``samples_per_client`` caps each client's list with a seeded
+    subsample, and says so in a warning. Surrogate when the tree is
+    absent."""
+    from fedml_tpu_torch.data.streaming import (StreamingPackedClients,
+                                                decode_global_subset, make_image_decoder)
+
+    tr_root = os.path.join(data_dir, "train")
+    te_root = os.path.join(data_dir, "val")
+    scan = None
+    if os.path.isdir(tr_root) and os.path.isdir(te_root):
+        try:
+            scan = (readers.list_image_folder_files(tr_root),
+                    readers.list_image_folder_files(te_root))
+        except Exception as e:  # an unreadable tree -> the surrogate
+            sources.log.warning("failed scanning ImageNet tree (%s)", e)
+    if scan is not None and scan[0] is not None and scan[1] is not None:
+        (tr_pc, classes), (te_pc, te_classes) = scan
+        if te_classes != classes:
+            raise ValueError(
+                f"ImageNet train/val class dirs disagree ({len(classes)} vs "
+                f"{len(te_classes)}; first diff: "
+                f"{sorted(set(classes) ^ set(te_classes))[:3]}) — val labels "
+                "would be silently wrong. Complete the download or remove "
+                "the extra dirs.")
+        if cap_per_class is not None:
+            tr_pc = [f[:cap_per_class] for f in tr_pc]
+            te_pc = [f[:cap_per_class] for f in te_pc]
+        class_num = len(classes)
+        dec = make_image_decoder(image_size, readers.IMAGENET_MEAN, readers.IMAGENET_STD)
+        # 10 sampled clients x 1024 rows at 224 px float32 is about 6.2 GB
+        budget = int(byte_budget or os.environ.get("FEDML_TPU_STREAM_BUDGET", 8 << 30))
+        # array_split puts every class on exactly one client even when
+        # class_num % client_num != 0 (the reference's per-class map)
+        class_blocks = np.array_split(np.arange(class_num), client_num_in_total)
+        cf, cl = [], []
+        for block in class_blocks:
+            files, labels = [], []
+            for ci in block:
+                files.extend(tr_pc[ci])
+                labels.extend([ci] * len(tr_pc[ci]))
+            cf.append(files)
+            cl.append(np.asarray(labels, np.int32))
+        if samples_per_client is not None:
+            # a class-blocked client owns 1.3k-13k images, and one padded row
+            # at 224 px is n_max x 600 KB: a seeded subsample keeps a round
+            # inside the budget
+            srng = np.random.RandomState(seed + 7)
+            capped = dropped = 0
+            for k in range(len(cf)):
+                if len(cf[k]) > samples_per_client:
+                    capped += 1
+                    dropped += len(cf[k]) - samples_per_client
+                    keep = np.sort(srng.choice(len(cf[k]), samples_per_client,
+                                               replace=False))
+                    cf[k] = [cf[k][i] for i in keep]
+                    cl[k] = cl[k][keep]
+            if capped:
+                # the reference trains on each client's whole class block
+                sources.log.warning(
+                    "ILSVRC streaming loader subsampled %d/%d clients to "
+                    "samples_per_client=%d (dropped %d images total); pass "
+                    "samples_per_client=None for reference-faithful full "
+                    "class blocks", capped, len(cf), samples_per_client, dropped)
+        train = StreamingPackedClients(cf, cl, dec, byte_budget=budget)
+        # a homo split of the val files as the per-client test split
+        te_files = [f for ci in range(class_num) for f in te_pc[ci]]
+        te_labels = np.asarray([ci for ci in range(class_num) for _ in te_pc[ci]], np.int32)
+        te_map = homo_partition(len(te_files), client_num_in_total,
+                                np.random.RandomState(seed))
+        tef = [[te_files[i] for i in te_map[k]] for k in sorted(te_map)]
+        tel = [te_labels[te_map[k]] for k in sorted(te_map)]
+        test = StreamingPackedClients(tef, tel, dec, byte_budget=budget)
+        # seeded random subsets, not the class-sorted prefix (which would
+        # cover only the lowest classes)
+        tr_flat = [(f, ci) for ci in range(class_num) for f in tr_pc[ci]]
+        xgt, ygt = decode_global_subset(
+            [f for f, _ in tr_flat], np.asarray([c for _, c in tr_flat], np.int32),
+            dec, global_cap, seed, (image_size, image_size, 3))
+        xg, yg = decode_global_subset(te_files, te_labels, dec, global_cap, seed + 1,
+                                      (image_size, image_size, 3))
+        return FederatedDataset(name="ILSVRC2012", train=train, test=test,
+                                train_global=(xgt, ygt), test_global=(xg, yg),
+                                class_num=class_num,
+                                meta={"streaming": True, "global_cap": int(global_cap)})
+
+    sources.log.warning("ImageNet folder tree not found under %s — using "
+                        "tiny seeded surrogate", data_dir)
+    class_num = max(10, client_num_in_total)
+    sz = min(image_size, 32)
+    xtr, ytr = sources.synthetic_image_classes(class_num * 12, class_num, (sz, sz, 3), seed,
+                                               proto_seed=seed + 1012)
+    xte, yte = sources.synthetic_image_classes(class_num * 3, class_num, (sz, sz, 3),
+                                               seed + 1, proto_seed=seed + 1012)
+    class_blocks = np.array_split(np.arange(class_num), client_num_in_total)
+    order = np.argsort(ytr, kind="stable")
+    xtr_l, ytr_l = [], []
+    for block in class_blocks:
+        if len(block):
+            sel = order[(ytr[order] >= block[0]) & (ytr[order] <= block[-1])]
+        else:
+            sel = np.array([], np.int64)
+        xtr_l.append(xtr[sel])
+        ytr_l.append(ytr[sel])
+    te_map = homo_partition(len(yte), client_num_in_total, np.random.RandomState(seed))
+    return FederatedDataset(name="ILSVRC2012", train=pack_client_lists(xtr_l, ytr_l),
+                            test=pack_client_data(xte, yte, te_map),
+                            train_global=(xtr, ytr), test_global=(xte, yte),
+                            class_num=class_num)
+
+
+def _register_landmarks(variant, default_clients):
+    @register_loader(variant)
+    def _load(data_dir="./data", client_num_in_total=None, seed=0, image_size=64,
+              global_cap=512, **_):
+        """Google Landmarks' user split (reference Landmarks/data_loader.py:202
+        load_partition_data_landmarks; gld23k: 233 users and 203 classes,
+        gld160k: 1,262 users and 2,028 classes), streamed when the csvs and
+        images are present; a surrogate of ``client_num_in_total`` users
+        (default the variant's) when they are not."""
+        from fedml_tpu_torch.data.streaming import (StreamingPackedClients,
+                                                    decode_global_subset,
+                                                    make_image_decoder)
+
+        client_num = client_num_in_total or default_clients
+        scan = None
+        try:
+            scan = readers.list_landmarks_files(data_dir, variant)
+        except Exception as e:  # unreadable csvs or missing images -> the surrogate
+            sources.log.warning("failed reading %s (%s)", variant, e)
+        if scan is not None:
+            files, labels, te_files, te_labels, class_num = scan
+            dec = make_image_decoder(image_size)
+            budget = int(os.environ.get("FEDML_TPU_STREAM_BUDGET", 4 << 30))
+            train = StreamingPackedClients(files, labels, dec, byte_budget=budget)
+            te_map = homo_partition(len(te_files), len(files), np.random.RandomState(seed))
+            tef = [[te_files[i] for i in te_map[k]] for k in sorted(te_map)]
+            tel = [te_labels[te_map[k]] for k in sorted(te_map)]
+            test = StreamingPackedClients(tef, tel, dec, byte_budget=budget)
+            shp = (image_size, image_size, 3)
+            xg, yg = decode_global_subset(te_files, te_labels, dec, global_cap, seed + 1,
+                                          shp)
+            gt_files = [f for fl in files for f in fl]
+            xgt, ygt = decode_global_subset(gt_files, np.concatenate(labels), dec,
+                                            global_cap, seed, shp)
+            return FederatedDataset(name=variant, train=train, test=test,
+                                    train_global=(xgt, ygt), test_global=(xg, yg),
+                                    class_num=int(class_num),
+                                    meta={"streaming": True, "global_cap": int(global_cap)})
+        sources.log.warning("%s csv/images not found under %s — using tiny "
+                            "seeded surrogate", variant, data_dir)
+        class_num = 203 if variant == "gld23k" else 2028
+        rng = np.random.RandomState(seed)
+        protos = rng.normal(0, 1, (class_num, image_size, image_size, 3)).astype(np.float32)
+        xtr_l, ytr_l = [], []
+        for _c in range(client_num):
+            n_i = int(np.clip(rng.lognormal(3.0, 0.6), 4, 128))
+            y_i = rng.randint(0, class_num, n_i).astype(np.int32)
+            xtr_l.append(protos[y_i] * 0.6 + rng.normal(
+                0, 0.35, (n_i, image_size, image_size, 3)).astype(np.float32))
+            ytr_l.append(y_i)
+        yte = rng.randint(0, class_num, 64).astype(np.int32)
+        xte = protos[yte] * 0.6 + rng.normal(
+            0, 0.35, (64, image_size, image_size, 3)).astype(np.float32)
+        train = pack_client_lists(xtr_l, ytr_l)
+        te_map = homo_partition(len(yte), len(xtr_l), np.random.RandomState(seed))
+        return FederatedDataset(
+            name=variant, train=train, test=pack_client_data(xte, yte, te_map),
+            train_global=(np.concatenate([a[:c] for a, c in zip(train.x, train.counts)]),
+                          np.concatenate([a[:c] for a, c in zip(train.y, train.counts)])),
+            test_global=(xte, yte), class_num=int(class_num))
+
+    return _load
+
+
+load_gld23k = _register_landmarks("gld23k", 233)
+load_gld160k = _register_landmarks("gld160k", 1262)
+
+
 @register_loader("emnist")
 def load_emnist(data_dir="./data", client_num_in_total=10, partition_method="homo",
                 partition_alpha=0.5, seed=0, partition_file=None, **_):
@@ -254,6 +452,16 @@ def load_stackoverflow_nwp(data_dir="./data", client_num_in_total=200, seed=0, *
         data_dir, client_num_in_total, seed)
     return _from_client_lists("stackoverflow_nwp", xtr, ytr, xte, yte,
                               sources.STACKOVERFLOW_VOCAB, task="nwp")
+
+
+@register_loader("stackoverflow_lr")
+def load_stackoverflow_lr(data_dir="./data", client_num_in_total=200, seed=0, **_):
+    """StackOverflow tag prediction: bag-of-words rows, multi-hot over 500
+    tags, trained by ``TagPredictionTrainer`` (the task in ``meta``)."""
+    xtr, ytr, xte, yte = sources.load_stackoverflow_lr_clients(
+        data_dir, client_num_in_total, seed)
+    return _from_client_lists("stackoverflow_lr", xtr, ytr, xte, yte, 500,
+                              task="tag_prediction")
 
 
 def _register_tabular(name, default_partition="homo"):

@@ -436,12 +436,16 @@ class MmapPackedStore:
 def materialize(store, budget: int = 4 << 30) -> PackedClients:
     """The one whole-store read: copy a store into an eager, mutable
     PackedClients (for paths that write into client rows, such as the
-    backdoor's poisoning). Refuses a store whose x exceeds ``budget``
-    bytes: at that size in-place mutation is the wrong tool."""
+    backdoor's poisoning). Refuses an mmap store whose x exceeds ``budget``
+    bytes: at that size in-place mutation is the wrong tool. A streaming
+    store (``data/streaming.py``) decodes under its own byte budget
+    (``streaming.materialize``)."""
     if isinstance(store, PackedClients):
         return store
     if not isinstance(store, MmapPackedStore):
-        raise TypeError(f"cannot materialize a {type(store).__name__}")
+        from fedml_tpu_torch.data import streaming
+
+        return streaming.materialize(store)
     total = store.x.nbytes
     if total > budget:
         raise ValueError(

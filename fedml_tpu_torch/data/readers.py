@@ -8,7 +8,12 @@ and returns what the JAX package's reader returns, bit for bit:
 - EMNIST balanced gzip-IDX (reference MNIST/data_loader.py:55-60 via
   torchvision EMNIST split="balanced")
 - ImageFolder trees: CINIC-10 train/test/<class>/*.png (reference
-  cinic10/data_loader.py:218-239)
+  cinic10/data_loader.py:218-239) and ILSVRC2012 train/val/<wnid>/*
+  (reference ImageNet/datasets.py:81-129), read eagerly or only scanned
+  for the streaming loaders (``list_image_folder_files``)
+- Google Landmarks' user-split csvs and <image_id>.jpg files (reference
+  Landmarks/data_loader.py), read eagerly or scanned
+  (``list_landmarks_files``)
 - UCI-HAR Inertial Signals txt matrices (reference HAR/data_loader.py:56-154)
 - UCIAdult income_proc npy quartet (reference UCIAdult/dataloader.py:38-50)
 - purchase100/texas100 not_normalized pickles (reference
@@ -174,6 +179,142 @@ def read_cinic10(data_dir: str, size: int = 32):
             xte, yte, _ = test
             return ((xtr - mean) / std, ytr, (xte - mean) / std, yte)
     return None
+
+
+def read_imagenet_folder(data_dir: str, size: int = 224,
+                         cap_per_class: int | None = None):
+    """ILSVRC2012's layout <root>/train/<wnid>/*, <root>/val/<wnid>/*
+    (reference ImageNet/datasets.py:81-129). Returns (xtr, ytr, xte, yte,
+    class_names) normalised with the ImageNet statistics, or None."""
+    tr = os.path.join(data_dir, "train")
+    te = os.path.join(data_dir, "val")
+    if not (os.path.isdir(tr) and os.path.isdir(te)):
+        return None
+    train = read_image_folder(tr, size, cap_per_class)
+    test = read_image_folder(te, size, cap_per_class)
+    if train is None or test is None:
+        return None
+    mean, std = IMAGENET_MEAN, IMAGENET_STD
+    xtr, ytr, classes = train
+    xte, yte, _ = test
+    return (xtr - mean) / std, ytr, (xte - mean) / std, yte, classes
+
+
+def list_image_folder_files(root: str):
+    """An ImageFolder tree scanned without decoding: (per_class_files,
+    class_names), or None. The streaming loaders' entry point: the eager
+    ``read_image_folder`` cannot hold an ILSVRC2012-sized tree."""
+    classes = sorted(d for d in os.listdir(root)
+                     if os.path.isdir(os.path.join(root, d)))
+    if not classes:
+        return None
+    per_class = []
+    for cname in classes:
+        cdir = os.path.join(root, cname)
+        per_class.append(sorted(
+            os.path.join(cdir, f) for f in os.listdir(cdir)
+            if f.lower().endswith(_IMG_EXTS)))
+    if not any(per_class):
+        return None
+    return per_class, classes
+
+
+# ---------------------------------------------------------------------------
+# Google Landmarks (gld23k / gld160k)
+
+
+def read_landmarks_csv(path: str):
+    """user_id,image_id,class rows -> a list of dicts (reference _read_csv,
+    Landmarks/data_loader.py:20-29)."""
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    if rows and not all(c in rows[0] for c in ("user_id", "image_id", "class")):
+        raise ValueError(
+            "landmarks mapping csv must have user_id,image_id,class columns, "
+            f"got {list(rows[0].keys())}")
+    return rows
+
+
+def _landmarks_csvs(data_dir: str, variant: str):
+    map_dir = os.path.join(data_dir, "data_user_dict")
+    tr_csv = os.path.join(map_dir, f"{variant}_user_dict_train.csv")
+    te_csv = os.path.join(map_dir, f"{variant}_user_dict_test.csv")
+    if not (os.path.exists(tr_csv) and os.path.exists(te_csv)):
+        return None
+    return read_landmarks_csv(tr_csv), read_landmarks_csv(te_csv)
+
+
+def _landmarks_image(data_dir: str, image_id) -> str:
+    """<data_dir>/<image_id>.jpg, else <data_dir>/images/<image_id>.jpg."""
+    p = os.path.join(data_dir, str(image_id) + ".jpg")
+    if not os.path.exists(p):
+        p = os.path.join(data_dir, "images", str(image_id) + ".jpg")
+    return p
+
+
+def _by_user(rows) -> list:
+    """The train rows grouped by user, users in ascending id order."""
+    by_user: dict[int, list] = {}
+    for r in rows:
+        by_user.setdefault(int(r["user_id"]), []).append(r)
+    return [by_user[uid] for uid in sorted(by_user)]
+
+
+def read_landmarks(data_dir: str, variant: str = "gld23k", size: int = 64):
+    """Google Landmarks' user split: csv maps under data_user_dict/, images
+    at <data_dir>/<image_id>.jpg (reference datasets.py:49). Returns
+    (xtr_list, ytr_list, xte, yte, class_num), one train client a user and a
+    pooled test set, or None when the csvs are absent."""
+    csvs = _landmarks_csvs(data_dir, variant)
+    if csvs is None:
+        return None
+    tr_rows, te_rows = csvs
+
+    def img(image_id):
+        return load_image(_landmarks_image(data_dir, image_id), size)
+
+    xtr, ytr = [], []
+    for rows in _by_user(tr_rows):
+        xtr.append(np.stack([img(r["image_id"]) for r in rows]))
+        ytr.append(np.asarray([int(r["class"]) for r in rows], np.int32))
+    xte = np.stack([img(r["image_id"]) for r in te_rows])
+    yte = np.asarray([int(r["class"]) for r in te_rows], np.int32)
+    class_num = int(max(max(y.max() for y in ytr), yte.max())) + 1
+    return xtr, ytr, xte, yte, class_num
+
+
+def list_landmarks_files(data_dir: str, variant: str = "gld23k"):
+    """The Landmarks csvs scanned without decoding: (per_user_files,
+    per_user_labels, test_files, test_labels, class_num), or None. Raises
+    FileNotFoundError up front when an image the csvs name is absent: a
+    lazy decode would otherwise fail mid-run."""
+    csvs = _landmarks_csvs(data_dir, variant)
+    if csvs is None:
+        return None
+    tr_rows, te_rows = csvs
+    missing = []
+
+    def path_of(image_id):
+        p = _landmarks_image(data_dir, image_id)
+        if not os.path.exists(p):
+            missing.append(str(image_id))
+        return p
+
+    files, labels = [], []
+    for rows in _by_user(tr_rows):
+        files.append([path_of(r["image_id"]) for r in rows])
+        labels.append(np.asarray([int(r["class"]) for r in rows], np.int32))
+    te_files = [path_of(r["image_id"]) for r in te_rows]
+    if missing:
+        raise FileNotFoundError(
+            f"{variant}: {len(missing)} images named in the csvs are absent "
+            f"under {data_dir} (first: {missing[:3]}) — complete the download "
+            "before training (a lazy decode would fail mid-run instead)")
+    te_labels = np.asarray([int(r["class"]) for r in te_rows], np.int32)
+    class_num = int(max(max(int(la.max()) for la in labels), te_labels.max())) + 1
+    return files, labels, te_files, te_labels, class_num
 
 
 # ---------------------------------------------------------------------------

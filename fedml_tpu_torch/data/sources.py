@@ -1,5 +1,6 @@
 """Raw data sources (the MNIST, EMNIST, CIFAR, fed_CIFAR-100, FEMNIST,
-FedProx synthetic, Shakespeare, StackOverflow NWP and tabular parts of
+FedProx synthetic, Shakespeare, StackOverflow NWP and tag prediction and
+tabular parts of
 ``fedml_tpu/data/sources.py``).
 
 Each ``load_*`` reads the real files from ``data_dir`` when they are there
@@ -346,6 +347,30 @@ def load_stackoverflow_nwp_clients(data_dir: str = "./data", client_num: int = 2
     log.warning("stackoverflow h5 not found under %s — using seeded surrogate", data_dir)
     return _markov_text_clients(client_num, STACKOVERFLOW_VOCAB, STACKOVERFLOW_SEQ,
                                 per_client=64, test_frac=0.15, seed=seed)
+
+
+def load_stackoverflow_lr_clients(data_dir: str = "./data", client_num: int = 200,
+                                  seed: int = 0, vocab_size: int = 10000, tag_num: int = 500):
+    """StackOverflow tag prediction (reference stackoverflow_lr/): x is a
+    bag of words over the 10,000-word vocab, y a multi-hot row over 500
+    tags. The surrogate (the only data either package reads: no file)
+    couples tags to words through a sparse seeded map so that logistic
+    regression can learn; one ``RandomState(seed)`` draws the map, then
+    each client's size, words and split, in that order."""
+    rng = np.random.RandomState(seed)
+    word_tag = np.zeros((vocab_size, tag_num), np.float32)
+    for t in range(tag_num):
+        word_tag[rng.choice(vocab_size, 20, replace=False), t] = 1.0
+    xtr, ytr, xte, yte = [], [], [], []
+    for _ in range(client_num):
+        n_i = max(4, int(40 * rng.lognormal(0, 0.4)))
+        x = (rng.rand(n_i, vocab_size) < 0.002).astype(np.float32)
+        scores = x @ word_tag
+        y = (scores >= np.maximum(1.0, np.partition(scores, -3, axis=1)[:, -3:-2])
+             ).astype(np.float32)
+        k = max(1, int(n_i * 0.85))
+        xtr.append(x[:k]); ytr.append(y[:k]); xte.append(x[k:]); yte.append(y[k:])
+    return xtr, ytr, xte, yte
 
 
 SHAKESPEARE_VOCAB = 90  # reference shakespeare/language_utils.py ALL_LETTERS

@@ -70,7 +70,7 @@ import torch
 from fedml_tpu_torch import telemetry
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
 from fedml_tpu_torch.core.config import FedConfig
-from fedml_tpu_torch.core.trainer import ClassificationTrainer, NWPTrainer
+from fedml_tpu_torch.core.trainer import ClassificationTrainer, NWPTrainer, TagPredictionTrainer
 from fedml_tpu_torch.data.registry import load_dataset
 from fedml_tpu_torch.models.lora import maybe_wrap_lora
 from fedml_tpu_torch.models.registry import create_model
@@ -320,6 +320,8 @@ def setup_run(args):
     if ds.meta.get("task") == "nwp" or args.dataset in ("fed_shakespeare",
                                                        "stackoverflow_nwp"):
         trainer = NWPTrainer(module, pad_id=0)
+    elif ds.meta.get("task") == "tag_prediction" or args.dataset == "stackoverflow_lr":
+        trainer = TagPredictionTrainer(module)
     else:
         trainer = ClassificationTrainer(module)
     # after the task trainer, so the adapter seam is task-agnostic;

@@ -22,6 +22,7 @@ Usage (the FEMNIST flagship through the fused kernel):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 
 import numpy as np
@@ -29,6 +30,7 @@ import torch
 
 from fedml_tpu_torch.algorithms.backdoor import backdoor_metrics, poison_client_data
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+from fedml_tpu_torch.data.packed_store import materialize
 from fedml_tpu_torch.experiments.main_fedavg import add_args, setup_run
 from fedml_tpu_torch.utils.logging import MetricsLogger
 
@@ -51,6 +53,11 @@ def main(argv=None):
     cfg, ds, trainer = setup_run(args)
     logger = MetricsLogger(run_dir=args.run_dir, config=vars(args))
 
+    if args.attacker_num > 0 and not isinstance(ds.train.x, np.ndarray):
+        # a streaming split (ILSVRC2012, gld*) has a lazy x that takes no
+        # item assignment: poisoning writes rows, so decode it first (under
+        # the stream's byte budget, which raises past it)
+        ds = dataclasses.replace(ds, train=materialize(ds.train))
     # poison the attackers' packed rows (reference load_poisoned_dataset)
     rng = np.random.RandomState(cfg.seed)
     for k in range(min(args.attacker_num, ds.train.num_clients)):

@@ -11,6 +11,11 @@ parameters were:
      ...the model state (BatchNorm statistics), unchanged,
      "lora_base/<layer>.weight": the base weight, ...}
 
+An LSTM cell's stacked ``weight_ih``/``weight_hh`` take one adapter per
+gate kernel, as flax holds them (``<cell>.ii.weight.lora_A``, ... for the
+eight kernels ``ii, if, ig, io, hi, hf, hg, ho``), merged into the stacked
+rows each step.
+
 The adapters keep flax's layout (A is [d_in, r], B is [r, d_out], their
 product a flax kernel), so an adapter leaf has the same shape and bytes in
 both packages and the adapter bank's rows are interchangeable. At apply
@@ -98,26 +103,54 @@ def flax_path(key: str) -> str:
     return key[:-len("weight")].replace(".", "/") + "kernel"
 
 
+# an LSTM cell's stacked gate weights (models/rnn.py::OptimizedLSTMCell)
+# and the flax gate kernels whose transposes they stack, in row order
+LSTM_GATES = {"weight_ih": ("ii", "if", "ig", "io"),
+              "weight_hh": ("hi", "hf", "hg", "ho")}
+
+
+def gate_key(stacked_key: str, gate: str) -> str:
+    """The adapter target of one gate kernel of a stacked LSTM weight:
+    ``cell.weight_ih``, ``if`` -> ``cell.if.weight`` (flax path
+    ``cell/if/kernel``)."""
+    return f"{stacked_key.rpartition('.')[0]}.{gate}.weight"
+
+
 def adapter_targets(module, targets: str = DEFAULT_TARGETS) -> list:
     """The weight keys of ``module`` that get adapters: its 2-D flax
-    kernels (Linear weights; not an embedding's table nor a norm's scale)
-    whose flax path matches ``targets``."""
+    kernels (Linear weights and an LSTM cell's eight gate kernels; not an
+    embedding's table nor a norm's scale) whose flax path matches
+    ``targets``. A gate kernel's key names the gate under its cell
+    (``gate_key``): flax holds the gates as eight kernels, each adapted on
+    its own, which the port's stacked weights hold as row blocks."""
     from fedml_tpu_torch.utils.convert import leaf_kinds
 
     kinds = leaf_kinds(module)
     out = []
     for name, p in module.named_parameters():
-        if name.rpartition(".")[2] in ("weight_ih", "weight_hh"):
-            # flax holds an LSTM cell's gates as eight kernels, each adapted
-            # on its own; the port's stacked gate weights have no such leaves
-            raise NotImplementedError(
-                "LoRA over an LSTM cell's gate kernels is not ported to "
-                "fedml_tpu_torch (see ROADMAP.md Queue 1)")
-        if (name.rpartition(".")[2] != "weight" or name in kinds or p.dim() != 2
+        leaf = name.rpartition(".")[2]
+        if leaf in LSTM_GATES:
+            out += [k for k in (gate_key(name, g) for g in LSTM_GATES[leaf])
+                    if re.search(targets, flax_path(k))]
+            continue
+        if (leaf != "weight" or name in kinds or p.dim() != 2
                 or not re.search(targets, flax_path(name))):
             continue
         out.append(name)
     return out
+
+
+def _target_weight(base_params: dict, key: str) -> tuple:
+    """(the base weight that holds target ``key``, its [d_out, d_in]):
+    the weight itself, or a gate's stacked LSTM weight and one gate's
+    block of it."""
+    if key in base_params:
+        w = base_params[key]
+        return w, tuple(w.shape)
+    owner, _, gate = key[:-len(".weight")].rpartition(".")
+    leaf = next(leaf for leaf, gates in LSTM_GATES.items() if gate in gates)
+    w = base_params[f"{owner}.{leaf}"]
+    return w, (w.shape[0] // 4, w.shape[1])
 
 
 def adapter_order(keys) -> list:
@@ -140,8 +173,7 @@ def init_lora_adapters(base_params: dict, rank: int, seed: int, targets: list) -
     of its flax path, so an adapter's values do not depend on the others."""
     out = {}
     for key in adapter_order(targets):
-        w = base_params[key]
-        d_out, d_in = w.shape
+        w, (d_out, d_in) = _target_weight(base_params, key)
         salts = [_path_salt(part) for part in flax_path(key).split("/")]
         state = np.random.SeedSequence([seed, 0x10A, *salts]).generate_state(1, np.uint64)
         gen = torch.Generator().manual_seed(int(state[0]) & (2 ** 63 - 1))
@@ -154,18 +186,33 @@ def init_lora_adapters(base_params: dict, rank: int, seed: int, targets: list) -
     return out
 
 
+def _delta(adapters: dict, key: str, dtype, scale: float):
+    """``((A @ B) * scale)ᵀ`` of target ``key``, or None without adapters."""
+    a = adapters.get(f"{key}.lora_A")
+    if a is None:
+        return None
+    return ((a @ adapters[f"{key}.lora_B"]).to(dtype) * scale).T
+
+
 def merge_lora_params(base_params: dict, adapters: dict, scale: float) -> dict:
     """The effective parameters: ``base + ((A @ B) * scale)ᵀ`` on adapted
-    weights, the base elsewhere. The rank-r product is small beside the
-    layer's own matmul and runs on the device inside the step."""
+    weights, the base elsewhere. A stacked LSTM weight adds its gates'
+    products as its row blocks, in the cell's gate order (zeros for a gate
+    without adapters), so ``torch._VF.lstm`` takes the merged weights and
+    the gradient reaches A and B, never the base. The rank-r products are
+    small beside the layer's own matmuls and run on the device inside the
+    step."""
     out = {}
     for k, w in base_params.items():
-        a = adapters.get(f"{k}.lora_A")
-        if a is None:
-            out[k] = w
+        gates = LSTM_GATES.get(k.rpartition(".")[2])
+        if gates is None:
+            delta = _delta(adapters, k, w.dtype, scale)
         else:
-            delta = (a @ adapters[f"{k}.lora_B"]).to(w.dtype)
-            out[k] = w + (delta * scale).T
+            blocks = [_delta(adapters, gate_key(k, g), w.dtype, scale) for g in gates]
+            delta = None if all(b is None for b in blocks) else torch.cat([
+                w.new_zeros(w.shape[0] // 4, w.shape[1]) if b is None else b
+                for b in blocks])
+        out[k] = w if delta is None else w + delta
     return out
 
 
@@ -188,6 +235,10 @@ class LoRATrainer:
         self.rank = int(rank)
         self.scale = float(alpha if alpha is not None else rank) / float(rank)
         self.targets = adapter_targets(self.module, targets)
+
+    @property
+    def aux_keys(self) -> tuple:
+        return getattr(self.inner, "aux_keys", ("loss_sum", "correct", "total"))
 
     def init(self, generator: torch.Generator, device) -> dict:
         """The inner model's variables from ``generator`` (as unwrapped),

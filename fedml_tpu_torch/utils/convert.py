@@ -26,7 +26,9 @@ LoRA (``models/lora.py``): the ``lora_base`` collection, a frozen params
 tree, converts as one and lands under the ``lora_base/`` prefix; an
 adapter node ``{"lora_A": [d_in, r], "lora_B": [r, d_out]}`` where a
 ``kernel`` was is copied as is (the port keeps flax's adapter layout) to
-``<layer>.weight.lora_A`` and ``.lora_B``.
+``<layer>.weight.lora_A`` and ``.lora_B``; an LSTM cell's gate adapters
+(``cell/ii/kernel``, ...) land under ``cell.ii.weight.lora_A`` and back
+(``models/lora.py::gate_key``).
 
 Both functions accept leading batch axes (a client-stacked tree converts
 leaf by leaf). Without ``module`` a kernel of 4 or more axes is a 2-D conv
@@ -86,7 +88,8 @@ def flax_to_torch(tree, device="cpu", dtype=torch.float32, module=None) -> dict:
         out[key] = torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
     def walk(node, prefix):
-        if set(node) == {f"{d}{g}" for d in "ih" for g in _GATES}:  # an LSTM cell
+        if (set(node) == {f"{d}{g}" for d in "ih" for g in _GATES}
+                and not hasattr(node["ii"]["kernel"], "items")):  # an LSTM cell
             put(f"{prefix}weight_ih", np.concatenate(
                 [np.swapaxes(np.asarray(node[f"i{g}"]["kernel"]), -1, -2) for g in _GATES], -2))
             put(f"{prefix}weight_hh", np.concatenate(

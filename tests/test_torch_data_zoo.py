@@ -210,11 +210,12 @@ def test_h5_files_present_raise(tmp_path, monkeypatch):
 
 
 def test_unported_partition_and_dataset_raise():
-    """The loaders still unported raise NotImplementedError naming the
-    dataset (hetero-fix and cinic10, which raised here before, are ported:
-    ``test_torch_readers.py``); an unknown partition method is a
-    ValueError."""
-    for name in ("ILSVRC2012", "gld23k", "stackoverflow_lr", "pascal_voc"):
+    """The loader still unported raises NotImplementedError naming the
+    dataset (hetero-fix and cinic10 are ported: ``test_torch_readers.py``;
+    ILSVRC2012, gld23k, gld160k and stackoverflow_lr:
+    ``test_torch_streaming.py``, ``test_torch_tag_prediction.py``); an
+    unknown partition method is a ValueError."""
+    for name in ("pascal_voc",):
         with pytest.raises(NotImplementedError, match=name):
             load_dataset(name)
     with pytest.raises(ValueError, match="unknown partition method"):

@@ -30,7 +30,10 @@ from fedml_tpu.core.trainer import ClassificationTrainer as JaxClassifier
 from fedml_tpu.core.trainer import NWPTrainer as JaxNWPTrainer
 from fedml_tpu.models.cnn import CNN_DropOut as JaxCNN
 from fedml_tpu.models.lora import LoRATrainer as JaxLoRA
+from fedml_tpu.models.lora import merge_lora_params as jax_merge_lora
 from fedml_tpu.models.registry import create_model as jax_create_model
+from fedml_tpu.models.rnn import RNN_OriginalFedAvg as JaxRNN
+from fedml_tpu.models.rnn import RNN_StackOverFlow as JaxRNNSO
 from fedml_tpu.models.transformer import TransformerLM as JaxTLM
 from fedml_tpu_torch import ClassificationTrainer, FedAvgAPI, FedConfig, NWPTrainer
 from fedml_tpu_torch.algorithms.aggregators import make_aggregator
@@ -39,8 +42,10 @@ from fedml_tpu_torch.data.packing import PackedClients
 from fedml_tpu_torch.data.registry import load_dataset
 from fedml_tpu_torch.models.cnn import CNN_DropOut
 from fedml_tpu_torch.models.lora import (BASE_PREFIX, LoRATrainer, adapter_order,
-                                         lora_base, maybe_wrap_lora, strip_lora_base)
+                                         is_adapter, lora_base, maybe_wrap_lora,
+                                         strip_lora_base)
 from fedml_tpu_torch.models.registry import create_model
+from fedml_tpu_torch.models.rnn import RNN_OriginalFedAvg, RNN_StackOverFlow
 from fedml_tpu_torch.robustness.chaos import FaultPlan
 from fedml_tpu_torch.robustness.guard import GuardVerdict
 from fedml_tpu_torch.utils.convert import flax_to_torch, torch_to_flax
@@ -365,9 +370,150 @@ def test_config_raises_every_spec_lora_reason_verbatim(levels):
     assert str(got.value) == str(want.value)
 
 
-def test_lstm_lora_is_refused():
-    with pytest.raises(NotImplementedError, match="LSTM"):
-        LoRATrainer(ClassificationTrainer(create_model("rnn", output_dim=90)), rank=4)
+# ------------------------------------------------------ LoRA over an LSTM
+
+LV, LE, LH, LT = 12, 8, 16, 10  # vocab, embedding, hidden, sequence
+
+
+def _lstms():
+    """(JAX model, port model, task) of the two LSTM families, narrow."""
+    return {
+        "rnn": (JaxRNN(vocab_size=LV, embedding_dim=LE, hidden_size=LH),
+                RNN_OriginalFedAvg(vocab_size=LV, embedding_dim=LE, hidden_size=LH),
+                "classification"),
+        "rnn_stackoverflow": (JaxRNNSO(vocab_size=LV, embedding_size=LE, latent_size=LH),
+                              RNN_StackOverFlow(vocab_size=LV, embedding_size=LE,
+                                                latent_size=LH),
+                              "nwp"),
+    }
+
+
+def _lstm_trainers(name):
+    jm, tm, task = _lstms()[name]
+    if task == "nwp":
+        return JaxNWPTrainer(jm), NWPTrainer(tm), tm
+    return JaxClassifier(jm), ClassificationTrainer(tm), tm
+
+
+@pytest.mark.parametrize("name", ["rnn", "rnn_stackoverflow"])
+def test_lstm_adapter_tree_matches_jax(name):
+    """Each LSTM cell's eight gate kernels get an adapter under flax's path
+    (``OptimizedLSTMCell_0/ii/kernel``, ...) with flax's shapes, in
+    ``jax.tree.flatten``'s order, beside the Dense layers'; the wrapped
+    model starts as the unwrapped one."""
+    jt, tt, _ = _lstm_trainers(name)
+    jgv = JaxLoRA(jt, rank=RANK).init(jax.random.PRNGKey(0), jnp.zeros((1, LT), jnp.int32))
+    tgv = LoRATrainer(tt, rank=RANK).init(torch.Generator().manual_seed(0), "cpu")
+    adapters = strip_lora_base(tgv)
+    want = {p: a.shape for p, a in _paths(jgv["params"]).items()}
+    got = {p: a.shape for p, a in _paths(torch_to_flax(adapters, tt.module)["params"]).items()}
+    assert got == want
+    assert sum(p.endswith("/ii/kernel/lora_A") for p in got) == (
+        2 if name == "rnn" else 1)
+    flat = jax.tree_util.tree_flatten_with_path(jgv["params"])[0]
+    order = ["/".join(k.key for k in path) for path, _ in flat]
+    assert [p.replace("/kernel/", "/weight/").replace("/", ".") for p in order] == \
+        adapter_order(adapters)
+    x = torch.from_numpy(np.random.RandomState(0).randint(0, LV, (3, LT)).astype(np.int32))
+    wrapped = LoRATrainer(tt, rank=RANK).apply(tgv, x)[0]
+    plain = tt.apply({k[len(BASE_PREFIX):]: v for k, v in lora_base(tgv).items()}, x)[0]
+    assert torch.equal(wrapped, plain)
+
+
+@pytest.mark.parametrize("name,wire", [("rnn", 60368), ("rnn_stackoverflow", 154320)])
+def test_lstm_wire_count_matches_jax(name, wire):
+    """At the registry's widths and rank 8 the wire (the adapters) holds
+    the JAX package's parameter count: Shakespeare's two 256-wide cells
+    and fc; StackOverflow's 670-wide cell, fc1 and fc2 (no head is
+    excluded: the LSTMs have no ``lm_head``)."""
+    if name == "rnn":
+        jm, tm = jax_create_model("rnn", output_dim=90), create_model("rnn", output_dim=90)
+    else:
+        jm = jax_create_model("rnn_stackoverflow", output_dim=10004)
+        tm = create_model("rnn_stackoverflow", output_dim=10004)
+    jgv = JaxLoRA(JaxNWPTrainer(jm), rank=8).init(jax.random.PRNGKey(0),
+                                                  jnp.zeros((1, LT), jnp.int32))
+    tgv = LoRATrainer(NWPTrainer(tm), rank=8).init(torch.Generator().manual_seed(0), "cpu")
+    want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(jgv["params"]))
+    assert sum(v.numel() for v in strip_lora_base(tgv).values()) == want == wire
+
+
+def _jax_lstm_lora(name, seed=0):
+    """JAX LoRA variables of a narrow LSTM with lora_B drawn nonzero."""
+    jt, tt, tm = _lstm_trainers(name)
+    jl = JaxLoRA(jt, rank=RANK)
+    jgv = jl.init(jax.random.PRNGKey(seed), jnp.zeros((1, LT), jnp.int32))
+    rng = np.random.RandomState(seed)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, a: (jnp.asarray(0.1 * rng.randn(*a.shape), a.dtype)
+                      if p[-1].key == "lora_B" else a), jgv["params"])
+    return jl, {**jgv, "params": params}, LoRATrainer(tt, rank=RANK), tm
+
+
+def test_lstm_merged_gate_weights_forward_and_gradients_match_jax():
+    """The merged stacked weights are the JAX package's merged gate kernels
+    (``merge_lora_params``, converted; the rank-r products summed in
+    another order); the forward pass
+    through ``torch._VF.lstm`` and every adapter's gradient match JAX's;
+    the base gets no gradient."""
+    jl, jgv, tl_, tm = _jax_lstm_lora("rnn", seed=4)
+    tgv = flax_to_torch(jgv, module=tm)
+    merged = flax_to_torch({"params": jax_merge_lora(jgv["lora_base"], jgv["params"],
+                                                     jl.scale)}, module=tm)
+    got = tl_.merged_variables(tgv)
+    assert got.keys() == merged.keys()
+    for k, w in merged.items():
+        np.testing.assert_allclose(got[k].detach().numpy(), w.numpy(), rtol=2e-5, atol=1e-5,
+                                   err_msg=k)
+    rng = np.random.RandomState(5)
+    x = rng.randint(0, LV, size=(4, LT)).astype(np.int32)
+    y = rng.randint(0, LV, size=(4,)).astype(np.int32)
+    mask = np.array([1, 1, 0, 1], np.float32)
+    jbatch = {"x": jnp.asarray(x), "y": jnp.asarray(y), "mask": jnp.asarray(mask)}
+    frozen = {k: v for k, v in jgv.items() if k != "params"}
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jl.loss_fn({**frozen, "params": p}, jbatch, None, True),
+        has_aux=True)(jgv["params"])
+    leaves = {k: (v.requires_grad_(True) if is_adapter(k) else v) for k, v in tgv.items()}
+    tloss, _ = tl_.loss_fn(leaves, {"x": torch.from_numpy(x), "y": torch.from_numpy(y),
+                                    "mask": torch.from_numpy(mask)}, None, True)
+    tloss.backward()
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), rtol=2e-5)
+    assert all(v.grad is None for k, v in leaves.items() if k.startswith(BASE_PREFIX))
+    grads = _paths(torch_to_flax({k: v.grad for k, v in leaves.items()
+                                  if v.grad is not None}, tm)["params"])
+    want = _paths(jgrads)
+    assert sorted(grads) == sorted(want)
+    for key, w in want.items():
+        np.testing.assert_allclose(grads[key], w, rtol=2e-5, atol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("name", ["rnn", "rnn_stackoverflow"])
+def test_lstm_engine_lora_round_matches_jax(name):
+    """One engine round of 3 ragged clients (batch 4, shuffle off, no
+    dropout in the LSTMs): the aggregated adapters and the round's sums
+    match the JAX round's, the base comes back bit for bit."""
+    jl, jgv, tl_, tm = _jax_lstm_lora(name, seed=6)
+    rng = np.random.RandomState(7)
+    x = rng.randint(0, LV, size=(3, 8, LT)).astype(np.int32)
+    y = (rng.randint(0, LV, size=(3, 8, LT)) if name == "rnn_stackoverflow"
+         else rng.randint(0, LV, size=(3, 8))).astype(np.int32)
+    counts = np.array([8, 5, 3], np.int32)
+    kw = dict(batch_size=4, lr=0.5, client_num_per_round=3, shuffle=False, grad_clip=1.0,
+              lora_rank=RANK)
+    jcfg, tcfg = JaxConfig(**kw), FedConfig(**kw)
+    jnew, _, jm = jax_round_fn(jl, jcfg, jax_aggregator("fedavg", jcfg))(
+        jgv, (), jnp.asarray(x), jnp.asarray(y), jnp.asarray(counts), jax.random.PRNGKey(0))
+    tround = build_round_fn(tl_, tcfg, make_aggregator("fedavg", tcfg), device="cpu")
+    tgv = flax_to_torch(jgv, module=tm)
+    tnew, _, tmet = tround(tgv, (), torch.from_numpy(x), torch.from_numpy(y),
+                           torch.from_numpy(counts), torch.Generator().manual_seed(0))
+    for k in jm:
+        np.testing.assert_allclose(float(tmet[k]), float(jm[k]), rtol=2e-5, err_msg=k)
+    got = _paths(torch_to_flax(tnew, tm)["params"])
+    for key, w in _paths(jnew["params"]).items():
+        np.testing.assert_allclose(got[key], w, rtol=2e-5, atol=1e-5, err_msg=key)
+    assert all(torch.equal(tnew[k], v) for k, v in lora_base(tgv).items())
 
 
 def test_cli_lora_run(tmp_path):
