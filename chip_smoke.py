@@ -77,8 +77,8 @@ Phases (any failure exits non-zero and prints no result line):
        beside FedAvg, 2 rounds of 1 local epoch, each round from the same
        globals with cuDNN deterministic: the BatchNorm statistics equal
        FedAvg's weighted mean within 1e-6 (the aggregator acts on
-       parameters only); then 2 FedAvg rounds of 3 local epochs (the
-       config's 20 cut to fit a 30 s round; a longer round is reported):
+       parameters only); then 2 FedAvg rounds of XS_EPOCHS (1) local
+       epoch (the config's 20 cut; a round over 30 s is reported):
        the loss falls, every global BatchNorm statistic moved from its init
        and is finite, and the evaluation reads the running statistics (an
        eval-mode call returns no new state, and resetting the statistics
@@ -160,7 +160,7 @@ Phases (any failure exits non-zero and prints no result line):
        kernel launched;
      - ``fedavg_femnist.yaml`` again with ``fused_kernel=1``: the fused
        epoch must launch;
-     - a temporary config of an unported algorithm (``hierarchical``) must
+     - a temporary config of an unported algorithm (``fednas``) must
        raise NotImplementedError naming ROADMAP (``privacy_blockensemble.yaml``
        runs in phase 9);
      - BASELINE.md's cross-silo rows on ``cross_silo_cifar10_resnet56.yaml``
@@ -301,6 +301,39 @@ Phases (any failure exits non-zero and prints no result line):
        from the clients' generators on the card, run twice: bit for bit;
        an augmented batch differs from its input.
 
+ 13. the algorithm zoo's first four, within PHASE13_BUDGET_S
+     (``--algorithms-only`` builds the kernels and runs this phase alone),
+     on cuDNN's deterministic algorithms, every path's launches of the four
+     kernels counted and printed (each must read 0: none is on these
+     paths), its cuts of scale in PHASE13_CUTS:
+     - (a) cell 28, hierarchical FL with ``CNN_DropOut`` on phase 3's
+       FEMNIST data (100 clients, at most 200 samples each), batch 20, lr
+       0.1, clip 1.0, 2 groups, 2 inner rounds over every client, 2
+       rounds: the training loss falls and the globals are finite; the
+       round times and a profiled round's busy share and launches (on
+       HIER_PROFILED_CLIENTS clients);
+     - (b) the JAX package's CI oracles on MNIST lr, 12 clients, full
+       batch: 1 group and 1 inner round within 1e-5 of the FedAvg engine
+       round, 3 groups within 2e-3 of centralized GD (Test/Acc, Test/Loss);
+     - (c) cell 29, the centralized trainer on (a)'s union (11,042 rows),
+       batch 20, 2 rounds: the round times, Test/Acc and Test/Loss;
+     - (d) cell 30, TurboAggregate on phase 3's engine configuration (10
+       of 100 clients a round, 1.2 M parameters), 2 groups, the default
+       threshold, frac_bits 16, TA_ROUNDS rounds: per round the host seconds of
+       the quantize, encode and decode, the bytes copied each way, the
+       round time; the secure global within 4 * 2^-16 of the plain mean
+       of the same host trees under the same rounded weights, and the
+       global on the card the secure sum bit for bit;
+     - (e) cell 31, decentralized at the JAX main's defaults (8 nodes, 100
+       iterations, dim 20, 4 neighbors, 2-class lr): DSGD on the symmetric
+       ring and push-sum on the asymmetric one, the online loss falling
+       (the last 5 iterations' mean under the first 5's), the DSGD
+       consensus spread under 0.05; one fully-connected step the node
+       average within 1e-6;
+     - (f) ``main_base``'s defaults give exactly [6, 10, 14], and
+       ``base``, ``hierarchical``, ``decentralized`` and ``turboaggregate``
+       each run through ``fed_launch`` from a YAML, 1 round.
+
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
 "device": {...}}``.
@@ -400,14 +433,18 @@ DRIVE_SPANS = ("stage_wait", "stage", "h2d", "dispatch", "device_wait", "metrics
 # reaches its steady state between the evaluations of its first and last
 # round
 TIME_ROUNDS = 20
-# Cross-silo ResNet-56: the config's 20 local epochs cut to XS_EPOCHS, the
-# most whose round stayed within XS_ROUND_S on the H100 hosts measured (E = 3:
-# 28.6-29.9 s on the slowest); a longer round is reported, not re-cut. The
+# Cross-silo ResNet-56: the config's 20 local epochs cut to XS_EPOCHS (E = 3
+# rounds took 20.3-21.3 s each and the whole script 1,003.1 s with phase 13,
+# E = 2 rounds 16.4-17.2 s and the script 1,083.1 s on a slower host, on an
+# H100 80GB HBM3 at 700 W: cut to 1 to keep the script under 1,000 s; the
+# launcher's adult, purchase and texas configs still run E = 5 on the card;
+# 3 was the most whose round stayed within XS_ROUND_S, 28.6-29.9 s on the
+# slowest host); a longer round is reported, not re-cut. The
 # FedAvgM/FedAvg pair checks the aggregator, not local depth: 1 epoch. The
 # bf16 rounds check the type, not local depth either: 1 epoch (3 took 27.5-
 # 31.1 s a round, about 40 s of the script, on an H100 80GB HBM3 at 700 W).
 # The profiled 1-epoch round runs XS_PROFILED_SILOS of the 10 silos.
-XS_EPOCHS, XS_ROUND_S, XS_PAIR_EPOCHS, XS_BF16_EPOCHS, XS_PROFILED_SILOS = 3, 30.0, 1, 1, 1
+XS_EPOCHS, XS_ROUND_S, XS_PAIR_EPOCHS, XS_BF16_EPOCHS, XS_PROFILED_SILOS = 1, 30.0, 1, 1, 1
 # Phase 7: the FEMNIST flagship at its configured 3400 clients, from an mmap
 # shard store. The surrogate's largest client has 480 samples (its clip), so
 # the padded width is 480 rows: 24 SGD steps a client through the fused
@@ -539,6 +576,41 @@ PHASE12_CUTS = {
                    f"val images a class {INET_VAL_PER_CLASS} (of 50)",
                    f"distinct images {INET_POOL}", "comm_round=1"],
     "cifar10 augment": ["comm_round=1"],
+}
+# Phase 13: the algorithm zoo's first four (cells 28-31), each path with the
+# four kernels' launches counted (each must read 0: none is on these paths),
+# within PHASE13_BUDGET_S, on cuDNN's deterministic algorithms. Cuts of
+# scale, each beside its constant:
+PHASE13_BUDGET_S = 60.0
+# (a) cell 28, hierarchical on phase 3's FEMNIST cut (100 of 3400 clients,
+# 200 samples each at most), group_num 2 (the JAX main's default), 2 inner
+# rounds, every client training in each; HIER_ROUNDS global rounds (3 took
+# 5.5-7.0 s each and phase 13 68.5 s on an H100 80GB HBM3 at 700 W); its
+# profiled round on the first HIER_PROFILED_CLIENTS clients (a 100-client
+# round makes about 1,200 engine steps, whose device events would take
+# tens of seconds to read)
+HIER_GROUPS, HIER_INNER, HIER_ROUNDS, HIER_PROFILED_CLIENTS = 2, 2, 2, 10
+# (b) the JAX package's CI oracles (tests/test_algorithms.py:109-141): MNIST
+# lr on 12 homo clients at full batch
+ORACLE_CLIENTS = 12
+# (c) cell 29, centralized on (a)'s union (its clients' valid rows), batch 20
+CENTRAL_ROUNDS = 2
+# (d) cell 30, TurboAggregate on phase 3's engine configuration (10 of the
+# 100 clients a round), the default threshold, TA_ROUNDS rounds (2 took
+# 8.3-11.6 s each, 7.2-10.7 s of it the host's encode, and phase 13 63.5-68.5
+# s, the whole script 1,003.1 s, on an H100 80GB HBM3 at 700 W: cut to 1)
+TA_GROUPS, TA_FRAC_BITS, TA_ROUNDS = 2, 16, 1
+# (e) cell 31, decentralized at the JAX main's defaults
+DEC_NODES, DEC_ITERATIONS, DEC_DIM, DEC_NEIGHBORS, DEC_LR = 8, 100, 20, 4, 0.1
+PHASE13_CUTS = {
+    "hierarchical": [f"client_num_in_total={FEMNIST_CLIENTS} (of 3400)",
+                     f"samples a client <= {CAP}", f"comm_round={HIER_ROUNDS}",
+                     f"profiled round on {HIER_PROFILED_CLIENTS} clients"],
+    "centralized": [f"the union of {FEMNIST_CLIENTS} clients' rows",
+                    f"comm_round={CENTRAL_ROUNDS}"],
+    "turboaggregate": [f"client_num_in_total={FEMNIST_CLIENTS} (of 3400)",
+                       f"comm_round={TA_ROUNDS}"],
+    "launcher": ["comm_round=1", "decentralized iterations=20"],
 }
 
 
@@ -1119,17 +1191,29 @@ def capped(ds, cap, test_cap=256):
         test_global=(ds.test_global[0][:test_cap], ds.test_global[1][:test_cap]))
 
 
+def femnist_cfg(clients: int, rounds: int, per_round: int):
+    """The FEMNIST flagship's configuration: CNN_DropOut, batch 20, lr 0.1,
+    clip 1.0, E = 1."""
+    from fedml_tpu_torch import FedConfig
+
+    return FedConfig(dataset="femnist", model="cnn", client_num_in_total=clients,
+                     client_num_per_round=per_round, batch_size=BATCH, lr=0.1,
+                     grad_clip=1.0, epochs=1, comm_round=rounds, seed=SEED)
+
+
+def cnn_trainer(ds):
+    from fedml_tpu_torch import ClassificationTrainer, create_model
+
+    return ClassificationTrainer(create_model("cnn", output_dim=ds.class_num))
+
+
 def femnist_api(ds, fused: bool, aggregator: str = "fedavg", **overrides):
     """FedAvgAPI on the card for the FEMNIST flagship (``overrides`` replace
     FedConfig fields)."""
-    from fedml_tpu_torch import ClassificationTrainer, FedAvgAPI, FedConfig, create_model
+    from fedml_tpu_torch import FedAvgAPI
 
-    cfg = FedConfig(dataset="femnist", model="cnn", client_num_in_total=FEMNIST_CLIENTS,
-                    client_num_per_round=10, batch_size=BATCH, lr=0.1, grad_clip=1.0,
-                    epochs=1, comm_round=ROUNDS, seed=SEED, fused_kernel=fused)
-    trainer = ClassificationTrainer(create_model("cnn", output_dim=ds.class_num))
-    return FedAvgAPI(ds, cfg.replace(**overrides), trainer, aggregator_name=aggregator,
-                     device="cuda")
+    cfg = femnist_cfg(FEMNIST_CLIENTS, ROUNDS, 10).replace(fused_kernel=fused, **overrides)
+    return FedAvgAPI(ds, cfg, cnn_trainer(ds), aggregator_name=aggregator, device="cuda")
 
 
 def check_trained(tag: str, api, hist, must_fall: bool = True) -> list:
@@ -2194,17 +2278,17 @@ def run_launcher(fused_launches: dict) -> dict:
             row = next(r for r in rows if r["config"] == name)
             if row["backend"] != "shard_map":
                 raise RuntimeError(f"{name} ran with backend {row['backend']}, not as written")
-        control = f"{run_dir}/hierarchical.yaml"
+        control = f"{run_dir}/fednas.yaml"
         with open(control, "w") as f:
-            f.write("algorithm: hierarchical\nargs:\n  dataset: mnist\n")
+            f.write("algorithm: fednas\nargs:\n  dataset: mnist\n")
         try:
             fed_launch.main(["--config", control])
         except NotImplementedError as e:
             if "ROADMAP" not in str(e):
                 raise RuntimeError(f"the unported algorithm's error names no ROADMAP: {e}")
-            log(f"phase 8 control: algorithm hierarchical raises NotImplementedError ({e})")
+            log(f"phase 8 control: algorithm fednas raises NotImplementedError ({e})")
         else:
-            raise RuntimeError("an unported algorithm (hierarchical) did not raise")
+            raise RuntimeError("an unported algorithm (fednas) did not raise")
         silo = next(p for p in paths if p.name == "cross_silo_cifar10_resnet56.yaml")
         for overrides, bf16, profile in CROSS_SILO_ROWS:
             for dtype in ("float32", "bfloat16") if bf16 else ("float32",):
@@ -3602,6 +3686,320 @@ def run_datasets(nwp, fused_launches: dict, flash_launches: dict) -> dict:
     return out
 
 
+# ---- phase 13: the algorithm zoo's first four (cells 28-31)
+
+
+def first_clients(ds, k: int):
+    """``ds`` cut to its first ``k`` clients."""
+    import dataclasses
+
+    from fedml_tpu_torch.data.packing import PackedClients
+
+    return dataclasses.replace(ds, train=PackedClients(
+        ds.train.x[:k], ds.train.y[:k], ds.train.counts[:k]))
+
+
+def hierarchical_api(ds, rounds: int):
+    from fedml_tpu_torch import HierarchicalFLAPI
+
+    cfg = femnist_cfg(ds.client_num, rounds, ds.client_num)
+    return HierarchicalFLAPI(ds, cfg, cnn_trainer(ds), group_num=HIER_GROUPS,
+                             group_comm_round=HIER_INNER, device="cuda")
+
+
+def run_hierarchical(ds) -> dict:
+    """Phase 13 (a), cell 28: hierarchical FL on phase 3's FEMNIST cut."""
+    from fedml_tpu_torch import HierarchicalFLAPI
+    from fedml_tpu_torch.experiments.profile_fused import measure_rounds
+
+    t0 = time.perf_counter()
+    api = hierarchical_api(ds, HIER_ROUNDS)
+    set_up = time.perf_counter() - t0
+    with TimedRounds(HierarchicalFLAPI) as timed:
+        hist = api.train()
+    losses = check_trained("hierarchical", api, hist)
+    # a profiled round of the same configuration on its first clients: the
+    # device's activity alone
+    small = hierarchical_api(first_clients(ds, HIER_PROFILED_CLIENTS), 1)
+    prof = measure_rounds(small.train_one_round, 1, host_events=False)
+    out = {"groups": [len(g) for g in api.groups], "inner_rounds": HIER_INNER,
+           "set_up_s": round(set_up, 2),
+           "round_ms": [round(ms, 2) for ms in timed.ms[0]],
+           "train_loss": [round(v, 5) for v in losses],
+           "test_acc": [round(h["Test/Acc"], 4) for h in hist],
+           "test_loss": [round(h["Test/Loss"], 5) for h in hist],
+           f"profiled_{HIER_PROFILED_CLIENTS}_clients": {
+               "wall_ms": round(prof["wall_ms"], 2), "busy_ms": round(prof["busy_ms"], 2),
+               "busy_share": round(prof["busy_ms"] / prof["wall_ms"], 4),
+               "launches": int(prof["launches"])}}
+    log(f"hierarchical (CNN_DropOut, {ds.client_num} clients in {HIER_GROUPS} groups, "
+        f"{HIER_INNER} inner rounds): {json.dumps(out)}")
+    return out
+
+
+def run_ci_oracles() -> dict:
+    """Phase 13 (b): the JAX package's CI oracles on the card
+    (tests/test_algorithms.py:109-141): hierarchical with 1 group and K = 1
+    is the FedAvg engine round (1e-5), 3 groups are centralized GD (Test/Acc
+    and Test/Loss within 2e-3), MNIST lr at full batch."""
+    import numpy as np
+
+    from fedml_tpu_torch import (CentralizedTrainer, ClassificationTrainer, FedAvgAPI,
+                                 FedConfig, HierarchicalFLAPI, create_model, load_dataset)
+
+    ds = load_dataset("mnist", client_num_in_total=ORACLE_CLIENTS, partition_method="homo",
+                      seed=3)
+    kw = dict(dataset="mnist", model="lr", batch_size=-1, epochs=1, lr=0.05, comm_round=2,
+              grad_clip=None, client_num_in_total=ORACLE_CLIENTS,
+              client_num_per_round=ORACLE_CLIENTS, seed=SEED)
+
+    def trainer():
+        return ClassificationTrainer(create_model("lr", output_dim=ds.class_num,
+                                                  input_shape=ds.train.x.shape[2:]))
+
+    cfg = FedConfig(**kw)
+    flat = FedAvgAPI(ds, cfg, trainer(), device="cuda")
+    hier = HierarchicalFLAPI(ds, cfg, trainer(), group_num=1, group_comm_round=1,
+                             group_assignment=[np.arange(ORACLE_CLIENTS)], device="cuda")
+    hier.global_variables = dict(flat.global_variables)
+    for r in range(2):
+        flat.train_one_round(r)
+        hier.train_one_round(r)
+    flat_gap = max_diff(hier.global_variables, flat.global_variables)
+    if not flat_gap < 1e-5:
+        raise RuntimeError(f"hierarchical (1 group, K = 1) is {flat_gap} from FedAvg")
+    cfg3 = cfg.replace(comm_round=3)
+    h3 = HierarchicalFLAPI(ds, cfg3, trainer(), group_num=3, device="cuda")
+    cen = CentralizedTrainer(ds, cfg3, trainer(), device="cuda")
+    cen.global_variables = dict(h3.global_variables)
+    for r in range(3):
+        h3.train_one_round(r)
+    cen.train(3)
+    ha, ca = h3.eval_global(), cen.eval_global()
+    gaps = {k: abs(ha[k] - ca[k]) for k in ("Test/Acc", "Test/Loss")}
+    if not all(g < 2e-3 for g in gaps.values()):
+        raise RuntimeError(f"3 groups against centralized: {gaps}")
+    out = {"flat_fedavg_max_diff": flat_gap, "centralized_gaps": gaps,
+           "hierarchical_test": ha}
+    log(f"CI oracles on the card: {json.dumps(out)}")
+    return out
+
+
+def run_centralized(ds) -> dict:
+    """Phase 13 (c), cell 29: the centralized trainer on (a)'s union."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedml_tpu_torch import CentralizedTrainer
+    from fedml_tpu_torch.telemetry.records import fetch_scalars
+
+    counts = ds.train.counts
+    union = dataclasses.replace(ds, train_global=(
+        np.concatenate([ds.train.x[i, :c] for i, c in enumerate(counts)]),
+        np.concatenate([ds.train.y[i, :c] for i, c in enumerate(counts)])))
+    cfg = femnist_cfg(ds.client_num, CENTRAL_ROUNDS, 1)
+    api = CentralizedTrainer(union, cfg, cnn_trainer(ds), device="cuda")
+    hist = []
+    for r in range(CENTRAL_ROUNDS):
+        t0 = time.perf_counter()
+        m = api.train_one_round(r)
+        m = dict(zip(m, fetch_scalars(list(m.values()))))
+        hist.append({**m, "round_time": time.perf_counter() - t0, **api.eval_global()})
+    losses = check_trained("centralized", api, hist)
+    out = {"rows": api.count, "steps_a_round": -(-api.count // BATCH),
+           "round_ms": [round(h["round_time"] * 1e3, 2) for h in hist],
+           "train_loss": [round(v, 5) for v in losses],
+           "test_acc": [round(h["Test/Acc"], 4) for h in hist],
+           "test_loss": [round(h["Test/Loss"], 5) for h in hist]}
+    if not all(0.0 <= a <= 1.0 for a in out["test_acc"]):
+        raise RuntimeError(f"centralized: Test/Acc {out['test_acc']}")
+    log(f"centralized (CNN_DropOut on the union): {json.dumps(out)}")
+    return out
+
+
+def run_turboaggregate(ds) -> dict:
+    """Phase 13 (d), cell 30: TurboAggregate on phase 3's engine
+    configuration; each round's secure global against the plain mean of the
+    same host trees under the same rounded weights (the surrogate's
+    clients hold 38-200 rows, so the rounded weights are not the counts'
+    exact shares: that gap is printed, not held)."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch import TurboAggregateAPI
+
+    cfg = femnist_cfg(ds.client_num, TA_ROUNDS, 10)
+    api = TurboAggregateAPI(ds, cfg, cnn_trainer(ds), num_groups=TA_GROUPS,
+                            frac_bits=TA_FRAC_BITS, device="cuda")
+    limit = 4 * 2.0 ** -TA_FRAC_BITS
+    rounds, last = [], {}
+    secure_rows = api.agg.secure_weighted_rows
+
+    def checked(rows, weights, groups):
+        out = secure_rows(rows, weights, groups)
+        rows = rows.astype(np.float64)
+        wq = api.agg.weight_quanta(weights)[0]
+        gap = float(np.abs(out - (wq[:, None] * rows).sum(0) / wq.sum()).max())
+        if not gap < limit:
+            raise RuntimeError(f"turboaggregate: the secure global is {gap} from the plain "
+                               f"mean under the same weights (limit {limit})")
+        share = weights / weights.sum()
+        rounds.append({**{f"{k}_s": round(v, 3) for k, v in api.agg.seconds.items()},
+                       "max_gap": gap, "gap_to_count_weighted_mean": float(
+                           np.abs(out - (share[:, None] * rows).sum(0)).max()),
+                       "weight_quanta": [int(w) for w in wq]})
+        last.update(out=out, params=rows.shape[1])
+        return out
+
+    api.agg.secure_weighted_rows = checked
+    with TimedRounds(TurboAggregateAPI) as timed:
+        hist = api.train()
+    on_card = torch.cat([v.reshape(-1) for v in api.global_variables.values()]).cpu()
+    if not torch.equal(on_card, torch.from_numpy(last["out"])):
+        raise RuntimeError("turboaggregate: the global on the card is not the secure sum")
+    for rec, h, ms in zip(rounds, hist, timed.ms[0]):
+        rec.update(round_ms=round(ms, 2), train_loss=round(h["Train/Loss"], 5),
+                   test_acc=round(h["Test/Acc"], 4))
+    if not all(np.isfinite(h["Train/Loss"]) and np.isfinite(h["Test/Loss"]) for h in hist):
+        raise RuntimeError(f"turboaggregate: {hist}")
+    # the bytes copied each way in a round (the same sizes every round)
+    out = {"params": last["params"], "threshold": api.agg.t, "limit": limit,
+           **api.transfers, "rounds": rounds}
+    log(f"turboaggregate ({TA_GROUPS} groups, frac_bits {TA_FRAC_BITS}): {json.dumps(out)}")
+    return out
+
+
+def run_decentralized() -> dict:
+    """Phase 13 (e), cell 31: DSGD on the symmetric ring and push-sum on
+    the asymmetric one at the JAX main's defaults; one fully-connected step
+    is the exact node average."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch import ClassificationTrainer, DecentralizedFLAPI, FedConfig, create_model
+    from fedml_tpu_torch.core import topology
+    from fedml_tpu_torch.experiments.main_decentralized import make_stream
+
+    x, y = make_stream(DEC_NODES, DEC_ITERATIONS, DEC_DIM, SEED)
+
+    def trainer():
+        return ClassificationTrainer(create_model("lr", output_dim=2, input_shape=(DEC_DIM,)))
+
+    topologies = {
+        "dsgd": (topology.SymmetricTopologyManager(DEC_NODES, DEC_NEIGHBORS), False),
+        "pushsum": (topology.AsymmetricTopologyManager(
+            DEC_NODES, DEC_NEIGHBORS, DEC_NEIGHBORS, np.random.RandomState(SEED)), True)}
+    out = {}
+    for mode, (topo, push_sum) in topologies.items():
+        api = DecentralizedFLAPI(trainer(), FedConfig(lr=DEC_LR, seed=SEED), topo,
+                                 push_sum=push_sum, device="cuda")
+        t0 = time.perf_counter()
+        z = api.run(x, y)
+        seconds = time.perf_counter() - t0
+        first, last = np.mean(api.loss_history[:5]), np.mean(api.loss_history[-5:])
+        spread = float(z["linear.weight"].std(0, unbiased=False).max())
+        if not last < first:
+            raise RuntimeError(f"{mode}: the online loss did not fall ({first} -> {last})")
+        if mode == "dsgd" and not spread < 0.05:
+            raise RuntimeError(f"dsgd: consensus spread {spread}")
+        out[mode] = {"seconds": round(seconds, 3), "first5": round(float(first), 5),
+                     "last5": round(float(last), 5), "regret": round(api.regret(), 5),
+                     "spread": round(spread, 5)}
+    fc = DecentralizedFLAPI(trainer(), FedConfig(lr=0.0, seed=SEED),
+                            topology.FullyConnectedTopologyManager(DEC_NODES), device="cuda")
+    z = fc.init_nodes()
+    batch = {"x": torch.zeros(DEC_NODES, 1, DEC_DIM, device=fc.device),
+             "y": torch.zeros(DEC_NODES, 1, dtype=torch.int32, device=fc.device),
+             "mask": torch.ones(DEC_NODES, 1, device=fc.device)}
+    _, _, z_new, _ = fc.step(dict(z), torch.ones(DEC_NODES, device=fc.device), z, batch,
+                             fc.W, torch.Generator().manual_seed(SEED))
+    fc_gap = max((z_new[k] - v.mean(0, keepdim=True)).abs().max().item() for k, v in z.items())
+    if not fc_gap < 1e-6:
+        raise RuntimeError(f"a fully-connected step is {fc_gap} from the node average")
+    out["fully_connected_gap"] = fc_gap
+    log(f"decentralized ({DEC_NODES} nodes, {DEC_ITERATIONS} iterations, dim {DEC_DIM}): "
+        f"{json.dumps(out)}")
+    return out
+
+
+#: phase 13 (f): each newly ported launcher name, 1 round from a YAML
+LAUNCH_ALGORITHMS = {
+    "base": {"comm_round": 1},
+    "hierarchical": {"dataset": "mnist", "model": "lr", "partition_method": "homo",
+                     "client_num_in_total": 4, "client_num_per_round": 4, "comm_round": 1,
+                     "batch_size": 16, "lr": 0.1, "group_num": 2, "group_comm_round": 2},
+    "decentralized": {"client_number": DEC_NODES, "iterations": 20},
+    "turboaggregate": {"dataset": "mnist", "model": "lr", "partition_method": "homo",
+                       "client_num_in_total": 4, "client_num_per_round": 4, "comm_round": 1,
+                       "batch_size": 32, "lr": 0.1, "num_groups": 2},
+}
+
+
+def run_base_and_launcher() -> dict:
+    """Phase 13 (f): ``main_base``'s defaults give exactly [6, 10, 14]; each
+    of the four names runs through ``fed_launch`` from a YAML."""
+    import math
+
+    from fedml_tpu_torch.experiments import fed_launch, main_base
+
+    got = main_base.main([])
+    if got != [6.0, 10.0, 14.0]:
+        raise RuntimeError(f"main_base's defaults gave {got}")
+    out = {"main_base": got}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args in LAUNCH_ALGORITHMS.items():
+            if name != "base":  # main_base writes no run files
+                args = {**args, "run_dir": f"{tmp}/{name}"}
+            path = f"{tmp}/{name}.yaml"
+            with open(path, "w") as f:
+                f.write(f"algorithm: {name}\nargs:\n"
+                        + "".join(f"  {k}: {v}\n" for k, v in args.items()))
+            t0 = time.perf_counter()
+            result = fed_launch.main(["--config", path])
+            seconds = time.perf_counter() - t0
+            # base and decentralized return floats, the others history records
+            last = result[-1] if name in ("base", "decentralized") else result[-1]["Test/Loss"]
+            if len(result) != args.get("iterations", 1) or not math.isfinite(last):
+                raise RuntimeError(f"fed_launch {name}: {result}")
+            out[name] = {"seconds": round(seconds, 2), "last": last}
+    log(f"the four launcher names: {json.dumps(out)}")
+    return out
+
+
+def run_algorithms(ds, fused_launches: dict, flash_launches: dict) -> dict:
+    """Phase 13: hierarchical, centralized, TurboAggregate, decentralized and
+    the base framework (cells 28-31; see the module docstring), every
+    path's kernel launches counted."""
+    import torch
+
+    started = time.perf_counter()
+    log(f"phase 13 cuts: {json.dumps(PHASE13_CUTS)}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        def path(tag, fn):
+            return dataset_path(tag, fused_launches, flash_launches, fn)
+
+        out["hierarchical"] = path("hierarchical", lambda: run_hierarchical(ds))
+        out["ci_oracles"] = path("ci oracles", run_ci_oracles)
+        out["centralized"] = path("centralized", lambda: run_centralized(ds))
+        out["turboaggregate"] = path("turboaggregate", lambda: run_turboaggregate(ds))
+        out["decentralized"] = path("decentralized", run_decentralized)
+        out["launcher"] = path("base and launcher", run_base_and_launcher)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    if seconds > PHASE13_BUDGET_S:
+        log(f"WARNING phase 13 took {seconds:.1f} s, over its {PHASE13_BUDGET_S:.0f} s "
+            f"budget")
+    out["seconds"] = round(seconds, 1)
+    log(f"phase 13: {seconds:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3624,6 +4022,10 @@ def main(argv=None) -> int:
                         help="build the kernels, then run phase 12 alone (stackoverflow_lr, "
                         "LoRA over the LSTMs, the streaming gld23k and ILSVRC2012 paths and "
                         "train-time augmentation), checking it and printing no result")
+    parser.add_argument("--algorithms-only", action="store_true",
+                        help="build the kernels, then run phase 13 alone (hierarchical, "
+                        "centralized, TurboAggregate, decentralized and the base framework), "
+                        "checking it and printing no result")
     parser.add_argument("--serving-only", action="store_true",
                         help="build the kernels, then run phase 3's NWP path (for its "
                         "launch counts) and phase 11 alone (LoRA, the client ledger, the "
@@ -3663,7 +4065,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     if (opts.launcher_only or opts.privacy_only or opts.transport_only or opts.serving_only
-            or opts.datasets_only):
+            or opts.datasets_only or opts.algorithms_only):
         if opts.launcher_only:
             run_launcher({})
         if opts.privacy_only:
@@ -3685,6 +4087,11 @@ def main(argv=None) -> int:
             run_serving(ds, nwp, reference, {})
         if opts.datasets_only:
             run_datasets(load_nwp(), {}, {})
+        if opts.algorithms_only:
+            from fedml_tpu_torch import load_dataset
+
+            run_algorithms(capped(load_dataset("femnist", client_num_in_total=FEMNIST_CLIENTS,
+                                               seed=SEED), CAP), {}, {})
         log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
         return 0
     if calibrate:
@@ -3767,6 +4174,10 @@ def main(argv=None) -> int:
     # ---- phase 12: the FedAvg family's last datasets (cells 23-27; no kernel
     # runs on their paths)
     datasets = run_datasets(nwp, fused_launches, flash_launches)
+
+    # ---- phase 13: the algorithm zoo's first four (cells 28-31; no kernel
+    # runs on their paths)
+    algorithms = run_algorithms(ds, fused_launches, flash_launches)
     del ds, nwp
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
@@ -3811,6 +4222,7 @@ def main(argv=None) -> int:
     log(f"transport: {json.dumps(transport)}")
     log(f"serving: {json.dumps(serving)}")
     log(f"datasets: {json.dumps(datasets)}")
+    log(f"algorithms: {json.dumps(algorithms)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -16,11 +16,18 @@ statistics carried as model state) and LSTMs — and the JAX CLI's drive:
 the pipelined round loop, the tracer and metrics logger, checkpoints and
 resume, the chaos harness and the round guard — and the out-of-core mmap
 shard store (data/packed_store.py) with the O(cohort) Feistel sampler, so
-the flagship runs at its configured 3400 clients. Entry points run on
+the flagship runs at its configured 3400 clients — and FedML's
+hierarchical, centralized, base-framework, decentralized gossip and
+TurboAggregate secure-aggregation algorithms. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
+from fedml_tpu_torch.algorithms.base_framework import FedML_Base_simulated
+from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
+from fedml_tpu_torch.algorithms.decentralized import DecentralizedFLAPI
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, client_sampling
+from fedml_tpu_torch.algorithms.hierarchical import HierarchicalFLAPI
+from fedml_tpu_torch.algorithms.turboaggregate import SecureAggregator, TurboAggregateAPI
 from fedml_tpu_torch.core.config import FedConfig
 from fedml_tpu_torch.core.trainer import ClassificationTrainer, NWPTrainer
 from fedml_tpu_torch.data.registry import FederatedDataset, load_dataset
@@ -28,4 +35,6 @@ from fedml_tpu_torch.models.registry import create_model
 
 __all__ = ["FedAvgAPI", "FedConfig", "ClassificationTrainer", "NWPTrainer",
            "FederatedDataset", "client_sampling", "create_model",
-           "load_dataset"]
+           "load_dataset", "CentralizedTrainer", "DecentralizedFLAPI",
+           "FedML_Base_simulated", "HierarchicalFLAPI", "SecureAggregator",
+           "TurboAggregateAPI"]

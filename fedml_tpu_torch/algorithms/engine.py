@@ -653,6 +653,28 @@ def build_eval_fn(trainer) -> Callable:
     return eval_fn
 
 
+def pack_test_batches(test_global, batch_size: int, device) -> tuple:
+    """The global test split as (bx, by, bmask) on ``device``, in batches of
+    max(batch_size, 64) (256 at full batch), as every drive evaluates."""
+    from fedml_tpu_torch.data.packing import pack_eval_batches
+
+    bs = batch_size if batch_size > 0 else 256
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in pack_eval_batches(*test_global, max(bs, 64)))
+
+
+def test_metrics(eval_fn, variables, batches) -> dict[str, float]:
+    """Test/Acc and Test/Loss of ``variables`` on ``pack_test_batches``'
+    batches, in one host transfer."""
+    from fedml_tpu_torch.telemetry.records import fetch_scalars
+
+    m = eval_fn(variables, *batches)
+    m = dict(zip(m, fetch_scalars(list(m.values()))))
+    total = max(m.get("test_total", 1.0), 1.0)
+    return {"Test/Acc": m.get("test_correct", 0.0) / total,
+            "Test/Loss": m.get("test_loss", 0.0) / total}
+
+
 def build_client_eval_fn(trainer) -> Callable:
     """eval(variables, x[C, n_max, ...], y, counts) -> per-client metric
     sums, each [C]: every client's rows masked to its count, one forward

@@ -35,12 +35,13 @@ from fedml_tpu_torch.algorithms.aggregators import make_aggregator
 from fedml_tpu_torch.algorithms.engine import (build_client_eval_fn, build_eval_fn,
                                                build_personal_client_eval_fn,
                                                build_personal_round_fn, build_round_fn,
-                                               stage_to_device)
+                                               pack_test_batches, stage_to_device,
+                                               test_metrics)
 from fedml_tpu_torch.algorithms.sampling import feistel_host
 from fedml_tpu_torch.codecs import make_codec
 from fedml_tpu_torch.core.builder import wrap_codec
 from fedml_tpu_torch.core.config import FedConfig
-from fedml_tpu_torch.data.packing import pack_eval_batches, pad_clients
+from fedml_tpu_torch.data.packing import pad_clients
 from fedml_tpu_torch.data.prefetch import CohortPrefetcher, StagedCohort
 from fedml_tpu_torch.data.registry import FederatedDataset
 from fedml_tpu_torch.models.lora import attach_lora_base, maybe_wrap_lora, strip_lora_base
@@ -157,10 +158,8 @@ class FedAvgAPI(Checkpointable):
         self.global_variables = model_trainer.init(
             torch.Generator().manual_seed(config.seed), self.device)
         self.agg_state = self.aggregator.init_state(strip_lora_base(self.global_variables))
-        bs = config.batch_size if config.batch_size > 0 else 256
-        self._test_batches = tuple(
-            torch.from_numpy(a).to(self.device)
-            for a in pack_eval_batches(*dataset.test_global, max(bs, 64)))
+        self._test_batches = pack_test_batches(dataset.test_global, config.batch_size,
+                                               self.device)
         # the side stream of the cohorts' copies to the card
         self._h2d_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
@@ -827,11 +826,7 @@ class FedAvgAPI(Checkpointable):
 
     # ------------------------------------------------------------------- eval
     def test_global(self, round_idx: int) -> dict[str, float]:
-        m = self.eval_fn(self.global_variables, *self._test_batches)
-        m = {k: float(v) for k, v in m.items()}
-        total = max(m.get("test_total", 1.0), 1.0)
-        return {"Test/Acc": m.get("test_correct", 0.0) / total,
-                "Test/Loss": m.get("test_loss", 0.0) / total}
+        return test_metrics(self.eval_fn, self.global_variables, self._test_batches)
 
     def personalization_lift(self, round_idx: int, probe: int = 64) -> dict[str, float]:
         """The accuracy lift of the personalized model over the global one

@@ -139,7 +139,7 @@ class FedConfig:
                 raise ValueError(reason)
         unported = {
             "backend='shard_map' over more than one device (ROADMAP.md Queue 1 "
-            "item 10, multi-device)":
+            "item 5, multi-device)":
                 self.backend == "shard_map" and self.mesh_size(device) > 1,
             "silo_threshold > 0": self.silo_threshold > 0,
             "tensor_shards > 0": self.tensor_shards > 0,

@@ -5,7 +5,8 @@ and under ``args`` the CLI flags of that algorithm's main (dataset, model,
 hyperparameters, the backend and mesh shape). The repo's configs are under
 ``fedml_tpu/experiments/configs/`` and its ``baseline/``.
 
-    algorithm: fedavg            # fedavg, fedopt, fednova, fedavg_robust or privacy
+    algorithm: fedavg            # fedavg, fedopt, fednova, fedavg_robust, privacy,
+                                 # hierarchical, decentralized, base or turboaggregate
     args:
       dataset: femnist
       model: cnn
@@ -23,10 +24,10 @@ Usage:
 
 ``privacy`` runs ``main_privacy`` (the branch and block ensembles with the
 MI report), so all 26 of the repo's configs run. The JAX package's other
-algorithms (``hierarchical``, ``fedgkt``, ...) and a ``multihost:`` block
-raise ``NotImplementedError`` naming ROADMAP.md. The config is read with
-PyYAML, or as JSON where PyYAML does not import, as the JAX launcher
-reads it.
+algorithms (``fednas``, ``fedgkt``, ``split_nn``, ``vfl``, ``fedseg``) and
+a ``multihost:`` block raise ``NotImplementedError`` naming ROADMAP.md.
+The config is read with PyYAML, or as JSON where PyYAML does not import,
+as the JAX launcher reads it.
 """
 
 from __future__ import annotations
@@ -38,12 +39,12 @@ import json
 ALGORITHMS = {
     # algorithm name -> the port's experiments module with a main(argv)
     name: f"fedml_tpu_torch.experiments.main_{name}"
-    for name in ("fedavg", "fedopt", "fednova", "fedavg_robust", "privacy")
+    for name in ("fedavg", "fedopt", "fednova", "fedavg_robust", "privacy", "hierarchical",
+                 "decentralized", "base", "turboaggregate")
 }
 
 #: the JAX launcher's other algorithms (fedml_tpu/experiments/fed_launch.py)
-UNPORTED_ALGORITHMS = ("hierarchical", "decentralized", "fednas", "base", "fedgkt",
-                       "split_nn", "vfl", "turboaggregate", "fedseg")
+UNPORTED_ALGORITHMS = ("fednas", "fedgkt", "split_nn", "vfl", "fedseg")
 
 def _load_yaml(path: str) -> dict:
     """The config at ``path``, by the JAX package's rule: PyYAML's
@@ -92,7 +93,7 @@ def resolve(argv=None) -> tuple[str, list[str]]:
     if cfg.get("multihost"):
         raise NotImplementedError(
             f"the multihost: block of {args.config} is not ported to fedml_tpu_torch "
-            f"yet (ROADMAP.md Queue 1 item 10, multi-device)")
+            f"yet (ROADMAP.md Queue 1 item 5, multi-device)")
     exp_args = dict(cfg.get("args") or {})
     for ov in args.override:
         k, _, v = ov.partition("=")

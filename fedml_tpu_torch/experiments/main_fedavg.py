@@ -105,7 +105,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--ci", type=int, default=0)
     # the JAX CLI's mesh flags (common.py:46-48): a shard_map round over a
     # mesh of one device is the vmap round, which runs; a mesh over more
-    # devices raises (ROADMAP.md Queue 1 item 10)
+    # devices raises (ROADMAP.md Queue 1 item 5)
     parser.add_argument("--backend", type=str, default="vmap", choices=["vmap", "shard_map"])
     parser.add_argument("--mesh_shape", type=int, nargs="*", default=None,
                         help="devices of the shard_map mesh (default: every device "

@@ -141,14 +141,15 @@ def test_unported_algorithms_and_multihost_raise(tmp_path):
     cfg = tmp_path / "mh.yaml"
     cfg.write_text("algorithm: fedavg\nargs:\n  dataset: mnist\nmultihost:\n"
                    "  coordinator: \"10.0.0.1:1234\"\n  num_processes: 4\n")
-    with pytest.raises(NotImplementedError, match="multihost.*item 10"):
+    with pytest.raises(NotImplementedError, match="multihost.*item 5"):
         fed_launch.main(["--config", str(cfg)])
     cfg = tmp_path / "bad.yaml"
     cfg.write_text("algorithm: nope\n")
     with pytest.raises(SystemExit, match="unknown algorithm"):
         fed_launch.main(["--config", str(cfg)])
     assert set(fed_launch.ALGORITHMS) == {"fedavg", "fedopt", "fednova", "fedavg_robust",
-                                          "privacy"}
+                                          "privacy", "hierarchical", "decentralized", "base",
+                                          "turboaggregate"}
     assert set(fed_launch.UNPORTED_ALGORITHMS) | set(fed_launch.ALGORITHMS) == set(
         jax_launch.ALGORITHMS)
 
@@ -161,7 +162,7 @@ def test_shard_map_backend_rule():
     assert FedConfig(backend="shard_map", mesh_shape=(1,)).validate() is not None
     for bad in (FedConfig(backend="shard_map", mesh_shape=(2,)),
                 FedConfig(backend="shard_map", mesh_shape=(1, 4))):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 5"):
             bad.validate(device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         FedConfig(backend="pmap").validate()
