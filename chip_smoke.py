@@ -334,6 +334,35 @@ Phases (any failure exits non-zero and prints no result line):
        ``base``, ``hierarchical``, ``decentralized`` and ``turboaggregate``
        each run through ``fed_launch`` from a YAML, 1 round.
 
+ 14. FedML's split-learning family, within PHASE14_BUDGET_S
+     (``--split-only`` builds the kernels and runs this phase alone), on
+     cuDNN's deterministic algorithms, every path's launches of the four
+     kernels counted and printed (each must read 0: none is on these
+     paths), its cuts of scale in PHASE14_CUTS:
+     - (a) cell 32, FedGKT through ``main_fedgkt`` at full width (the
+       ResNet-8 edge, num_blocks 1; the (5, 6, 6) ResNet-55 server) on the
+       CIFAR-10 surrogate: 8 hetero clients capped at GKT_CAP rows, batch
+       64, 1 local epoch, 2 server epochs, T 3.0, alpha 1.0, GKT_ROUNDS of
+       the main's 10 rounds: each round's client-phase and server-phase
+       seconds, the bytes of the features on the card, the server's epoch
+       losses (finite, the last under the first) and Test/Acc; then a 1 + 1
+       run resumed from its checkpoint, bit for bit the straight run
+       (every client's and the server's variables, both optimizers'
+       states, the server logits);
+     - (b) cell 33, SplitNN through ``main_split_nn`` at ``--split_width
+       16`` on the CIFAR-10 surrogate, 4 clients, batch 32, 1 epoch, lr
+       SPLIT_LR, SPLIT_CYCLES relay cycles: the cycle times, Train/Acc, Train/Loss and
+       Test/Acc, all finite;
+     - (c) cell 34, vertical FL through ``main_vfl``: lending club's
+       surrogate with ``--model dense`` (4 epochs, batch 64, lr 0.05;
+       Test/Acc > 0.7) and ``--model lr``, NUS-WIDE's with three parties;
+       then one ``NeuralVFLAPI.fit`` epoch at the API's defaults over
+       VFL_ROWS rows of ``synthetic_vfl_parties((634, 500, 500))``, its
+       steps a second, its last 50 steps' mean loss under its first 50's;
+     - (d) ``fedgkt``, ``split_nn`` and ``vfl`` each run through
+       ``fed_launch`` from a YAML, 1 round or epoch; ``fednas`` still
+       raises.
+
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
 "device": {...}}``.
@@ -611,6 +640,45 @@ PHASE13_CUTS = {
     "turboaggregate": [f"client_num_in_total={FEMNIST_CLIENTS} (of 3400)",
                        f"comm_round={TA_ROUNDS}"],
     "launcher": ["comm_round=1", "decentralized iterations=20"],
+}
+
+
+# Phase 14: FedML's split-learning family (cells 32-34), each path with the
+# four kernels' launches counted (each must read 0: none is on these paths),
+# within PHASE14_BUDGET_S, on cuDNN's deterministic algorithms. Cuts of
+# scale, each beside its constant:
+PHASE14_BUDGET_S = 45.0
+# (a) cell 32, FedGKT through main_fedgkt on the CIFAR-10 surrogate (5,000
+# rows over 8 hetero clients): every client capped at GKT_CAP rows (the
+# JAX main's --client_sample_cap for quick runs; the test set then 512
+# rows), GKT_ROUNDS of the main's 10 rounds, and a 1 + 1 resumed run
+GKT_CLIENTS, GKT_CAP, GKT_ROUNDS, GKT_SERVER_LAYERS = 8, 256, 2, (5, 6, 6)
+GKT_FLAGS = ["--dataset", "cifar10", "--partition_method", "hetero",
+             "--client_num_in_total", str(GKT_CLIENTS), "--client_num_per_round",
+             str(GKT_CLIENTS), "--client_sample_cap", str(GKT_CAP), "--batch_size", "64",
+             "--epochs", "1", "--epochs_server", "2", "--temperature", "3.0", "--alpha", "1.0",
+             "--client_blocks", "1", "--server_blocks", *map(str, GKT_SERVER_LAYERS),
+             "--seed", str(SEED)]
+# (b) cell 33, SplitNN through main_split_nn at width 16 on the CIFAR-10
+# surrogate over 4 clients, SPLIT_CYCLES relay cycles (the JAX main's 5
+# cut), at SPLIT_LR: the mains' default lr 0.03 under the reference's
+# momentum 0.9 reaches a NaN loss in the second cycle on this surrogate, in
+# the JAX main as in the port's (CPU runs of both mains)
+SPLIT_CLIENTS, SPLIT_CYCLES, SPLIT_LR = 4, 2, 0.01
+# (c) cell 34, vertical FL through main_vfl (the surrogates: lending club's
+# 18 + 18 columns, NUS-WIDE's 634 + 500 + 500), and one NeuralVFLAPI epoch
+# at VFL_ROWS rows of NUS-WIDE's three-party widths (a third of its 161,789
+# training images; 392 MB of float32 features on the card)
+VFL_ROWS, VFL_DIMS = 60_000, (634, 500, 500)
+PHASE14_CUTS = {
+    "fedgkt": [f"client_sample_cap={GKT_CAP}", "test rows=512",
+               f"comm_round={GKT_ROUNDS} (of 10)"],
+    "split_nn": [f"comm_round={SPLIT_CYCLES} (of 5)", f"lr={SPLIT_LR} (the main's 0.03 "
+                 "diverges on the surrogate)"],
+    "vfl": ["surrogate data (no NUS-WIDE or lending club files)",
+            f"timed epoch on {VFL_ROWS} of 161,789 rows"],
+    "launcher": ["comm_round=1", "fedgkt client_sample_cap=64, server_blocks 1 1 1",
+                 "vfl epochs=1"],
 }
 
 
@@ -4000,6 +4068,251 @@ def run_algorithms(ds, fused_launches: dict, flash_launches: dict) -> dict:
     return out
 
 
+# ---- phase 14: FedML's split-learning family (cells 32-34)
+
+
+def gkt_main(run_dir: str, rounds: int, ckpt_dir=None, flags=GKT_FLAGS):
+    """``main_fedgkt.main`` on ``flags`` for ``rounds`` rounds, each phase
+    timed (``time_gkt.PhaseTimes``): (the API it ran, its history, the
+    phase times)."""
+    from fedml_tpu_torch.experiments import main_fedgkt
+    from fedml_tpu_torch.experiments.time_gkt import PhaseTimes
+
+    argv = flags + ["--comm_round", str(rounds), "--run_dir", run_dir]
+    if ckpt_dir:
+        argv += ["--ckpt_dir", ckpt_dir]
+    with PhaseTimes() as times:
+        hist = main_fedgkt.main(argv)
+    return times.apis[-1], hist, times
+
+
+def run_fedgkt() -> dict:
+    """Phase 14 (a), cell 32: FedGKT through ``main_fedgkt`` at full width
+    (the ResNet-8 edge, the (5, 6, 6) ResNet-55 server) on the capped
+    CIFAR-10 surrogate, GKT_ROUNDS rounds; then a 1 + 1 resumed run, bit for
+    bit the straight one."""
+    import math
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        api, hist, times = gkt_main(f"{tmp}/straight", GKT_ROUNDS)
+        wall = time.perf_counter() - t0
+        losses = api.server_loss_history
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"fedgkt: server epoch losses {losses}")
+        if len(hist) != GKT_ROUNDS or not all(0.0 <= h["Test/Acc"] <= 1.0 for h in hist):
+            raise RuntimeError(f"fedgkt: history {hist}")
+        if (api.server_module.num_blocks != sum(GKT_SERVER_LAYERS)
+                or api.client_module.num_blocks != 1):
+            raise RuntimeError("fedgkt: the models are not at full width")
+        t1 = time.perf_counter()
+        gkt_main(f"{tmp}/first", 1, ckpt_dir=f"{tmp}/ckpt")
+        resumed, _, _ = gkt_main(f"{tmp}/resumed", GKT_ROUNDS, ckpt_dir=f"{tmp}/ckpt")
+        resume_s = time.perf_counter() - t1
+        same_bits("fedgkt 1 + 1 resumed", resumed._ckpt_tree(), api._ckpt_tree())
+        if resumed.server_loss_history != losses:
+            raise RuntimeError("fedgkt: the resumed run's server losses differ")
+    out = {"clients": api.dataset.client_num, "rows": int(api.dataset.train.counts.sum()),
+           "n_max": api.dataset.train.n_max, "wall_s": round(wall, 2),
+           "client_phase_s": [round(v, 3) for v in times.client_s],
+           "server_phase_s": [round(v, 3) for v in times.server_s],
+           "feature_bytes": times.feature_bytes, "server_epoch_losses": losses,
+           "test_acc": [h["Test/Acc"] for h in hist], "resume_s": round(resume_s, 2),
+           "resume": "bit for bit"}
+    log(f"fedgkt (ResNet-8 edge, ResNet-55 server, {GKT_CLIENTS} clients capped at "
+        f"{GKT_CAP}): {json.dumps(out)}")
+    return out
+
+
+def run_splitnn() -> dict:
+    """Phase 14 (b), cell 33: SplitNN through ``main_split_nn`` at width 16
+    on the CIFAR-10 surrogate, SPLIT_CYCLES relay cycles, each timed."""
+    import math
+
+    import torch
+
+    from fedml_tpu_torch.algorithms.splitnn import SplitNNAPI
+    from fedml_tpu_torch.experiments import main_split_nn
+
+    cycle = SplitNNAPI.relay_cycle
+    seconds, apis = [], []
+
+    def timed(api, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cycle(api, *args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        apis.append(api)
+        return out
+
+    SplitNNAPI.relay_cycle = timed
+    final = {}
+    evaluate = SplitNNAPI.evaluate
+
+    def evaluated(api):
+        final.update(evaluate(api))
+        return final
+
+    SplitNNAPI.evaluate = evaluated
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            hist = main_split_nn.main([
+                "--dataset", "cifar10", "--partition_method", "hetero",
+                "--client_num_in_total", str(SPLIT_CLIENTS), "--client_num_per_round",
+                str(SPLIT_CLIENTS), "--batch_size", "32", "--epochs", "1", "--comm_round",
+                str(SPLIT_CYCLES), "--split_width", "16", "--lr", str(SPLIT_LR),
+                "--seed", str(SEED),
+                "--run_dir", tmp])
+    finally:
+        SplitNNAPI.relay_cycle, SplitNNAPI.evaluate = cycle, evaluate
+    numbers = [h["Train/Acc"] for h in hist] + [h["Train/Loss"] for h in hist]
+    if len(hist) != SPLIT_CYCLES or not all(math.isfinite(v) for v in numbers) or not (
+            0.0 <= final.get("Test/Acc", -1.0) <= 1.0):
+        raise RuntimeError(f"split_nn: {hist} {final}")
+    api = apis[-1]
+    out = {"clients": api.dataset.client_num, "rows": int(api.dataset.train.counts.sum()),
+           "n_max": api.dataset.train.n_max, "cycle_s": [round(v, 3) for v in seconds],
+           "train_acc": [h["Train/Acc"] for h in hist],
+           "train_loss": [h["Train/Loss"] for h in hist], "test_acc": final["Test/Acc"]}
+    log(f"split_nn (width 16, {SPLIT_CLIENTS} clients, batch 32): {json.dumps(out)}")
+    return out
+
+
+def run_vfl() -> dict:
+    """Phase 14 (c), cell 34: ``main_vfl`` on the lending club surrogate
+    with the neural stack (Test/Acc > 0.7, as the JAX package's test holds
+    on the CPU) and the linear parties, on NUS-WIDE's with three parties;
+    then one NeuralVFLAPI epoch at VFL_ROWS rows of NUS-WIDE's widths,
+    timed."""
+    import math
+
+    import torch
+
+    from fedml_tpu_torch.algorithms.vfl import NeuralVFLAPI
+    from fedml_tpu_torch.data.readers import synthetic_vfl_parties
+    from fedml_tpu_torch.experiments import main_vfl
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {"lending_club dense": ["--dataset", "lending_club", "--model", "dense",
+                                       "--epochs", "4", "--batch_size", "64", "--lr", "0.05"],
+                "lending_club lr": ["--dataset", "lending_club", "--model", "lr"],
+                "nus_wide lr 3 parties": ["--dataset", "nus_wide", "--party_num", "3",
+                                          "--model", "lr"]}
+        for i, (tag, argv) in enumerate(runs.items()):
+            t0 = time.perf_counter()
+            got = main_vfl.main(argv + ["--data_dir", f"{tmp}/data", "--run_dir",
+                                        f"{tmp}/{i}"])
+            if not all(math.isfinite(v) for v in got.values()):
+                raise RuntimeError(f"vfl {tag}: {got}")
+            out[tag] = {**got, "seconds": round(time.perf_counter() - t0, 3)}
+    if not out["lending_club dense"]["Test/Acc"] > 0.7:
+        raise RuntimeError(f"vfl: lending_club dense Test/Acc {out['lending_club dense']}")
+    t0 = time.perf_counter()
+    ptr, ytr, _, _ = synthetic_vfl_parties(VFL_DIMS, n_train=VFL_ROWS, n_test=1, seed=SEED)
+    made = time.perf_counter() - t0
+    # the API's defaults (hidden 32, lr 0.01, momentum 0.9, wd 0.01): at
+    # main_vfl's lr 0.05 the loss spikes to 16.6 within an epoch at these
+    # widths (a CPU run at 12,000 rows)
+    api = NeuralVFLAPI(list(VFL_DIMS), seed=SEED, device="cuda")
+    api.fit([x[:512] for x in ptr], ytr[:512], epochs=1, batch_size=64)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api.fit(ptr, ytr, epochs=1, batch_size=64, seed=1)  # ends in a host fetch
+    seconds = time.perf_counter() - t0
+    steps = VFL_ROWS // 64
+    losses = api.loss_history[-steps:]
+    w = max(1, min(50, steps // 4))  # the windows of the loss check
+    first, last = sum(losses[:w]) / w, sum(losses[-w:]) / w
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        raise RuntimeError(f"vfl: the timed epoch's loss {first} -> {last}")
+    out["neural epoch"] = {"rows": VFL_ROWS, "dims": list(VFL_DIMS),
+                           "feature_bytes": sum(x.nbytes for x in ptr),
+                           "data_s": round(made, 2), "seconds": round(seconds, 3),
+                           "steps": steps, "steps_per_s": round(steps / seconds, 1),
+                           f"first{w}_loss": first, f"last{w}_loss": last,
+                           "train_acc": api.score(ptr, ytr)}
+    log(f"vfl: {json.dumps(out)}")
+    return out
+
+
+#: phase 14 (d): each newly ported launcher name, 1 round or epoch from a YAML
+SPLIT_LAUNCH = {
+    "fedgkt": {"dataset": "cifar10", "client_num_in_total": 2, "client_num_per_round": 2,
+               "comm_round": 1, "batch_size": 64, "client_sample_cap": 64,
+               "server_blocks": "[1, 1, 1]", "epochs_server": 1},
+    "split_nn": {"dataset": "cifar10", "client_num_in_total": 2, "client_num_per_round": 2,
+                 "comm_round": 1, "batch_size": 64, "split_width": 16, "lr": SPLIT_LR},
+    "vfl": {"dataset": "lending_club", "model": "dense", "epochs": 1},
+}
+
+
+def run_split_launcher() -> dict:
+    """Phase 14 (d): ``fedgkt``, ``split_nn`` and ``vfl`` each run through
+    ``fed_launch`` from a YAML; phase 8's control, ``fednas``, still
+    raises."""
+    import math
+
+    from fedml_tpu_torch.experiments import fed_launch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args in SPLIT_LAUNCH.items():
+            path = f"{tmp}/{name}.yaml"
+            with open(path, "w") as f:
+                f.write(f"algorithm: {name}\nargs:\n" + "".join(
+                    f"  {k}: {v}\n" for k, v in {**args, "run_dir": f"{tmp}/{name}"}.items()))
+            t0 = time.perf_counter()
+            result = fed_launch.main(["--config", path])
+            records = [result] if name == "vfl" else result
+            values = [v for r in records for k, v in r.items() if k != "round"]
+            if len(records) != 1 or not all(math.isfinite(v) for v in values):
+                raise RuntimeError(f"fed_launch {name}: {result}")
+            out[name] = {"seconds": round(time.perf_counter() - t0, 2), **records[0]}
+        control = f"{tmp}/fednas.yaml"
+        with open(control, "w") as f:
+            f.write("algorithm: fednas\nargs:\n  dataset: mnist\n")
+        try:
+            fed_launch.main(["--config", control])
+        except NotImplementedError:
+            out["fednas"] = "raises NotImplementedError"
+        else:
+            raise RuntimeError("an unported algorithm (fednas) did not raise")
+    log(f"the split-learning launcher names: {json.dumps(out)}")
+    return out
+
+
+def run_split_family(fused_launches: dict, flash_launches: dict) -> dict:
+    """Phase 14: FedGKT, SplitNN and vertical FL (cells 32-34; see the module
+    docstring), every path's kernel launches counted."""
+    import torch
+
+    started = time.perf_counter()
+    log(f"phase 14 cuts: {json.dumps(PHASE14_CUTS)}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        def path(tag, fn):
+            return dataset_path(tag, fused_launches, flash_launches, fn)
+
+        out["fedgkt"] = path("fedgkt", run_fedgkt)
+        out["split_nn"] = path("split_nn", run_splitnn)
+        out["vfl"] = path("vfl", run_vfl)
+        out["launcher"] = path("split-family launcher", run_split_launcher)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    if seconds > PHASE14_BUDGET_S:
+        log(f"WARNING phase 14 took {seconds:.1f} s, over its {PHASE14_BUDGET_S:.0f} s "
+            f"budget")
+    out["seconds"] = round(seconds, 1)
+    log(f"phase 14: {seconds:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4026,6 +4339,9 @@ def main(argv=None) -> int:
                         help="build the kernels, then run phase 13 alone (hierarchical, "
                         "centralized, TurboAggregate, decentralized and the base framework), "
                         "checking it and printing no result")
+    parser.add_argument("--split-only", action="store_true",
+                        help="build the kernels, then run phase 14 alone (FedGKT, SplitNN "
+                        "and vertical FL), checking it and printing no result")
     parser.add_argument("--serving-only", action="store_true",
                         help="build the kernels, then run phase 3's NWP path (for its "
                         "launch counts) and phase 11 alone (LoRA, the client ledger, the "
@@ -4065,7 +4381,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     if (opts.launcher_only or opts.privacy_only or opts.transport_only or opts.serving_only
-            or opts.datasets_only or opts.algorithms_only):
+            or opts.datasets_only or opts.algorithms_only or opts.split_only):
         if opts.launcher_only:
             run_launcher({})
         if opts.privacy_only:
@@ -4092,6 +4408,8 @@ def main(argv=None) -> int:
 
             run_algorithms(capped(load_dataset("femnist", client_num_in_total=FEMNIST_CLIENTS,
                                                seed=SEED), CAP), {}, {})
+        if opts.split_only:
+            run_split_family({}, {})
         log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
         return 0
     if calibrate:
@@ -4179,6 +4497,10 @@ def main(argv=None) -> int:
     # runs on their paths)
     algorithms = run_algorithms(ds, fused_launches, flash_launches)
     del ds, nwp
+
+    # ---- phase 14: FedML's split-learning family (cells 32-34; no kernel
+    # runs on their paths)
+    split_family = run_split_family(fused_launches, flash_launches)
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
 
@@ -4223,6 +4545,7 @@ def main(argv=None) -> int:
     log(f"serving: {json.dumps(serving)}")
     log(f"datasets: {json.dumps(datasets)}")
     log(f"algorithms: {json.dumps(algorithms)}")
+    log(f"split family: {json.dumps(split_family)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -18,7 +18,9 @@ resume, the chaos harness and the round guard — and the out-of-core mmap
 shard store (data/packed_store.py) with the O(cohort) Feistel sampler, so
 the flagship runs at its configured 3400 clients — and FedML's
 hierarchical, centralized, base-framework, decentralized gossip and
-TurboAggregate secure-aggregation algorithms. Entry points run on
+TurboAggregate secure-aggregation algorithms — and its split-learning
+family: FedGKT with the GKT split ResNets, SplitNN's relay, and vertical
+FL with the NUS-WIDE and lending club readers. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -26,8 +28,11 @@ from fedml_tpu_torch.algorithms.base_framework import FedML_Base_simulated
 from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
 from fedml_tpu_torch.algorithms.decentralized import DecentralizedFLAPI
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, client_sampling
+from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
 from fedml_tpu_torch.algorithms.hierarchical import HierarchicalFLAPI
+from fedml_tpu_torch.algorithms.splitnn import SplitNNAPI
 from fedml_tpu_torch.algorithms.turboaggregate import SecureAggregator, TurboAggregateAPI
+from fedml_tpu_torch.algorithms.vfl import NeuralVFLAPI, VerticalFederatedLearningAPI
 from fedml_tpu_torch.core.config import FedConfig
 from fedml_tpu_torch.core.trainer import ClassificationTrainer, NWPTrainer
 from fedml_tpu_torch.data.registry import FederatedDataset, load_dataset
@@ -37,4 +42,5 @@ __all__ = ["FedAvgAPI", "FedConfig", "ClassificationTrainer", "NWPTrainer",
            "FederatedDataset", "client_sampling", "create_model",
            "load_dataset", "CentralizedTrainer", "DecentralizedFLAPI",
            "FedML_Base_simulated", "HierarchicalFLAPI", "SecureAggregator",
-           "TurboAggregateAPI"]
+           "TurboAggregateAPI", "FedGKTAPI", "SplitNNAPI", "VerticalFederatedLearningAPI",
+           "NeuralVFLAPI"]

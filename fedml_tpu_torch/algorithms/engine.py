@@ -75,6 +75,18 @@ def draw_client_randomness(rng: torch.Generator, counts, n_max: int,
     return perms, seeds
 
 
+def valid_first_permutation(count: int, n_max: int, n_pad: int,
+                            generator: torch.Generator) -> torch.Tensor:
+    """[n_pad] int64 on the CPU: the first ``count`` rows in the order of a
+    uniform draw from ``generator``, the rest in order, then row 0 up to
+    ``n_pad`` (the JAX package's argsort of uniforms with the invalid rows
+    at infinity, fedgkt.py and splitnn.py's epoch shuffles)."""
+    u = torch.rand(n_max, generator=generator)
+    key = torch.where(torch.arange(n_max) < count, u, torch.inf)
+    perm = torch.argsort(key, stable=True)
+    return torch.cat([perm, perm.new_zeros(n_pad - n_max)])
+
+
 class Optimizer(NamedTuple):
     """optax's ``GradientTransformation`` over the port's dicts of tensors:
     ``init(params) -> state`` and ``update(updates, state, params) ->
@@ -112,22 +124,51 @@ def bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
                           device=count.device) ** count.float()
 
 
-def trace(decay: float) -> Optimizer:
-    """optax.trace: t = g + decay * t from t = 0 (momentum)."""
+def trace(decay: float, nesterov: bool = False) -> Optimizer:
+    """optax.trace: t = g + decay * t from t = 0 (momentum); the update is
+    t, or with ``nesterov`` g + decay * t of the new t."""
 
     def update(updates, state, params=None):
         t = {k: g + decay * state["trace"][k] for k, g in updates.items()}
+        if nesterov:
+            return {k: g + decay * t[k] for k, g in updates.items()}, {"trace": t}
         return t, {"trace": t}
 
     return Optimizer(lambda params: {"trace": zeros_like(params)}, update)
 
 
-def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
-    """optax.sgd(lr, momentum=momentum or None)."""
+def sgd(lr: float, momentum: float = 0.0, nesterov: bool = False) -> Optimizer:
+    """optax.sgd(lr, momentum=momentum or None, nesterov=nesterov)."""
     if momentum:
-        return scaled(trace(momentum), -lr)
+        return scaled(trace(momentum, nesterov), -lr)
     return Optimizer(lambda params: {}, lambda updates, state, params=None: (
         {k: -lr * g for k, g in updates.items()}, state))
+
+
+def add_decayed_weights(wd: float) -> Optimizer:
+    """optax.add_decayed_weights: g + wd * p (stateless)."""
+    return Optimizer(lambda params: {}, lambda updates, state, params=None: (
+        {k: g + wd * params[k] for k, g in updates.items()}, state))
+
+
+def chain(*transforms: Optimizer) -> Optimizer:
+    """optax.chain over the port's flat states: the transforms' state
+    fields side by side in one dict (their names differ, as optax's do in
+    the chains the port builds). Each transform reads its own fields of
+    the dict and returns them updated; a stateless one returns the dict it
+    was given."""
+
+    def init(params):
+        return {k: v for t in transforms for k, v in t.init(params).items()}
+
+    def update(updates, state, params=None):
+        state = dict(state)
+        for t in transforms:
+            updates, part = t.update(updates, state, params)
+            state.update(part)
+        return updates, state
+
+    return Optimizer(init, update)
 
 
 def scale_by_torch_amsgrad(b1: float = 0.9, b2: float = 0.999,

@@ -531,3 +531,35 @@ def _from_client_lists(name, xtr, ytr, xte, yte, class_num, **meta):
     return FederatedDataset(name=name, train=train, test=test,
                             train_global=flat(train), test_global=flat(test),
                             class_num=class_num, meta=meta)
+
+
+def load_vfl_parties(name: str, data_dir: str = "./data", seed: int = 0,
+                     three_party: bool = False):
+    """Vertical-FL party data (outside the 9-tuple contract: features are
+    split across parties, not rows across clients). ``name``: "nus_wide"
+    (reference NUS_WIDE/nus_wide_dataset.py) or "lending_club"
+    (lending_club_loan/lending_club_dataset.py). Returns (parties_train,
+    y_train, parties_test, y_test); the seeded surrogate when the files are
+    absent or unreadable (the JAX package's dimensions: NUS-WIDE's 634
+    image features and 1,000 tags, in two or three parties; lending club's
+    18 + 18 columns)."""
+    if name not in ("nus_wide", "lending_club"):
+        raise ValueError(f"unknown VFL dataset {name!r}")
+    ref = None
+    failed = False
+    try:
+        if name == "nus_wide":
+            ref = readers.read_nus_wide(data_dir, three_party=three_party)
+        else:
+            ref = readers.read_lending_club(data_dir, seed=seed)
+    except Exception as e:  # corrupt files -> surrogate, like every loader here
+        sources.log.warning("failed reading %s (%s) — using seeded VFL surrogate", name, e)
+        failed = True
+    if ref is not None:
+        return ref
+    if not failed:
+        sources.log.warning("%s files not found under %s — using seeded VFL surrogate",
+                            name, data_dir)
+    dims = {"nus_wide": (634, 500, 500) if three_party else (634, 1000),
+            "lending_club": (18, 18)}[name]
+    return readers.synthetic_vfl_parties(dims, seed=seed)

@@ -23,6 +23,10 @@ and returns what the JAX package's reader returns, bit for bit:
 - LEAF-json per-client MNIST (reference raw_MNIST/data_loader.py:9-50)
 - southwest-airline edge-case backdoor pickles (reference
   edge_case_examples/data_loader.py:329-385)
+- NUS-WIDE's and lending club's vertical-FL party files (reference
+  NUS_WIDE/nus_wide_dataset.py:23-71, lending_club_dataset.py:126-155),
+  parsed with ``csv`` and numpy (``read_table``) where the JAX package
+  uses pandas, into the same float32 and int32 arrays
 
 A reader returns None when its files are absent; the loaders
 (``sources``, ``loaders``) then fall back to seeded surrogates. ``PIL`` is
@@ -31,6 +35,7 @@ imported only by the image readers, when they run.
 
 from __future__ import annotations
 
+import csv
 import gzip
 import json
 import logging
@@ -527,3 +532,159 @@ def read_southwest(data_dir: str):
     with open(te, "rb") as f:
         xte = np.asarray(pickle.load(f))
     return xtr.astype(np.float32) / 255.0, xte.astype(np.float32) / 255.0, 9
+
+
+# ---------------------------------------------------------------------------
+# vertical-FL party datasets (NUS-WIDE / lending club), parsed without pandas
+
+# pandas.read_csv's default NA strings: a field equal to one of them is NaN
+_NA_STRINGS = ("", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+               "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+               "nan", "null")
+# the booleans pandas parses, as the numbers astype(float32) makes of them
+_BOOL_STRINGS = {"True": "1", "TRUE": "1", "true": "1", "False": "0", "FALSE": "0",
+                 "false": "0"}
+_ROWS_A_BLOCK = 4096
+
+
+def _float_block(rows: list, ncols: int, path: str, first: int) -> np.ndarray:
+    """[len(rows), ncols] float64 of text fields: the NA strings NaN, a row
+    short of fields NaN-filled, a row with more fields an error (pandas'
+    C parser's rules)."""
+    for i, r in enumerate(rows):
+        if len(r) > ncols:
+            raise ValueError(f"{path}: expected {ncols} fields in row {first + i}, "
+                             f"saw {len(r)}")
+    a = np.array([r + [""] * (ncols - len(r)) for r in rows], dtype=str).reshape(-1, ncols)
+    a = np.where(np.isin(a, _NA_STRINGS), "nan", a)
+    for text, number in _BOOL_STRINGS.items():
+        a = np.where(a == text, number, a)
+    return a.astype(np.float64)
+
+
+def read_table(path: str, sep: str = ",", header: bool = False):
+    """(column names or None, float64 [rows, columns]) of a delimited text
+    file, as ``pandas.read_csv(path, sep=sep, header=0 if header else
+    None)`` then ``.values.astype(np.float64)`` would give them for numeric
+    columns: blank lines skipped, each ``sep`` a field boundary (a trailing
+    one makes an empty last field), the NA strings and missing fields NaN.
+    The width is the header's, or the first row's. Read a block of rows at
+    a time, so the text of a large file is never held whole."""
+    with open(path, newline="") as f:
+        reader = csv.reader(f, delimiter=sep)
+        names = next(reader) if header else None
+        ncols = len(names) if header else None
+        blocks, rows, first = [], [], 0
+        for row in reader:
+            if not row:
+                continue  # a blank line
+            if ncols is None:
+                ncols = len(row)
+            rows.append(row)
+            if len(rows) == _ROWS_A_BLOCK:
+                blocks.append(_float_block(rows, ncols, path, first))
+                first += len(rows)
+                rows = []
+        if rows:
+            blocks.append(_float_block(rows, ncols, path, first))
+    width = ncols or 0
+    return names, (np.concatenate(blocks) if blocks else np.zeros((0, width)))
+
+
+def _dropna_columns(a: np.ndarray) -> np.ndarray:
+    """pandas' ``dropna(axis=1)``: every column holding a NaN goes."""
+    return a[:, ~np.isnan(a).any(0)]
+
+
+def read_nus_wide(data_dir: str, selected_labels=("sky", "clouds", "person", "water",
+                                                  "animal"),
+                  n_samples: int = -1, three_party: bool = False):
+    """NUS-WIDE two- or three-party vertical split (reference
+    NUS_WIDE/nus_wide_dataset.py:23-71), the JAX package's pandas reader
+    without pandas: party A = the 634 normalized low-level image features
+    (Low_Level_Features/<dtype>_Normalized_*.dat, space-separated, the
+    files in sorted order), party B = the 1k tag vector
+    (NUS_WID_Tags/<dtype>_Tags1k.dat, tab-separated), each file's columns
+    that hold any NaN dropped (the empty column a trailing separator makes
+    among them); the labels from
+    Groundtruth/TrainTestLabels/Labels_<label>_<dtype>.txt, keeping the
+    rows with exactly one positive among the selected labels; y = 1 iff the
+    first selected label fires. Three parties split the tags in half.
+    Returns (parties_train, y_train, parties_test, y_test), or None."""
+    if not os.path.isdir(os.path.join(data_dir, "Low_Level_Features")):
+        return None
+
+    def load(dtype):
+        columns = []
+        for label in selected_labels:
+            path = os.path.join(data_dir, "Groundtruth", "TrainTestLabels",
+                                f"Labels_{label}_{dtype}.txt")
+            a = read_table(path)[1]
+            if a.shape[1] != 1:
+                raise ValueError(f"{path}: {a.shape[1]} columns, one label column expected")
+            columns.append(a)
+        labels = np.concatenate(columns, axis=1)
+        # pandas' row sum skips NaN
+        rows = (np.flatnonzero(np.nansum(labels, 1) == 1) if len(selected_labels) > 1
+                else np.arange(len(labels)))
+        feat_dir = os.path.join(data_dir, "Low_Level_Features")
+        xa = np.concatenate([
+            _dropna_columns(read_table(os.path.join(feat_dir, f), sep=" ")[1])
+            for f in sorted(os.listdir(feat_dir)) if f.startswith(f"{dtype}_Normalized")],
+            axis=1)[rows].astype(np.float32)
+        tags = _dropna_columns(read_table(
+            os.path.join(data_dir, "NUS_WID_Tags", f"{dtype}_Tags1k.dat"), sep="\t")[1])
+        xb = tags[rows].astype(np.float32)
+        y = (labels[rows, 0] > 0).astype(np.int32)
+        if n_samples != -1:
+            xa, xb, y = xa[:n_samples], xb[:n_samples], y[:n_samples]
+        if three_party:
+            half = xb.shape[1] // 2
+            return [xa, xb[:, :half], xb[:, half:]], y
+        return [xa, xb], y
+
+    ptr, ytr = load("Train")
+    pte, yte = load("Test")
+    return ptr, ytr, pte, yte
+
+
+def read_lending_club(data_dir: str, seed: int = 0):
+    """Lending-club two-party vertical split (reference
+    lending_club_dataset.py:126-155), the JAX package's pandas reader
+    without pandas: processed_loan.csv, a header row, the normalized
+    feature columns and ``target``; party A = the first half of the
+    non-target columns, party B = the rest, shuffled by
+    ``RandomState(seed)`` before the 80/20 train/test cut. Returns
+    (parties_train, y_train, parties_test, y_test), or None."""
+    fp = os.path.join(data_dir, "processed_loan.csv")
+    if not os.path.exists(fp):
+        return None
+    names, a = read_table(fp, header=True)
+    y = a[:, names.index("target")].astype(np.int32)
+    feat = [i for i, c in enumerate(names) if c != "target"]
+    half = len(feat) // 2
+    xa = a[:, feat[:half]].astype(np.float32)
+    xb = a[:, feat[half:]].astype(np.float32)
+    perm = np.random.RandomState(seed).permutation(len(y))
+    xa, xb, y = xa[perm], xb[perm], y[perm]
+    k = int(0.8 * len(y))
+    return [xa[:k], xb[:k]], y[:k], [xa[k:], xb[k:]], y[k:]
+
+
+def synthetic_vfl_parties(party_dims=(24, 40), n_train: int = 800, n_test: int = 200,
+                          seed: int = 0):
+    """Seeded surrogate vertical data, the JAX package's bit for bit: a
+    shared latent drives every party's features and the label, so VFL
+    training is learnable."""
+    rng = np.random.RandomState(seed)
+    z = rng.normal(size=(n_train + n_test, 8)).astype(np.float32)
+    w_y = rng.normal(size=8).astype(np.float32)
+    y = (z @ w_y + 0.3 * rng.normal(size=len(z)) > 0).astype(np.int32)
+    parties = []
+    for d in party_dims:
+        proj = rng.normal(size=(8, d)).astype(np.float32)
+        x = z @ proj + 0.3 * rng.normal(size=(len(z), d)).astype(np.float32)
+        parties.append(x.astype(np.float32))
+    tr = [x[:n_train] for x in parties]
+    te = [x[n_train:] for x in parties]
+    return tr, y[:n_train], te, y[n_train:]

@@ -6,7 +6,8 @@ hyperparameters, the backend and mesh shape). The repo's configs are under
 ``fedml_tpu/experiments/configs/`` and its ``baseline/``.
 
     algorithm: fedavg            # fedavg, fedopt, fednova, fedavg_robust, privacy,
-                                 # hierarchical, decentralized, base or turboaggregate
+                                 # hierarchical, decentralized, base, turboaggregate,
+                                 # fedgkt, split_nn or vfl
     args:
       dataset: femnist
       model: cnn
@@ -24,8 +25,8 @@ Usage:
 
 ``privacy`` runs ``main_privacy`` (the branch and block ensembles with the
 MI report), so all 26 of the repo's configs run. The JAX package's other
-algorithms (``fednas``, ``fedgkt``, ``split_nn``, ``vfl``, ``fedseg``) and
-a ``multihost:`` block raise ``NotImplementedError`` naming ROADMAP.md.
+algorithms (``fednas``, ``fedseg``) and a ``multihost:`` block raise
+``NotImplementedError`` naming ROADMAP.md.
 The config is read with PyYAML, or as JSON where PyYAML does not import,
 as the JAX launcher reads it.
 """
@@ -40,11 +41,11 @@ ALGORITHMS = {
     # algorithm name -> the port's experiments module with a main(argv)
     name: f"fedml_tpu_torch.experiments.main_{name}"
     for name in ("fedavg", "fedopt", "fednova", "fedavg_robust", "privacy", "hierarchical",
-                 "decentralized", "base", "turboaggregate")
+                 "decentralized", "base", "turboaggregate", "fedgkt", "split_nn", "vfl")
 }
 
 #: the JAX launcher's other algorithms (fedml_tpu/experiments/fed_launch.py)
-UNPORTED_ALGORITHMS = ("fednas", "fedgkt", "split_nn", "vfl", "fedseg")
+UNPORTED_ALGORITHMS = ("fednas", "fedseg")
 
 def _load_yaml(path: str) -> dict:
     """The config at ``path``, by the JAX package's rule: PyYAML's

@@ -55,6 +55,15 @@ def tree_map(fn, tree):
     return tree
 
 
+def tree_stack(trees: list):
+    """Equal trees of dicts of tensors -> one tree, each leaf the trees'
+    leaves stacked on a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
 def tree_leaves(tree, path: str = "") -> list:
     """[(path, leaf)] of a tree of dicts, lists and tuples, in order."""
     if isinstance(tree, dict):

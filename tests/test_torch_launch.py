@@ -149,9 +149,41 @@ def test_unported_algorithms_and_multihost_raise(tmp_path):
         fed_launch.main(["--config", str(cfg)])
     assert set(fed_launch.ALGORITHMS) == {"fedavg", "fedopt", "fednova", "fedavg_robust",
                                           "privacy", "hierarchical", "decentralized", "base",
-                                          "turboaggregate"}
+                                          "turboaggregate", "fedgkt", "split_nn", "vfl"}
+    assert fed_launch.UNPORTED_ALGORITHMS == ("fednas", "fedseg")
     assert set(fed_launch.UNPORTED_ALGORITHMS) | set(fed_launch.ALGORITHMS) == set(
         jax_launch.ALGORITHMS)
+
+
+#: the split-learning family's launcher names, each at a CPU-sized run
+SPLIT_FAMILY = {
+    "fedgkt": {"dataset": "fmnist", "model": "cnn", "client_num_in_total": 2,
+               "client_num_per_round": 2, "comm_round": 1, "batch_size": 16,
+               "client_sample_cap": 16, "server_blocks": [1, 1, 1], "epochs_server": 1},
+    "split_nn": {"dataset": "fmnist", "model": "cnn", "client_num_in_total": 2,
+                 "client_num_per_round": 2, "comm_round": 1, "batch_size": 500,
+                 "split_width": 4},
+    "vfl": {"dataset": "lending_club", "model": "dense", "epochs": 1},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_FAMILY))
+def test_split_family_runs_through_the_launcher(name, tmp_path):
+    """``fedgkt``, ``split_nn`` and ``vfl`` each run once from a YAML on the
+    CPU: finite results, one record a round (``vfl`` returns its final
+    metrics)."""
+    import math
+
+    args = {**SPLIT_FAMILY[name], "device": "cpu", "run_dir": str(tmp_path / "run")}
+    cfg = tmp_path / f"{name}.yaml"
+    cfg.write_text(f"algorithm: {name}\nargs:\n" + "".join(
+        f"  {k}: {list(v) if isinstance(v, list) else v}\n" for k, v in args.items()))
+    module, _ = fed_launch.resolve(["--config", str(cfg)])
+    assert module == f"fedml_tpu_torch.experiments.main_{name}"
+    out = fed_launch.main(["--config", str(cfg)])
+    records = [out] if name == "vfl" else out
+    assert len(records) == 1
+    assert all(math.isfinite(v) for r in records for k, v in r.items() if k != "round")
 
 
 def test_shard_map_backend_rule():
