@@ -160,7 +160,7 @@ Phases (any failure exits non-zero and prints no result line):
        kernel launched;
      - ``fedavg_femnist.yaml`` again with ``fused_kernel=1``: the fused
        epoch must launch;
-     - a temporary config of an unported algorithm (``fednas``) must
+     - a temporary ``fednas`` config with a ``multihost:`` block must
        raise NotImplementedError naming ROADMAP (``privacy_blockensemble.yaml``
        runs in phase 9);
      - BASELINE.md's cross-silo rows on ``cross_silo_cifar10_resnet56.yaml``
@@ -360,8 +360,38 @@ Phases (any failure exits non-zero and prints no result line):
        VFL_ROWS rows of ``synthetic_vfl_parties((634, 500, 500))``, its
        steps a second, its last 50 steps' mean loss under its first 50's;
      - (d) ``fedgkt``, ``split_nn`` and ``vfl`` each run through
-       ``fed_launch`` from a YAML, 1 round or epoch; ``fednas`` still
-       raises.
+       ``fed_launch`` from a YAML, 1 round or epoch; a ``fednas`` config
+       with a ``multihost:`` block still raises.
+
+ 15. FedNAS and FedSeg, within PHASE15_BUDGET_S (``--search-seg-only``
+     builds the kernels and runs this phase alone), on cuDNN's
+     deterministic algorithms, every path's launches of the four kernels
+     counted and printed (each must read 0: none is on these paths), its
+     cuts of scale in PHASE15_CUTS:
+     - (a) cell 35, FedNAS at DARTS's CIFAR-10 search widths (16 channels,
+       8 cells, steps 4, multiplier 4) on the CIFAR-10 surrogate: 4 homo
+       clients capped at NAS_CAP rows, batch 64, E 1, lr 0.025 cosine to
+       1e-3, momentum 0.9, wd 3e-4, arch lr 3e-4, first order with
+       lambda_train 1, NAS_ROUNDS rounds: each round's seconds,
+       search_loss, search_acc and search_samples (4 x NAS_CAP / 2), the
+       genotype, ``evaluate()``'s Test/Acc and the peak memory; a run
+       resumed from the checkpoint of round 1 (1 + 1), bit for bit the
+       straight one (params, alphas, both optimizer states, the
+       genotypes and records); one
+       first-order, one ``unrolled=True`` and one ``gdas=True`` step at
+       the same widths and batch, each timed with its peak memory and a
+       finite loss; one bfloat16 round with a finite loss;
+     - (b) cell 36, FedSeg through ``main_fedseg``: DeepLabV3+ at width 32
+       on the 64 px pascal_voc surrogate, 4 clients, batch 8, lr 0.007,
+       SEG_ROUNDS rounds, evaluated every round: the round seconds and
+       Test/accuracy, accuracy_class, mIoU and FWIoU, all finite; a
+       ``FedSegAPI`` run resumed from the checkpoint of round 1 (1 + 1),
+       bit for bit the straight one; then two rounds at 128 px and width 64 (the
+       compute-bound rung), in float32 and in bfloat16, each timed;
+     - (c) one ``main_fedseg --model fcn --loss_type focal`` round;
+     - (d) ``fednas`` (the JAX main's widths, 4 CIFAR-10 surrogate
+       clients) and ``fedseg`` each run through ``fed_launch`` from a
+       YAML, 1 round.
 
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
@@ -679,6 +709,33 @@ PHASE14_CUTS = {
             f"timed epoch on {VFL_ROWS} of 161,789 rows"],
     "launcher": ["comm_round=1", "fedgkt client_sample_cap=64, server_blocks 1 1 1",
                  "vfl epochs=1"],
+}
+
+
+# Phase 15: FedNAS and FedSeg (cells 35-36), each path with the four
+# kernels' launches counted (each must read 0), within PHASE15_BUDGET_S, on
+# cuDNN's deterministic algorithms. Cuts of scale, each beside its constant:
+PHASE15_BUDGET_S = 60.0
+# (a) cell 35, FedNAS at the DARTS paper's CIFAR-10 search widths on the
+# CIFAR-10 surrogate (5,000 rows over 4 homo clients): every client capped
+# at NAS_CAP rows (the test set then 256 rows), NAS_ROUNDS rounds, plus a
+# 1 + 1 resumed run. bench.py's fednas rung caps at 256: at 256 phase 15
+# took 113.2 s of its 60 (a round 9.0-15.1 s, the search step host-bound
+# at 51,282 launches; H100 80GB HBM3, 700 W), so the cap is 128, one step
+# of batch 64 a client a round
+NAS_CLIENTS, NAS_CAP, NAS_ROUNDS = 4, 128, 2
+NAS_WIDTHS = {"channels": 16, "layers": 8, "steps": 4, "multiplier": 4}
+NAS_CFG = {"batch_size": 64, "epochs": 1, "lr": 0.025, "momentum": 0.9, "wd": 3e-4}
+# (b) cell 36, FedSeg on the pascal_voc surrogate (40 + 10 images; no VOC
+# files in the repository): SEG_ROUNDS rounds, plus a 1 + 1 resumed run
+SEG_CLIENTS, SEG_ROUNDS, SEG_SIDE, SEG_WIDTH, SEG_BATCH, SEG_LR = 4, 2, 64, 32, 8, 0.007
+SEG_RUNG = (128, 64)  # the compute-bound rung: image side, width
+PHASE15_CUTS = {
+    "fednas": [f"samples a client <= {NAS_CAP} (bench.py's rung: 256)", "test rows=256",
+               f"comm_round={NAS_ROUNDS}", "unrolled and gdas: one step each"],
+    "fedseg": ["surrogate data (no Pascal VOC files)", f"comm_round={SEG_ROUNDS}",
+               "the 128 px rung: two rounds a dtype"],
+    "launcher": ["comm_round=1", "fednas batch_size=640 (one step a client)"],
 }
 
 
@@ -2317,6 +2374,16 @@ def launch(path, overrides, run_dir: str, profile: bool = False) -> dict:
     return row
 
 
+def write_multihost_control(directory: str) -> str:
+    """A ``fednas`` config with a ``multihost:`` block (not ported: it must
+    raise NotImplementedError naming ROADMAP); returns its path."""
+    path = f"{directory}/fednas_multihost.yaml"
+    with open(path, "w") as f:
+        f.write("algorithm: fednas\nargs:\n  dataset: mnist\nmultihost:\n"
+                "  coordinator: \"localhost:1234\"\n  num_processes: 4\n")
+    return path
+
+
 def run_launcher(fused_launches: dict) -> dict:
     """Phase 8: ``fed_launch.main`` over the repo's configs on the card.
     Returns the rows."""
@@ -2346,17 +2413,16 @@ def run_launcher(fused_launches: dict) -> dict:
             row = next(r for r in rows if r["config"] == name)
             if row["backend"] != "shard_map":
                 raise RuntimeError(f"{name} ran with backend {row['backend']}, not as written")
-        control = f"{run_dir}/fednas.yaml"
-        with open(control, "w") as f:
-            f.write("algorithm: fednas\nargs:\n  dataset: mnist\n")
+        control = write_multihost_control(run_dir)
         try:
             fed_launch.main(["--config", control])
         except NotImplementedError as e:
             if "ROADMAP" not in str(e):
-                raise RuntimeError(f"the unported algorithm's error names no ROADMAP: {e}")
-            log(f"phase 8 control: algorithm fednas raises NotImplementedError ({e})")
+                raise RuntimeError(f"the multihost block's error names no ROADMAP: {e}")
+            log(f"phase 8 control: fednas with a multihost: block raises "
+                f"NotImplementedError ({e})")
         else:
-            raise RuntimeError("an unported algorithm (fednas) did not raise")
+            raise RuntimeError("a multihost: block (fednas) did not raise")
         silo = next(p for p in paths if p.name == "cross_silo_cifar10_resnet56.yaml")
         for overrides, bf16, profile in CROSS_SILO_ROWS:
             for dtype in ("float32", "bfloat16") if bf16 else ("float32",):
@@ -4250,8 +4316,8 @@ SPLIT_LAUNCH = {
 
 def run_split_launcher() -> dict:
     """Phase 14 (d): ``fedgkt``, ``split_nn`` and ``vfl`` each run through
-    ``fed_launch`` from a YAML; phase 8's control, ``fednas``, still
-    raises."""
+    ``fed_launch`` from a YAML; phase 8's control, a ``fednas`` config with
+    a ``multihost:`` block, still raises."""
     import math
 
     from fedml_tpu_torch.experiments import fed_launch
@@ -4270,15 +4336,13 @@ def run_split_launcher() -> dict:
             if len(records) != 1 or not all(math.isfinite(v) for v in values):
                 raise RuntimeError(f"fed_launch {name}: {result}")
             out[name] = {"seconds": round(time.perf_counter() - t0, 2), **records[0]}
-        control = f"{tmp}/fednas.yaml"
-        with open(control, "w") as f:
-            f.write("algorithm: fednas\nargs:\n  dataset: mnist\n")
+        control = write_multihost_control(tmp)
         try:
             fed_launch.main(["--config", control])
         except NotImplementedError:
-            out["fednas"] = "raises NotImplementedError"
+            out["fednas multihost"] = "raises NotImplementedError"
         else:
-            raise RuntimeError("an unported algorithm (fednas) did not raise")
+            raise RuntimeError("a multihost: block (fednas) did not raise")
     log(f"the split-learning launcher names: {json.dumps(out)}")
     return out
 
@@ -4313,6 +4377,281 @@ def run_split_family(fused_launches: dict, flash_launches: dict) -> dict:
     return out
 
 
+# ---- phase 15: FedNAS and FedSeg (cells 35-36)
+
+
+def peak_bytes(fn):
+    """(fn's result, seconds, peak allocated bytes on the card) of ``fn()``,
+    the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def nas_dataset():
+    from fedml_tpu_torch import load_dataset
+
+    return capped(load_dataset("cifar10", client_num_in_total=NAS_CLIENTS,
+                               partition_method="homo", seed=SEED), NAS_CAP)
+
+
+def nas_api(ds, rounds: int, dtype: str = "float32", **kw):
+    from fedml_tpu_torch.algorithms.fednas import FedNASAPI
+    from fedml_tpu_torch.core.config import FedConfig
+
+    cfg = FedConfig(client_num_in_total=NAS_CLIENTS, client_num_per_round=NAS_CLIENTS,
+                    comm_round=rounds, seed=SEED, dtype=dtype, **NAS_CFG)
+    return FedNASAPI(ds, cfg, arch_lr=3e-4, lambda_train=1.0, device="cuda", **NAS_WIDTHS,
+                     **kw)
+
+
+def nas_step(ds, **kw) -> dict:
+    """One search step of a batch of client 0's train half and one of its
+    val half at the cell's widths (``kw`` picks the mode): seconds, peak
+    bytes, loss."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fednas import NASState, draw_gdas_uniforms
+
+    api = nas_api(ds, 1, **kw)
+    g = api.global_state
+    dev = api.device
+    x = torch.from_numpy(ds.train.x[0]).to(dev)
+    y = torch.from_numpy(ds.train.y[0]).to(dev)
+    b = min(NAS_CFG["batch_size"], NAS_CAP // 2)
+    state = NASState(g.params, g.alphas, api._w_opt.init(g.params), api._a_opt.init(g.alphas))
+    uniforms = None
+    if api.gdas:
+        uniforms = draw_gdas_uniforms(torch.Generator().manual_seed(SEED), 1,
+                                      api.network.layers, api.network.num_edges)[0].to(dev)
+    train = (x[:b], y[:b], torch.ones(b, device=dev))
+    val = (x[NAS_CAP // 2:NAS_CAP // 2 + b], y[NAS_CAP // 2:NAS_CAP // 2 + b])
+    (_, (loss_n, _, n)), seconds, peak = peak_bytes(
+        lambda: api.search_step(state, train, val, api.epoch_lrs[0], True, uniforms))
+    loss = float(loss_n / n)
+    return {"seconds": round(seconds, 3), "peak_bytes": peak, "loss": loss}
+
+
+def run_fednas() -> dict:
+    """Phase 15 (a), cell 35: FedNAS at DARTS's search widths on the capped
+    CIFAR-10 surrogate, NAS_ROUNDS rounds, each timed and evaluated; a
+    1 + 1 resumed run, bit for bit the straight one; one first-order, one
+    unrolled and one GDAS step; one bfloat16 round."""
+    import torch
+
+    ds = nas_dataset()
+    per_round = NAS_CLIENTS * (NAS_CAP // 2)
+    rounds, evals = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        api = nas_api(ds, NAS_ROUNDS)
+        net = api.network
+        if {k: getattr(net, k) for k in NAS_WIDTHS} != NAS_WIDTHS:
+            raise RuntimeError(f"fednas: the search network is not at {NAS_WIDTHS}")
+        torch.cuda.reset_peak_memory_stats()
+        for r in range(NAS_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = api.train_one_round(r)  # ends in a host fetch of its metrics
+            seconds = time.perf_counter() - t0
+            api.history.append({"round": r, "search_loss": rec["search_loss"],
+                                "search_acc": rec["search_acc"]})
+            if rec["search_samples"] != per_round or not all(
+                    math.isfinite(rec[k]) for k in ("search_loss", "search_acc")):
+                raise RuntimeError(f"fednas round {r}: {rec}")
+            rounds.append({"seconds": round(seconds, 3),
+                           **{k: rec[k] for k in ("search_loss", "search_acc",
+                                                  "search_samples")}})
+            t0 = time.perf_counter()
+            acc = api.evaluate()["Test/Acc"]
+            if not 0.0 <= acc <= 1.0:
+                raise RuntimeError(f"fednas round {r}: Test/Acc {acc}")
+            evals.append({"Test/Acc": acc, "seconds": round(time.perf_counter() - t0, 3)})
+            if r == 0:  # what a 1-round train() leaves in its checkpoint
+                api.save_checkpoint(f"{tmp}/ckpt", 1)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        resumed = nas_api(ds, NAS_ROUNDS)
+        resumed.train(ckpt_dir=f"{tmp}/ckpt")  # restores round 1, runs round 2
+        resume_s = time.perf_counter() - t0
+        same_bits("fednas 1 + 1 resumed", resumed._ckpt_tree(), api._ckpt_tree())
+        if (resumed.genotype_history != api.genotype_history
+                or resumed.history != api.history):
+            raise RuntimeError("fednas: the resumed run's records differ")
+    steps = {"first_order": nas_step(ds), "unrolled": nas_step(ds, unrolled=True),
+             "gdas": nas_step(ds, gdas=True)}
+    if not all(math.isfinite(v["loss"]) for v in steps.values()):
+        raise RuntimeError(f"fednas steps: {steps}")
+    bf16 = nas_api(ds, 1, dtype="bfloat16")
+    if bf16.network.dtype != torch.bfloat16:
+        raise RuntimeError("fednas: the bfloat16 network is not in bfloat16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = bf16.train_one_round(0)
+    bf16_s = time.perf_counter() - t0
+    if not math.isfinite(rec["search_loss"]):
+        raise RuntimeError(f"fednas bfloat16 round: {rec}")
+    params = sum(p.numel() for p in api.global_state.params.values())
+    out = {"clients": NAS_CLIENTS, "rows": int(ds.train.counts.sum()), "params": params,
+           "rounds": rounds, "evaluate": evals, "peak_bytes": peak,
+           "genotype": str(api.genotype_history[-1]), "resume_s": round(resume_s, 2),
+           "resume": "bit for bit", "steps": steps,
+           "bfloat16_round": {"seconds": round(bf16_s, 3), "search_loss": rec["search_loss"],
+                              "search_acc": rec["search_acc"]}}
+    log(f"fednas (DARTS 16 ch, 8 cells, {NAS_CLIENTS} clients capped at {NAS_CAP}): "
+        f"{json.dumps(out)}")
+    return out
+
+
+SEG_SCORES = ("Test/accuracy", "Test/accuracy_class", "Test/mIoU", "Test/FWIoU", "Test/loss")
+
+
+def seg_api(ds, rounds: int, width: int = SEG_WIDTH, dtype: str = "float32"):
+    from fedml_tpu_torch.algorithms.fedseg import FedSegAPI
+    from fedml_tpu_torch.core.config import FedConfig
+
+    cfg = FedConfig(client_num_in_total=SEG_CLIENTS, client_num_per_round=SEG_CLIENTS,
+                    batch_size=SEG_BATCH, lr=SEG_LR, epochs=1, comm_round=rounds, seed=SEED,
+                    dtype=dtype, frequency_of_the_test=1, extra={"seg_width": width})
+    return FedSegAPI(ds, cfg, device="cuda")
+
+
+def run_fedseg() -> dict:
+    """Phase 15 (b), cell 36: ``main_fedseg`` with DeepLabV3+ at width 32
+    on the 64 px pascal_voc surrogate, SEG_ROUNDS rounds, evaluated every
+    round; a 1 + 1 FedSegAPI run resumed, bit for bit the straight one; the
+    128 px, width-64 rung in float32 and bfloat16."""
+    from fedml_tpu_torch import FedAvgAPI, load_dataset
+    from fedml_tpu_torch.experiments import main_fedseg
+
+    with tempfile.TemporaryDirectory() as tmp, TimedRounds(FedAvgAPI) as runs:
+        hist = main_fedseg.main([
+            "--dataset", "pascal_voc", "--model", "deeplab", "--model_width", str(SEG_WIDTH),
+            "--image_size", str(SEG_SIDE), "--client_num_in_total", str(SEG_CLIENTS),
+            "--client_num_per_round", str(SEG_CLIENTS), "--batch_size", str(SEG_BATCH),
+            "--lr", str(SEG_LR), "--comm_round", str(SEG_ROUNDS), "--seed", str(SEED),
+            "--data_dir", f"{tmp}/data", "--run_dir", f"{tmp}/run"])
+    scores = [{k: h[k] for k in SEG_SCORES} for h in hist]
+    if len(hist) != SEG_ROUNDS or not all(math.isfinite(v) for s in scores
+                                          for v in s.values()):
+        raise RuntimeError(f"fedseg: {hist}")
+    ds = load_dataset("pascal_voc", data_dir="/nonexistent", client_num_in_total=SEG_CLIENTS,
+                      image_size=SEG_SIDE, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        straight = seg_api(ds, SEG_ROUNDS)
+        shist = straight.train(ckpt_dir=f"{tmp}/straight")  # saves every round
+        resume_from(f"{tmp}/straight", f"{tmp}/resumed", 1)
+        resumed = seg_api(ds, SEG_ROUNDS)
+        rhist = resumed.train(ckpt_dir=f"{tmp}/resumed")
+        resume_s = time.perf_counter() - t0
+    same_bits("fedseg 1 + 1 resumed", resumed._inner._ckpt_tree(), straight._inner._ckpt_tree())
+    if [h["Test/mIoU"] for h in rhist] != [h["Test/mIoU"] for h in shist]:
+        raise RuntimeError("fedseg: the resumed run's records differ")
+    side, width = SEG_RUNG
+    rung_ds = load_dataset("pascal_voc", data_dir="/nonexistent",
+                           client_num_in_total=SEG_CLIENTS, image_size=side, seed=SEED)
+    rung = {}
+    for dtype in ("float32", "bfloat16"):
+        with TimedRounds(FedAvgAPI) as timed:
+            api = seg_api(rung_ds, 2, width=width, dtype=dtype)
+            recs = [api.train_one_round(r) for r in range(2)]
+        if not all(math.isfinite(r["loss_sum"]) for r in recs):
+            raise RuntimeError(f"fedseg {side} px {dtype}: {recs}")
+        rung[dtype] = {"round_ms": [round(v, 1) for v in timed.ms[-1]],
+                       "loss_sum": [r["loss_sum"] for r in recs]}
+    out = {"clients": SEG_CLIENTS, "rows": int(ds.train.counts.sum()),
+           "round_ms": [round(v, 1) for v in runs.ms[-1]], "scores": scores,
+           "resume_s": round(resume_s, 2), "resume": "bit for bit",
+           f"rung_{side}px_width{width}": rung}
+    log(f"fedseg (DeepLabV3+ width {SEG_WIDTH}, {SEG_SIDE} px): {json.dumps(out)}")
+    return out
+
+
+def run_fcn() -> dict:
+    """Phase 15 (c): one ``main_fedseg --model fcn --loss_type focal``
+    round."""
+    from fedml_tpu_torch.experiments import main_fedseg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        hist = main_fedseg.main(["--model", "fcn", "--loss_type", "focal", "--comm_round", "1",
+                                 "--batch_size", str(SEG_BATCH), "--seed", str(SEED),
+                                 "--data_dir", f"{tmp}/data", "--run_dir", f"{tmp}/run"])
+        seconds = time.perf_counter() - t0
+    if len(hist) != 1 or not all(math.isfinite(hist[0][k]) for k in SEG_SCORES):
+        raise RuntimeError(f"fcn: {hist}")
+    out = {"seconds": round(seconds, 2), **{k: hist[0][k] for k in SEG_SCORES}}
+    log(f"fcn (focal): {json.dumps(out)}")
+    return out
+
+
+#: phase 15 (d): the two launcher names, 1 round from a YAML
+SEARCH_SEG_LAUNCH = {
+    "fednas": {"dataset": "cifar10", "partition_method": "homo", "client_num_in_total": 4,
+               "client_num_per_round": 4, "comm_round": 1, "batch_size": 640},
+    "fedseg": {"comm_round": 1},
+}
+
+
+def run_search_seg_launcher() -> dict:
+    """Phase 15 (d): ``fednas`` and ``fedseg`` each run through
+    ``fed_launch`` from a YAML at their mains' widths."""
+    from fedml_tpu_torch.experiments import fed_launch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args in SEARCH_SEG_LAUNCH.items():
+            path = f"{tmp}/{name}.yaml"
+            with open(path, "w") as f:
+                f.write(f"algorithm: {name}\nargs:\n" + "".join(
+                    f"  {k}: {v}\n" for k, v in {**args, "seed": SEED,
+                                                 "data_dir": f"{tmp}/data",
+                                                 "run_dir": f"{tmp}/{name}"}.items()))
+            t0 = time.perf_counter()
+            records = fed_launch.main(["--config", path])
+            values = [v for r in records for k, v in r.items() if k != "round"]
+            if len(records) != 1 or not all(math.isfinite(v) for v in values):
+                raise RuntimeError(f"fed_launch {name}: {records}")
+            out[name] = {"seconds": round(time.perf_counter() - t0, 2), **records[0]}
+    log(f"the search and segmentation launcher names: {json.dumps(out)}")
+    return out
+
+
+def run_search_seg(fused_launches: dict, flash_launches: dict) -> dict:
+    """Phase 15: FedNAS and FedSeg (cells 35-36; see the module docstring),
+    every path's kernel launches counted."""
+    import torch
+
+    started = time.perf_counter()
+    log(f"phase 15 cuts: {json.dumps(PHASE15_CUTS)}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        def path(tag, fn):
+            return dataset_path(tag, fused_launches, flash_launches, fn)
+
+        out["fednas"] = path("fednas", run_fednas)
+        out["fedseg"] = path("fedseg", run_fedseg)
+        out["fcn"] = path("fcn focal", run_fcn)
+        out["launcher"] = path("search and segmentation launcher", run_search_seg_launcher)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    if seconds > PHASE15_BUDGET_S:
+        log(f"WARNING phase 15 took {seconds:.1f} s, over its {PHASE15_BUDGET_S:.0f} s "
+            f"budget")
+    out["seconds"] = round(seconds, 1)
+    log(f"phase 15: {seconds:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4342,6 +4681,9 @@ def main(argv=None) -> int:
     parser.add_argument("--split-only", action="store_true",
                         help="build the kernels, then run phase 14 alone (FedGKT, SplitNN "
                         "and vertical FL), checking it and printing no result")
+    parser.add_argument("--search-seg-only", action="store_true",
+                        help="build the kernels, then run phase 15 alone (FedNAS and "
+                        "FedSeg), checking it and printing no result")
     parser.add_argument("--serving-only", action="store_true",
                         help="build the kernels, then run phase 3's NWP path (for its "
                         "launch counts) and phase 11 alone (LoRA, the client ledger, the "
@@ -4381,7 +4723,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     if (opts.launcher_only or opts.privacy_only or opts.transport_only or opts.serving_only
-            or opts.datasets_only or opts.algorithms_only or opts.split_only):
+            or opts.datasets_only or opts.algorithms_only or opts.split_only
+            or opts.search_seg_only):
         if opts.launcher_only:
             run_launcher({})
         if opts.privacy_only:
@@ -4410,6 +4753,8 @@ def main(argv=None) -> int:
                                                seed=SEED), CAP), {}, {})
         if opts.split_only:
             run_split_family({}, {})
+        if opts.search_seg_only:
+            run_search_seg({}, {})
         log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
         return 0
     if calibrate:
@@ -4501,6 +4846,10 @@ def main(argv=None) -> int:
     # ---- phase 14: FedML's split-learning family (cells 32-34; no kernel
     # runs on their paths)
     split_family = run_split_family(fused_launches, flash_launches)
+
+    # ---- phase 15: FedNAS and FedSeg (cells 35-36; no kernel runs on
+    # their paths)
+    search_seg = run_search_seg(fused_launches, flash_launches)
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
 
@@ -4546,6 +4895,7 @@ def main(argv=None) -> int:
     log(f"datasets: {json.dumps(datasets)}")
     log(f"algorithms: {json.dumps(algorithms)}")
     log(f"split family: {json.dumps(split_family)}")
+    log(f"search and segmentation: {json.dumps(search_seg)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -20,8 +20,9 @@ the flagship runs at its configured 3400 clients — and FedML's
 hierarchical, centralized, base-framework, decentralized gossip and
 TurboAggregate secure-aggregation algorithms — and its split-learning
 family: FedGKT with the GKT split ResNets, SplitNN's relay, and vertical
-FL with the NUS-WIDE and lending club readers. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+FL with the NUS-WIDE and lending club readers — and FedNAS (federated
+DARTS) and FedSeg (DeepLabV3+ and the FCN on Pascal VOC). Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from fedml_tpu_torch.algorithms.base_framework import FedML_Base_simulated
@@ -29,6 +30,8 @@ from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
 from fedml_tpu_torch.algorithms.decentralized import DecentralizedFLAPI
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, client_sampling
 from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
+from fedml_tpu_torch.algorithms.fednas import FedNASAPI
+from fedml_tpu_torch.algorithms.fedseg import FedSegAPI
 from fedml_tpu_torch.algorithms.hierarchical import HierarchicalFLAPI
 from fedml_tpu_torch.algorithms.splitnn import SplitNNAPI
 from fedml_tpu_torch.algorithms.turboaggregate import SecureAggregator, TurboAggregateAPI
@@ -43,4 +46,4 @@ __all__ = ["FedAvgAPI", "FedConfig", "ClassificationTrainer", "NWPTrainer",
            "load_dataset", "CentralizedTrainer", "DecentralizedFLAPI",
            "FedML_Base_simulated", "HierarchicalFLAPI", "SecureAggregator",
            "TurboAggregateAPI", "FedGKTAPI", "SplitNNAPI", "VerticalFederatedLearningAPI",
-           "NeuralVFLAPI"]
+           "NeuralVFLAPI", "FedNASAPI", "FedSegAPI"]

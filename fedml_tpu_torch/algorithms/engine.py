@@ -151,6 +151,18 @@ def add_decayed_weights(wd: float) -> Optimizer:
         {k: g + wd * params[k] for k, g in updates.items()}, state))
 
 
+def clip_by_global_norm(max_norm: float) -> Optimizer:
+    """optax.clip_by_global_norm (stateless): unchanged below ``max_norm``,
+    else g / ||g|| * max_norm, ||g|| over every leaf."""
+
+    def update(updates, state, params=None):
+        norm = torch.sqrt(sum((g * g).sum() for g in updates.values()))
+        return {k: torch.where(norm < max_norm, g, g / norm * max_norm)
+                for k, g in updates.items()}, state
+
+    return Optimizer(lambda params: {}, update)
+
+
 def chain(*transforms: Optimizer) -> Optimizer:
     """optax.chain over the port's flat states: the transforms' state
     fields side by side in one dict (their names differ, as optax's do in
@@ -226,15 +238,13 @@ def make_local_optimizer(cfg: FedConfig) -> Optimizer:
         inner = torch_amsgrad(cfg.lr)
     else:
         raise ValueError(f"unknown client_optimizer {cfg.client_optimizer!r}")
-    clip, wd = cfg.grad_clip, cfg.wd
+    clip = None if cfg.grad_clip is None else clip_by_global_norm(cfg.grad_clip)
+    wd = cfg.wd
 
     @torch.no_grad()
     def update(grads, state, params):
         if clip is not None:
-            norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
-            # unchanged below the bound, else g / ||g|| * clip
-            grads = {k: torch.where(norm < clip, g, g / norm * clip)
-                     for k, g in grads.items()}
+            grads = clip.update(grads, {})[0]
         if wd:
             grads = {k: g + wd * params[k] for k, g in grads.items()}
         return inner.update(grads, state, params)

@@ -1,8 +1,9 @@
-"""Dataset loaders (every part of ``fedml_tpu/data/loaders.py`` but
-pascal_voc: mnist, emnist, fmnist, raw_mnist, synthetic, cifar10,
-cifar100, cinic10, fed_cifar100, femnist, shakespeare, fed_shakespeare,
-stackoverflow_nwp, stackoverflow_lr, adult, purchase100, texas100, har,
-chmnist, har_subject, and the streaming ILSVRC2012, gld23k and gld160k).
+"""Dataset loaders (every part of ``fedml_tpu/data/loaders.py``: mnist,
+emnist, fmnist, raw_mnist, synthetic, cifar10, cifar100, cinic10,
+fed_cifar100, femnist, shakespeare, fed_shakespeare, stackoverflow_nwp,
+stackoverflow_lr, adult, purchase100, texas100, har, chmnist,
+har_subject, pascal_voc, and the streaming ILSVRC2012, gld23k and
+gld160k).
 
 A globally pooled dataset is split across clients by ``homo``, ``hetero``
 (LDA), ``p-hetero`` or ``hetero-fix`` (a recorded ``net_dataidx_map.txt``,
@@ -360,6 +361,49 @@ def load_emnist(data_dir="./data", client_num_in_total=10, partition_method="hom
     return _from_global("emnist", xtr, ytr, xte, yte, 47, client_num_in_total,
                         partition_method, partition_alpha, seed, data_dir=data_dir,
                         partition_file=partition_file)
+
+
+@register_loader("pascal_voc")
+def load_pascal_voc(data_dir="./data", client_num_in_total=4, partition_method="homo",
+                    partition_alpha=0.5, seed=0, image_size=64, **_):
+    """Pascal VOC semantic segmentation for FedSeg (21 classes, 255 = the
+    ignored border): the VOCdevkit tree when present, else a seeded
+    surrogate of blob masks (40 training and 10 test images), so that the
+    losses and mIoU mean something; equal to the JAX loader's arrays."""
+    ref = None
+    try:
+        ref = readers.read_pascal_voc(data_dir, image_size)
+    except Exception as e:  # a broken tree falls back, as in the JAX loader
+        sources.log.warning("failed reading VOC tree (%s)", e)
+    if ref is not None:
+        xtr, ytr, xte, yte = ref
+    else:
+        sources.log.warning("VOCdevkit not found under %s — using seeded "
+                            "segmentation surrogate", data_dir)
+        rng = np.random.RandomState(seed)
+
+        def synth(n):
+            h = image_size
+            x = rng.rand(n, h, h, 3).astype(np.float32) * 0.2
+            y = np.zeros((n, h, h), np.int32)
+            for i in range(n):
+                # 1-3 class blobs on background 0, each in a 255 ring
+                for _b in range(rng.randint(1, 4)):
+                    c = rng.randint(1, 21)
+                    cy, cx = rng.randint(4, h - 4), rng.randint(4, h - 4)
+                    r = rng.randint(3, max(4, h // 4))
+                    yy, xx = np.ogrid[:h, :h]
+                    blob = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+                    ring = ((yy - cy) ** 2 + (xx - cx) ** 2 <= (r + 1) ** 2) & ~blob
+                    y[i][blob] = c
+                    y[i][ring] = 255
+                    x[i][blob] += np.array([c / 21.0, (c % 5) / 5.0, (c % 3) / 3.0], np.float32)
+            return x, y
+
+        xtr, ytr = synth(40)
+        xte, yte = synth(10)
+    return _from_global("pascal_voc", xtr, ytr, xte, yte, 21, client_num_in_total,
+                        partition_method, partition_alpha, seed, data_dir=data_dir)
 
 
 @register_loader("fmnist")

@@ -21,6 +21,7 @@ and returns what the JAX package's reader returns, bit for bit:
 - hetero-fix pre-recorded partition text files (reference
   cifar10/data_loader.py:18-47)
 - LEAF-json per-client MNIST (reference raw_MNIST/data_loader.py:9-50)
+- Pascal VOC 2012's segmentation split (the upstream FedSeg layout)
 - southwest-airline edge-case backdoor pickles (reference
   edge_case_examples/data_loader.py:329-385)
 - NUS-WIDE's and lending club's vertical-FL party files (reference
@@ -511,6 +512,49 @@ def read_leaf_json_clients(data_dir: str, x_shape=(28, 28, 1)):
             xs.append(np.asarray(d["x"], np.float32).reshape((-1,) + x_shape))
             ys.append(np.asarray(d["y"], np.int32))
     return xtr, ytr, xte, yte
+
+
+# ---------------------------------------------------------------------------
+# Pascal VOC segmentation
+
+
+def read_pascal_voc(data_dir: str, size: int = 64):
+    """A VOCdevkit segmentation split: JPEGImages/<id>.jpg with palette-PNG
+    masks in SegmentationClass/<id>.png, the split lists under
+    ImageSets/Segmentation/{train,val}.txt (the upstream FedSeg layout),
+    found at ``data_dir``, ``data_dir/VOCdevkit/VOC2012`` or
+    ``data_dir/VOC2012``. Images are resized bilinearly and masks nearest to
+    ``size`` x ``size``; masks keep their class ids (255 = the ignored
+    border). Returns (xtr, ytr, xte, yte), images ImageNet-normalised, or
+    None."""
+    from PIL import Image
+
+    root = None
+    for cand in (data_dir, os.path.join(data_dir, "VOCdevkit", "VOC2012"),
+                 os.path.join(data_dir, "VOC2012")):
+        if os.path.isdir(os.path.join(cand, "SegmentationClass")):
+            root = cand
+            break
+    if root is None:
+        return None
+
+    def read_split(name):
+        with open(os.path.join(root, "ImageSets", "Segmentation", f"{name}.txt")) as f:
+            ids = [s.strip() for s in f if s.strip()]
+        xs, ys = [], []
+        for i in ids:
+            img = Image.open(os.path.join(root, "JPEGImages", i + ".jpg")).convert("RGB")
+            msk = Image.open(os.path.join(root, "SegmentationClass", i + ".png"))
+            img = img.resize((size, size), Image.BILINEAR)
+            msk = msk.resize((size, size), Image.NEAREST)
+            xs.append(np.asarray(img, np.float32) / 255.0)
+            ys.append(np.asarray(msk, np.int32))
+        return np.stack(xs), np.stack(ys)
+
+    xtr, ytr = read_split("train")
+    xte, yte = read_split("val")
+    mean, std = IMAGENET_MEAN, IMAGENET_STD
+    return (xtr - mean) / std, ytr, (xte - mean) / std, yte
 
 
 # ---------------------------------------------------------------------------

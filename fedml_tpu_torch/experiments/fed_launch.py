@@ -7,7 +7,7 @@ hyperparameters, the backend and mesh shape). The repo's configs are under
 
     algorithm: fedavg            # fedavg, fedopt, fednova, fedavg_robust, privacy,
                                  # hierarchical, decentralized, base, turboaggregate,
-                                 # fedgkt, split_nn or vfl
+                                 # fedgkt, split_nn, vfl, fednas or fedseg
     args:
       dataset: femnist
       model: cnn
@@ -24,8 +24,8 @@ Usage:
       --override comm_round=2 --override fused_kernel=1
 
 ``privacy`` runs ``main_privacy`` (the branch and block ensembles with the
-MI report), so all 26 of the repo's configs run. The JAX package's other
-algorithms (``fednas``, ``fedseg``) and a ``multihost:`` block raise
+MI report), so all 26 of the repo's configs run, and every one of the JAX
+launcher's 14 algorithm names. A ``multihost:`` block raises
 ``NotImplementedError`` naming ROADMAP.md.
 The config is read with PyYAML, or as JSON where PyYAML does not import,
 as the JAX launcher reads it.
@@ -41,11 +41,10 @@ ALGORITHMS = {
     # algorithm name -> the port's experiments module with a main(argv)
     name: f"fedml_tpu_torch.experiments.main_{name}"
     for name in ("fedavg", "fedopt", "fednova", "fedavg_robust", "privacy", "hierarchical",
-                 "decentralized", "base", "turboaggregate", "fedgkt", "split_nn", "vfl")
+                 "decentralized", "base", "turboaggregate", "fedgkt", "split_nn", "vfl",
+                 "fednas", "fedseg")
 }
 
-#: the JAX launcher's other algorithms (fedml_tpu/experiments/fed_launch.py)
-UNPORTED_ALGORITHMS = ("fednas", "fedseg")
 
 def _load_yaml(path: str) -> dict:
     """The config at ``path``, by the JAX package's rule: PyYAML's
@@ -84,13 +83,8 @@ def resolve(argv=None) -> tuple[str, list[str]]:
     args = parser.parse_args(argv)
     cfg = _load_yaml(args.config)
     algo = cfg.get("algorithm", "fedavg")
-    if algo in UNPORTED_ALGORITHMS:
-        raise NotImplementedError(
-            f"algorithm {algo!r} ({args.config}) is not ported to fedml_tpu_torch yet "
-            f"(see ROADMAP.md Queue 1); ported: {sorted(ALGORITHMS)}")
     if algo not in ALGORITHMS:
-        raise SystemExit(f"unknown algorithm {algo!r}; one of "
-                         f"{sorted(ALGORITHMS) + sorted(UNPORTED_ALGORITHMS)}")
+        raise SystemExit(f"unknown algorithm {algo!r}; one of {sorted(ALGORITHMS)}")
     if cfg.get("multihost"):
         raise NotImplementedError(
             f"the multihost: block of {args.config} is not ported to fedml_tpu_torch "

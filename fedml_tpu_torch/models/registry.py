@@ -5,8 +5,8 @@ Ported: ``lr``, ``mlp``, ``purchasemlp``, ``texasmlp``, ``cnn`` (CNN_DropOut),
 ``cnn_fedavg``, ``cnn_cifar``, ``har_cnn``, the ResNets (``resnet20/32/44/
 56/56_s2d/110``, ``resnet18/34/50``, ``resnet18_gn``), ``vgg11``, ``vgg16``,
 ``mobilenet``, ``mobilenet_v3``, ``efficientnet``, ``rnn``,
-``rnn_stackoverflow`` and ``transformer_nwp``; the zoo's ``deeplab`` and
-``fcn`` (FedSeg) are listed in ROADMAP.md Queue 1.
+``rnn_stackoverflow``, ``transformer_nwp``, and FedSeg's ``deeplab``
+(DeepLabV3+, width 32) and ``fcn`` (SimpleFCN, width 16).
 
 ``input_shape`` is one sample's shape (flax infers it at init; a PyTorch
 layer needs it when it is built). Where it is not given, each factory
@@ -27,6 +27,7 @@ from fedml_tpu_torch.models.linear import DenseMLP, LogisticRegression, Referenc
 from fedml_tpu_torch.models.mobilenet import MobileNet
 from fedml_tpu_torch.models.mobilenet_v3 import MobileNetV3
 from fedml_tpu_torch.models.rnn import RNN_OriginalFedAvg, RNN_StackOverFlow
+from fedml_tpu_torch.models.segmentation import DeepLabV3Plus, SimpleFCN
 from fedml_tpu_torch.models.transformer import TransformerLM
 from fedml_tpu_torch.models.vgg import VGG
 
@@ -94,6 +95,13 @@ def create_model(model_name: str, output_dim: int, dtype="float32", input_shape=
     if model_name == "efficientnet":
         return EfficientNet.from_name(kwargs.get("variant", "efficientnet-b0"), output_dim,
                                       dtype=dtype, in_channels=channels)
+    if model_name == "deeplab":
+        # the FedSeg encoder-decoder (models/zoo.py::_deeplab's width 32)
+        return DeepLabV3Plus(output_dim, width=kwargs.get("width", 32), dtype=dtype,
+                             in_channels=channels)
+    if model_name == "fcn":
+        return SimpleFCN(output_dim, width=kwargs.get("width", 16), dtype=dtype,
+                         in_channels=channels)
     if model_name == "rnn":
         # the shakespeare next-char model
         return RNN_OriginalFedAvg(vocab_size=kwargs.get("vocab_size", output_dim),

@@ -80,13 +80,18 @@ class BatchNorm(nn.Module):
             c = x.shape[1]
             n = x.numel() // c
             batch = x.new_zeros(2, c)
-            y = F.batch_norm(x, batch[0], batch[1], self.weight, self.bias, True, 1.0,
-                             self.eps)
+            # torch.batch_norm, not F.batch_norm, which refuses a batch of one
+            # value a channel (a 1x1 map of one row): flax normalises it to
+            # the bias
+            y = torch.batch_norm(x, self.weight, self.bias, batch[0], batch[1], True, 1.0,
+                                 self.eps, torch.backends.cudnn.enabled)
             with torch.no_grad():
                 m = self.momentum
                 mean, var = torch._foreach_mul([self.mean, self.var], m)
-                torch._foreach_add_([mean, var], [batch[0], batch[1] * ((n - 1) / n)],
-                                    alpha=1 - m)
+                # the biased variance; of one value it is 0 (torch's unbiased
+                # one is then NaN)
+                biased = batch[1] * ((n - 1) / n) if n > 1 else torch.zeros_like(batch[1])
+                torch._foreach_add_([mean, var], [batch[0], biased], alpha=1 - m)
                 self.updated = {"mean": mean, "var": var}
             return y
         return F.batch_norm(x, self.mean, self.var, self.weight, self.bias, False, 0.0,

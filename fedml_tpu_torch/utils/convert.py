@@ -10,7 +10,10 @@ kind:
     1-D conv kernels WIO <-> OIW, dense kernels [in, out] <-> [out, in]; a
     depthwise kernel (flax ``feature_group_count=C``, [kh, kw, 1, C]) is
     the same transpose, to a ``groups=C`` conv's [C, 1, kh, kw] and back
-    (the I axis holds the input channels of one group);
+    (the I axis holds the input channels of one group); a flax
+    ``ConvTranspose`` kernel [kh, kw, in, out] takes the conv rule too, to
+    ``models/segmentation.py::ConvTranspose``'s [out, in, kh, kw] (the
+    kernel it correlates with the zero-inserted input, unflipped);
   - ``bias`` <-> ``bias``, as is;
   - LayerNorm, GroupNorm and BatchNorm ``scale`` <-> ``weight``, as is;
   - Embed ``embedding`` <-> ``weight``, as is ([num, features] on both
@@ -187,15 +190,26 @@ def torch_to_flax(state: dict, module: nn.Module | None = None) -> dict:
 _MOMENT_FIELDS = ("mu", "nu", "nu_max", "trace")
 
 
-def optax_state_to_torch(state, device="cpu") -> dict:
+def optax_state_to_torch(state, device="cpu", names=None) -> dict:
     """An optax optimizer state (numpy or jax leaves) -> the port's flat
     state dict (``algorithms/engine.py::Optimizer``).
 
     Walks the chain's tuple of states: ``count`` becomes an int32 scalar
     tensor, the moment trees (``mu``, ``nu``, ``nu_max``, ``trace``) convert
     as parameter trees, and a bare parameter tree (``torch_adagrad``'s
-    accumulator) becomes ``sum``. Empty states add nothing."""
+    accumulator) becomes ``sum``. Empty states add nothing. A moment that
+    is a tuple of arrays (FedNAS's alphas, ``(normal, reduce)``) becomes a
+    dict under ``names``, one key an array, each array as it is."""
     out: dict = {}
+
+    def moment(value):
+        if isinstance(value, (tuple, list)):
+            if names is None or len(names) != len(value):
+                raise ValueError(f"a moment of {len(value)} arrays needs as many names, "
+                                 f"not {names!r}")
+            return {k: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+                    for k, a in zip(names, value)}
+        return flax_to_torch(value, device=device)
 
     def walk(node):
         if hasattr(node, "_fields"):  # an optax NamedTuple state
@@ -205,7 +219,7 @@ def optax_state_to_torch(state, device="cpu") -> dict:
                     out["count"] = torch.tensor(np.asarray(value), dtype=torch.int32,
                                                 device=device)
                 elif name in _MOMENT_FIELDS:
-                    out[name] = flax_to_torch(value, device=device)
+                    out[name] = moment(value)
                 else:
                     walk(value)
         elif hasattr(node, "items"):

@@ -210,12 +210,20 @@ def test_h5_files_present_raise(tmp_path, monkeypatch):
 
 
 def test_unported_partition_and_dataset_raise():
-    """The loader still unported raises NotImplementedError naming the
-    dataset (hetero-fix and cinic10 are ported: ``test_torch_readers.py``;
-    ILSVRC2012, gld23k, gld160k and stackoverflow_lr:
-    ``test_torch_streaming.py``, ``test_torch_tag_prediction.py``); an
-    unknown partition method is a ValueError."""
-    for name in ("pascal_voc",):
+    """A dataset the registry does not know raises NotImplementedError
+    naming it; every loader of the JAX package's registry is ported
+    (pascal_voc, the last: ``test_torch_fedseg.py``; hetero-fix and
+    cinic10: ``test_torch_readers.py``; ILSVRC2012, gld23k, gld160k and
+    stackoverflow_lr: ``test_torch_streaming.py``,
+    ``test_torch_tag_prediction.py``); an unknown partition method is a
+    ValueError."""
+    import fedml_tpu.data.loaders  # noqa: F401  (registers the JAX loaders)
+    import fedml_tpu_torch.data.loaders  # noqa: F401
+    from fedml_tpu.data import registry as jax_registry
+    from fedml_tpu_torch.data import registry
+
+    assert set(jax_registry._LOADERS) <= set(registry._LOADERS)
+    for name in ("no_such_dataset",):
         with pytest.raises(NotImplementedError, match=name):
             load_dataset(name)
     with pytest.raises(ValueError, match="unknown partition method"):

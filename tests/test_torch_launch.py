@@ -133,26 +133,26 @@ def test_every_config_resolves_through_the_port(path, tmp_path):
 
 
 def test_unported_algorithms_and_multihost_raise(tmp_path):
-    for algo in fed_launch.UNPORTED_ALGORITHMS:
-        cfg = tmp_path / f"{algo}.yaml"
-        cfg.write_text(f"algorithm: {algo}\nargs:\n  dataset: mnist\n")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every algorithm name of the JAX launcher is ported; a ``multihost:``
+    block still raises (with ``fednas`` and ``fedseg`` as with
+    ``fedavg``), naming ROADMAP's multi-device item; an unknown name
+    exits."""
+    for algo in ("fedavg", "fednas", "fedseg"):
+        cfg = tmp_path / f"mh_{algo}.yaml"
+        cfg.write_text(f"algorithm: {algo}\nargs:\n  dataset: mnist\nmultihost:\n"
+                       "  coordinator: \"10.0.0.1:1234\"\n  num_processes: 4\n")
+        with pytest.raises(NotImplementedError, match="ROADMAP.*multihost|multihost.*item 5"):
             fed_launch.main(["--config", str(cfg)])
-    cfg = tmp_path / "mh.yaml"
-    cfg.write_text("algorithm: fedavg\nargs:\n  dataset: mnist\nmultihost:\n"
-                   "  coordinator: \"10.0.0.1:1234\"\n  num_processes: 4\n")
-    with pytest.raises(NotImplementedError, match="multihost.*item 5"):
-        fed_launch.main(["--config", str(cfg)])
     cfg = tmp_path / "bad.yaml"
     cfg.write_text("algorithm: nope\n")
     with pytest.raises(SystemExit, match="unknown algorithm"):
         fed_launch.main(["--config", str(cfg)])
     assert set(fed_launch.ALGORITHMS) == {"fedavg", "fedopt", "fednova", "fedavg_robust",
                                           "privacy", "hierarchical", "decentralized", "base",
-                                          "turboaggregate", "fedgkt", "split_nn", "vfl"}
-    assert fed_launch.UNPORTED_ALGORITHMS == ("fednas", "fedseg")
-    assert set(fed_launch.UNPORTED_ALGORITHMS) | set(fed_launch.ALGORITHMS) == set(
-        jax_launch.ALGORITHMS)
+                                          "turboaggregate", "fedgkt", "split_nn", "vfl",
+                                          "fednas", "fedseg"}
+    assert set(fed_launch.ALGORITHMS) == set(jax_launch.ALGORITHMS)
+    assert not hasattr(fed_launch, "UNPORTED_ALGORITHMS")
 
 
 #: the split-learning family's launcher names, each at a CPU-sized run
@@ -184,6 +184,37 @@ def test_split_family_runs_through_the_launcher(name, tmp_path):
     records = [out] if name == "vfl" else out
     assert len(records) == 1
     assert all(math.isfinite(v) for r in records for k, v in r.items() if k != "round")
+
+
+#: FedNAS and FedSeg at CPU-sized runs: a one-cell search over two of ten
+#: CIFAR-10 surrogate clients; DeepLabV3+ at width 4 on the 16 px pascal_voc
+#: surrogate
+SEARCH_SEG = {
+    "fednas": {"dataset": "cifar10", "partition_method": "homo", "client_num_in_total": 10,
+               "client_num_per_round": 2, "comm_round": 1, "batch_size": 64,
+               "init_channels": 4, "layers": 1, "steps": 1, "multiplier": 1},
+    "fedseg": {"client_num_in_total": 4, "comm_round": 1, "batch_size": 8,
+               "image_size": 16, "model_width": 4},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SEARCH_SEG))
+def test_fednas_and_fedseg_run_through_the_launcher(name, tmp_path):
+    """``fednas`` and ``fedseg`` each run once from a YAML on the CPU: one
+    record, every number in it finite (FedSeg's evaluated)."""
+    import math
+
+    args = {**SEARCH_SEG[name], "device": "cpu", "run_dir": str(tmp_path / "run")}
+    cfg = tmp_path / f"{name}.yaml"
+    cfg.write_text(f"algorithm: {name}\nargs:\n" + "".join(
+        f"  {k}: {v}\n" for k, v in args.items()))
+    module, _ = fed_launch.resolve(["--config", str(cfg)])
+    assert module == f"fedml_tpu_torch.experiments.main_{name}"
+    records = fed_launch.main(["--config", str(cfg)])
+    assert len(records) == 1
+    assert all(math.isfinite(v) for k, v in records[0].items() if k != "round")
+    if name == "fedseg":
+        assert 0.0 <= records[0]["Test/mIoU"] <= 1.0
 
 
 def test_shard_map_backend_rule():

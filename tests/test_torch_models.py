@@ -103,5 +103,8 @@ def test_argmax_ties_go_to_the_first_index():
 
 
 def test_unported_model_raises():
+    """A name the registry does not know raises; FedSeg's ``deeplab``, the
+    last of the JAX zoo's names to be ported, builds."""
     with pytest.raises(NotImplementedError):
-        create_model("deeplab", output_dim=10)
+        create_model("no_such_model", output_dim=10)
+    assert type(create_model("deeplab", output_dim=10)).__name__ == "DeepLabV3Plus"

@@ -387,8 +387,16 @@ def test_init_follows_flax_laws():
 
 
 def test_unported_zoo_names_raise():
-    """The JAX zoo's FedSeg models are the names still unported (the CV
-    nets that raised here are ported: ``test_torch_cv_models.py``)."""
+    """Every name of the JAX zoo builds (FedSeg's ``deeplab`` and ``fcn``
+    were the last: ``test_torch_fedseg.py``; the CV nets:
+    ``test_torch_cv_models.py``); a name outside it raises."""
+    import re
+
+    import fedml_tpu.models.zoo as jax_zoo
+
+    names = re.findall(r'register_model\("(\w+)"\)', open(jax_zoo.__file__).read())
+    assert {"deeplab", "fcn"} <= set(names)
     for name in ("deeplab", "fcn"):
-        with pytest.raises(NotImplementedError):
-            create_model(name, output_dim=10)
+        assert create_model(name, output_dim=10).output_dim == 10
+    with pytest.raises(NotImplementedError):
+        create_model("no_such_model", output_dim=10)
