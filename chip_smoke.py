@@ -393,6 +393,35 @@ Phases (any failure exits non-zero and prints no result line):
        clients) and ``fedseg`` each run through ``fed_launch`` from a
        YAML, 1 round.
 
+ 16. The silo-grouped round and FedAvg over MQTT, within PHASE16_BUDGET_S
+     (``--silo-mqtt-only`` builds the kernels and runs this phase alone),
+     on cuDNN's deterministic algorithms, every path's launches of the
+     four kernels counted and printed (each must read 0: none is on these
+     paths), its cuts of scale in PHASE16_CUTS:
+     - (a) cell 37, ``cross_silo_cifar10_resnet56.yaml``'s ResNet-56
+       (widths 16/32/64) over its 10 hetero CIFAR-10 silos, batch 64, SGD
+       with momentum 0.9 and wd 1e-4, E = 1, every silo capped at SILO_CAP
+       rows: ``FedAvgAPI`` with ``silo_threshold`` 32 (the silo-grouped
+       round) against the same API on the engine round, SILO_ROUNDS rounds
+       each in lockstep from the same globals and round generators, the
+       second under the profiler (``profile_zoo.profiled_round``: launches,
+       busy share, the kernels of most time); beside them the rounding
+       witness, the silo round at 32 on cuDNN's fastest algorithms
+       (nondeterministic ones among them); after each round every leaf of
+       the silo round's globals within LEAF_TOL of the engine round's,
+       and all leaves pooled within POOLED_TOL (``leaf_gaps``), the
+       witness's gap to the silo round printed beside; the round ms and
+       the peak device bytes of each path; then one round at threshold 64,
+       timed, and within the same limits of threshold 32's first round;
+     - (b) cell 38, ``main_mqtt_fedavg`` on the FEMNIST surrogate with
+       ``CNN_DropOut`` (1,206,590 parameters), MQTT_WORKERS workers,
+       MQTT_ROUNDS rounds, the in-process broker on loopback, each worker's
+       local SGD on the card: the payload bytes a message, the seconds a
+       round spent encoding, publishing, decoding and training (the
+       tracer's spans), the loopback relay of one payload-sized message;
+       every model a worker decoded equals the server's of that round bit
+       for bit; the test losses finite.
+
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
 "device": {...}}``.
@@ -736,6 +765,46 @@ PHASE15_CUTS = {
     "fedseg": ["surrogate data (no Pascal VOC files)", f"comm_round={SEG_ROUNDS}",
                "the 128 px rung: two rounds a dtype"],
     "launcher": ["comm_round=1", "fednas batch_size=640 (one step a client)"],
+}
+
+
+# Phase 16: the silo-grouped round and FedAvg over MQTT (cells 37-38), each
+# path with the four kernels' launches counted (each must read 0), within
+# PHASE16_BUDGET_S, on cuDNN's deterministic algorithms. Cuts of scale, each
+# beside its constant:
+PHASE16_BUDGET_S = 60.0
+# (a) cell 37: the cross-silo config's E = 20 to 1, and every silo capped at
+# SILO_CAP rows (10 steps of batch 64), SILO_ROUNDS rounds a path (of 100)
+SILO_CAP, SILO_ROUNDS, SILO_THRESHOLDS = 640, 2, (32, 64)
+# The silo round against the engine round after each round, leaf by leaf:
+# ||silo - engine|| / max(||engine - the round's start||, LEAF_FLOOR *
+# sqrt(leaf size)), the share of the leaf's update on which the two paths
+# differ, the update floored at an RMS of LEAF_FLOOR a value; and pooled,
+# over every leaf at once (dominated by the leaves of most update). The CPU
+# tests hold the two to the JAX package's elementwise contract (rtol 1e-4,
+# atol 1e-5) at a small width. At the cross-silo width on the card rounding
+# alone parts them further: at the initial weights a step's gradient through
+# 56 train-mode BatchNorms is a small difference of large sums, so any other
+# order of the sums moves a conv or BatchNorm leaf's update by percents, and
+# steps grow it. The rounding witness, the silo round on cuDNN's fastest
+# algorithms against the deterministic one, reads what rounding alone gives
+# (an H100 80GB HBM3 at 700 W, two runs, PERF.md): per leaf at most
+# 0.17-0.20 after round 0 and 0.50-0.59 after round 1, where the silo round
+# against the engine round reads 0.22 and 0.77. LEAF_TOL[0] lies between
+# those and a leaf one side left unchanged (1); after round 1 rounding comes
+# near 1, and LEAF_TOL[1] only tells it from a leaf's update of the wrong
+# sign or scale (2 and more). POOLED_TOL is about 8x both pooled readings
+# after round 1 (the gap's 2.6e-4, the witness's 2.4e-4); one silo of ten
+# left out of the aggregate reads about 0.1 there.
+LEAF_FLOOR, LEAF_TOL, POOLED_TOL = 1e-6, (0.5, 1.5), 2e-3
+# (b) cell 38: FEMNIST's 3400 clients to MQTT_CLIENTS (the workers sample
+# MQTT_WORKERS of them a round), MQTT_ROUNDS rounds
+MQTT_CLIENTS, MQTT_WORKERS, MQTT_ROUNDS = 10, 2, 2
+PHASE16_CUTS = {
+    "silo_grouped": ["epochs=1 (of 20)", f"samples a silo <= {SILO_CAP}",
+                     f"comm_round={SILO_ROUNDS} (of 100)"],
+    "mqtt_fedavg": [f"client_num_in_total={MQTT_CLIENTS} (of 3400)",
+                    f"comm_round={MQTT_ROUNDS}"],
 }
 
 
@@ -4652,6 +4721,293 @@ def run_search_seg(fused_launches: dict, flash_launches: dict) -> dict:
     return out
 
 
+# ---- phase 16: the silo-grouped round and FedAvg over MQTT (cells 37-38)
+
+
+def timed_round(api, round_idx: int, profile: bool = False) -> dict:
+    """One round of ``api`` (it ends in its metrics' host fetch): its ms, or
+    with ``profile`` its device activity (``profile_zoo.profiled_round``),
+    and its train loss."""
+    import torch
+
+    from fedml_tpu_torch.experiments import profile_zoo
+
+    if profile:
+        prof = profile_zoo.profiled_round(api, round_idx, host_events=False)
+        metrics = prof["results"][0]
+        out = {"wall_ms": round(prof["wall_ms"], 2), "busy_ms": round(prof["busy_ms"], 2),
+               "summed_ms": round(prof["summed_ms"], 2), "streams": prof["streams"],
+               "launches": int(prof["launches"]),
+               "busy_share": round(prof["busy_ms"] / prof["wall_ms"], 4),
+               "top_ms": {name[:80]: round(us / 1e3, 2) for us, _, name in prof["rows"][:5]}}
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = api.train_one_round(round_idx)
+        out = {"wall_ms": round((time.perf_counter() - t0) * 1e3, 2)}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"round {round_idx}: {metrics}")
+    return {**out, "loss": round(metrics["loss_sum"] / max(metrics["total"], 1.0), 5)}
+
+
+def leaf_gaps(got: dict, want: dict, start: dict) -> tuple:
+    """Per leaf ||got - want|| over ``want``'s update from ``start``, the
+    update floored at an RMS of LEAF_FLOOR a value, and the same over every
+    leaf at once (see LEAF_TOL)."""
+    rel, gap_sq, update_sq = {}, 0.0, 0.0
+    for k, w in want.items():
+        gap = (got[k].double() - w.double()).norm().item()
+        update = (w.double() - start[k].double()).norm().item()
+        rel[k] = gap / max(update, LEAF_FLOOR * math.sqrt(w.numel()))
+        gap_sq += gap * gap
+        update_sq += update * update
+    return rel, math.sqrt(gap_sq / max(update_sq, 1e-60))
+
+
+def gap_summary(gaps: tuple, witness: tuple | None = None, top: int = 6) -> dict:
+    """Of ``leaf_gaps``: the pooled gap, the largest and the median leaf's,
+    the ``top`` leaves of most gap, each with the witness's reading beside
+    it, and the witness's own pooled, largest, median and ``top`` leaves,
+    each [gap, witness]."""
+    rel, pooled = gaps
+    worst = sorted(rel, key=rel.get, reverse=True)[:top]
+    out = {"leaves": len(rel), "pooled": pooled, "max": rel[worst[0]],
+           "median": statistics.median(rel.values()),
+           "top": {k: [rel[k]] + ([witness[0][k]] if witness else []) for k in worst}}
+    if witness:
+        noise, noise_pooled = witness
+        noisiest = sorted(noise, key=noise.get, reverse=True)[:top]
+        out.update(witness_pooled=noise_pooled, witness_max=noise[noisiest[0]],
+                   witness_median=statistics.median(noise.values()),
+                   witness_top={k: [rel[k], noise[k]] for k in noisiest})
+    return out
+
+
+def run_silo_grouped() -> dict:
+    """Phase 16 (a), cell 37: the silo-grouped round against the engine
+    round at the cross-silo config's full width (see the module
+    docstring): the two and the rounding witness in lockstep from the same
+    globals, the gaps leaf by leaf after each round; the second round of
+    the two profiled."""
+    import argparse
+
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.experiments import main_fedavg, profile_zoo
+
+    started = t0 = time.perf_counter()
+    args = main_fedavg.add_args(argparse.ArgumentParser()).parse_args(
+        profile_zoo.FLAGS["cross_silo"] + ["--epochs", "1"])
+    cfg, ds, trainer = main_fedavg.setup_run(args)
+    ds = capped(ds, SILO_CAP)
+    out = {"silos": ds.client_num, "rows": ds.train.counts.tolist(),
+           "setup_s": round(time.perf_counter() - t0, 1)}
+    threshold, wide_threshold = SILO_THRESHOLDS
+    t0 = time.perf_counter()
+    engine = FedAvgAPI(ds, cfg, trainer, device="cuda")
+    silo = FedAvgAPI(ds, cfg.replace(silo_threshold=threshold), trainer, device="cuda")
+    witness = FedAvgAPI(ds, cfg.replace(silo_threshold=threshold), trainer, device="cuda")
+    out["apis_s"] = round(time.perf_counter() - t0, 1)
+    log(f"cross-silo resnet56 set up: {json.dumps(out)}")
+    if "silo" not in silo.round_fn.__qualname__:
+        raise RuntimeError("silo_threshold did not route FedAvgAPI to the silo round")
+    paths = {"engine": engine, f"silo_{threshold}": silo, "witness": witness}
+    rounds = {name: [] for name in paths}
+    peaks = {}
+    gaps, failed = [], []
+    init = {k: v.clone() for k, v in engine.global_variables.items()}
+    for r in range(SILO_ROUNDS):
+        start = {k: v.clone() for k, v in engine.global_variables.items()}
+        silo_start = {k: v.clone() for k, v in silo.global_variables.items()}
+        for name, api in paths.items():
+            torch.cuda.reset_peak_memory_stats()
+            flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+            if api is witness:
+                # cuDNN's fastest algorithms by timing, nondeterministic
+                # ones among them: other sums of the same products
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, True
+            try:
+                rounds[name].append(timed_round(
+                    api, r, profile=api is not witness and r == SILO_ROUNDS - 1))
+            finally:
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+            peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated())
+            rounds[name][-1]["done_s"] = round(time.perf_counter() - started, 1)
+        rel, pooled = leaf_gaps(silo.global_variables, engine.global_variables, start)
+        gaps.append(gap_summary(
+            (rel, pooled), leaf_gaps(witness.global_variables, silo.global_variables,
+                                     silo_start)))
+        failed += [(r, k, v) for k, v in rel.items() if not v <= LEAF_TOL[r]]
+        if not pooled <= POOLED_TOL:
+            failed.append((r, "pooled", pooled))
+        if r == 0:
+            silo_first = {k: v.clone() for k, v in silo.global_variables.items()}
+    for name in paths:
+        out[name] = {"rounds": rounds[name], "peak_bytes": peaks[name]}
+        log(f"cross-silo resnet56, {name} round: {json.dumps(out[name])}")
+    out["gaps"] = gaps
+    log(f"silo vs engine globals leaf by leaf, [gap, witness] of the leaves of most gap, "
+        f"round by round: {json.dumps(gaps)} ({time.perf_counter() - started:.1f} s into "
+        "cell 37)")
+    if failed:
+        raise Disagreement(f"silo round vs engine round over LEAF_TOL {LEAF_TOL} or "
+                           f"POOLED_TOL {POOLED_TOL} (round, leaf, gap): {failed[:10]}")
+    del engine, silo, witness
+    wide = FedAvgAPI(ds, cfg.replace(silo_threshold=wide_threshold), trainer, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    wide_round = timed_round(wide, 0)
+    out[f"silo_{wide_threshold}"] = {"rounds": [wide_round],
+                                     "peak_bytes": torch.cuda.max_memory_allocated()}
+    # two silo lowerings apart after round 0, leaf by leaf
+    wide_rel, wide_pooled = leaf_gaps(wide.global_variables, silo_first, init)
+    out["wide_gap_max"] = max(wide_rel.values())
+    log(f"cross-silo resnet56, silo round at threshold {wide_threshold}: "
+        f"{json.dumps(out[f'silo_{wide_threshold}'])}; against threshold {threshold} "
+        f"after one round, the largest leaf gap: {out['wide_gap_max']:.3e}")
+    if not (out["wide_gap_max"] <= LEAF_TOL[0] and wide_pooled <= POOLED_TOL):
+        raise Disagreement(f"silo round at threshold {wide_threshold} vs {threshold}: "
+                           f"{gap_summary((wide_rel, wide_pooled))}")
+    return out
+
+
+#: cell 38: main_mqtt_fedavg's flags (FEMNIST CNN_DropOut, the flagship's
+#: batch and lr) on the card
+MQTT_FLAGS = ["--dataset", "femnist", "--model", "cnn", "--client_num_in_total",
+              str(MQTT_CLIENTS), "--client_num_per_round", str(MQTT_WORKERS), "--comm_round",
+              str(MQTT_ROUNDS), "--batch_size", "20", "--lr", "0.1", "--seed", str(SEED)]
+
+
+def wire_probe(payload_bytes: int, reps: int = 3) -> float:
+    """Median seconds for one message of ``payload_bytes`` to cross the
+    in-process broker on loopback: publish to the subscriber's callback."""
+    import threading
+
+    from fedml_tpu_torch.comm import MiniBroker, MqttClient
+
+    broker = MiniBroker()
+    try:
+        got = threading.Event()
+        sub = MqttClient(broker.host, broker.port, "probe_sub")
+        sub.subscribe("probe", lambda t, p: got.set())
+        pub = MqttClient(broker.host, broker.port, "probe_pub")
+        payload, times = b"0" * payload_bytes, []
+        for _ in range(reps):
+            got.clear()
+            t0 = time.perf_counter()
+            pub.publish("probe", payload)
+            if not got.wait(60):
+                raise RuntimeError("the wire probe's message never arrived")
+            times.append(time.perf_counter() - t0)
+        sub.disconnect()
+        pub.disconnect()
+    finally:
+        broker.close()
+    return statistics.median(times)
+
+
+def run_mqtt_fedavg() -> dict:
+    """Phase 16 (b), cell 38: FedAvg over MQTT through ``main_mqtt_fedavg``
+    at FEMNIST CNN_DropOut's width (see the module docstring)."""
+    import torch
+
+    from fedml_tpu_torch import telemetry
+    from fedml_tpu_torch.comm import mqtt_fedavg
+    from fedml_tpu_torch.experiments import main_mqtt_fedavg
+    from fedml_tpu_torch.telemetry.tracer import Tracer
+
+    server_cls, client_cls = mqtt_fedavg.MqttFedAvgServerManager, mqtt_fedavg.MqttFedAvgClientManager
+    sync_round, train_and_reply = server_cls._sync_round, client_cls._train_and_reply
+    sent, decoded = {}, {}
+
+    def spy_sync(self, round_idx, msg_type):
+        sent[round_idx] = {k: v.clone() for k, v in self.global_variables.items()}
+        return sync_round(self, round_idx, msg_type)
+
+    def spy_train(self, msg):
+        # the variables this worker decoded, as its local update receives them
+        ridx = int(msg.get(mqtt_fedavg.MyMessage.MSG_ARG_KEY_ROUND_IDX))
+        inner = self._local_update
+
+        def record(variables, *a, **kw):
+            decoded[(self.worker_id, ridx)] = {k: v.clone() for k, v in variables.items()}
+            return inner(variables, *a, **kw)
+
+        self._local_update = record
+        try:
+            return train_and_reply(self, msg)
+        finally:
+            self._local_update = inner
+
+    started = time.perf_counter()
+    tracer = Tracer()
+    server_cls._sync_round, client_cls._train_and_reply = spy_sync, spy_train
+    telemetry.install(tracer)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            history = main_mqtt_fedavg.main(MQTT_FLAGS + ["--run_dir", tmp, "--data_dir",
+                                                          f"{tmp}/data"])
+            run_s = time.perf_counter() - t0
+    finally:
+        telemetry.uninstall(tracer)
+        server_cls._sync_round, client_cls._train_and_reply = sync_round, train_and_reply
+    losses = [r["test_loss"] for r in history]
+    if len(history) != MQTT_ROUNDS or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"mqtt fedavg: {history}")
+    want = {(w, r) for w in range(1, MQTT_WORKERS + 1) for r in range(MQTT_ROUNDS)}
+    if not want <= set(decoded):
+        raise RuntimeError(f"mqtt fedavg: decodes {sorted(decoded)}, wanted {sorted(want)}")
+    for (w, r), got in decoded.items():
+        for k, v in sent[r].items():
+            if got[k].device != v.device or not torch.equal(got[k], v):
+                raise Disagreement(f"mqtt fedavg: worker {w} decoded {k} of round {r} "
+                                   "unlike the server's")
+    params = sum(v.numel() for v in sent[0].values())
+    spans: dict = {}
+    for sp in tracer.spans:
+        spans.setdefault(sp["name"], []).append(sp)
+    per_round = {name: round(sum(sp["dur_s"] for sp in spans.get(name, ())) / MQTT_ROUNDS, 3)
+                 for name in ("mqtt_encode", "mqtt_publish", "mqtt_decode", "mqtt_train")}
+    sizes = sorted({sp["bytes"] for sp in spans.get("mqtt_publish", ())})
+    out = {"params": params, "workers": MQTT_WORKERS, "rounds": MQTT_ROUNDS,
+           "payload_bytes": sizes, "messages": len(spans.get("mqtt_publish", ())),
+           "seconds_a_round": per_round, "run_s": round(run_s, 2),
+           "wire_s": round(wire_probe(max(sizes)), 4), "test_loss": losses,
+           "cell_s": round(time.perf_counter() - started, 1),
+           "test_acc": [r["test_acc"] for r in history],
+           "decoded": f"{len(decoded)} worker decodes bit for bit the server's"}
+    log(f"fedavg over mqtt (femnist cnn, {MQTT_WORKERS} workers): {json.dumps(out)}")
+    return out
+
+
+def run_silo_mqtt(fused_launches: dict, flash_launches: dict) -> dict:
+    """Phase 16: the silo-grouped round and FedAvg over MQTT (cells 37-38;
+    see the module docstring), every path's kernel launches counted."""
+    import torch
+
+    started = time.perf_counter()
+    log(f"phase 16 cuts: {json.dumps(PHASE16_CUTS)}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        out["silo_grouped"] = dataset_path("cross-silo silo-grouped round", fused_launches,
+                                           flash_launches, run_silo_grouped)
+        out["mqtt_fedavg"] = dataset_path("fedavg over mqtt", fused_launches, flash_launches,
+                                          run_mqtt_fedavg)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    if seconds > PHASE16_BUDGET_S:
+        log(f"WARNING phase 16 took {seconds:.1f} s, over its {PHASE16_BUDGET_S:.0f} s "
+            f"budget")
+    out["seconds"] = round(seconds, 1)
+    log(f"phase 16: {seconds:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4684,6 +5040,9 @@ def main(argv=None) -> int:
     parser.add_argument("--search-seg-only", action="store_true",
                         help="build the kernels, then run phase 15 alone (FedNAS and "
                         "FedSeg), checking it and printing no result")
+    parser.add_argument("--silo-mqtt-only", action="store_true",
+                        help="build the kernels, then run phase 16 alone (the silo-grouped "
+                        "round and FedAvg over MQTT), checking it and printing no result")
     parser.add_argument("--serving-only", action="store_true",
                         help="build the kernels, then run phase 3's NWP path (for its "
                         "launch counts) and phase 11 alone (LoRA, the client ledger, the "
@@ -4724,7 +5083,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if (opts.launcher_only or opts.privacy_only or opts.transport_only or opts.serving_only
             or opts.datasets_only or opts.algorithms_only or opts.split_only
-            or opts.search_seg_only):
+            or opts.search_seg_only or opts.silo_mqtt_only):
         if opts.launcher_only:
             run_launcher({})
         if opts.privacy_only:
@@ -4755,6 +5114,8 @@ def main(argv=None) -> int:
             run_split_family({}, {})
         if opts.search_seg_only:
             run_search_seg({}, {})
+        if opts.silo_mqtt_only:
+            run_silo_mqtt({}, {})
         log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
         return 0
     if calibrate:
@@ -4850,6 +5211,10 @@ def main(argv=None) -> int:
     # ---- phase 15: FedNAS and FedSeg (cells 35-36; no kernel runs on
     # their paths)
     search_seg = run_search_seg(fused_launches, flash_launches)
+
+    # ---- phase 16: the silo-grouped round and FedAvg over MQTT (cells
+    # 37-38; no kernel runs on their paths)
+    silo_mqtt = run_silo_mqtt(fused_launches, flash_launches)
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
 
@@ -4896,6 +5261,7 @@ def main(argv=None) -> int:
     log(f"algorithms: {json.dumps(algorithms)}")
     log(f"split family: {json.dumps(split_family)}")
     log(f"search and segmentation: {json.dumps(search_seg)}")
+    log(f"silo-grouped round and fedavg over mqtt: {json.dumps(silo_mqtt)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -16,7 +16,8 @@ logger, ``test_global`` and ``local_test_on_all_clients``; federated LoRA
 ledger (``train(ledger=)``) and per-client personalization from the
 adapter bank (``cfg.personalize`` with ``train(bank=)``: the personalized
 round in the eager and pipelined loops, ``--adapter_clusters`` rows and
-``personalization_lift``).
+``personalization_lift``); and the silo-grouped round
+(``cfg.silo_threshold`` > 0, ``algorithms/silo_grouped.py``).
 """
 
 from __future__ import annotations
@@ -141,8 +142,19 @@ class FedAvgAPI(Checkpointable):
         # is attached (_dispatch's stats flag); the rows only read a round's
         # results, so the globals are the same bits with a ledger or without
         self._personalized = bool(config.personalize)
-        build = build_personal_round_fn if self._personalized else build_round_fn
-        self.round_fn = build(model_trainer, config, self.aggregator, device=self.device,
+        if config.silo_threshold > 0:
+            from fedml_tpu_torch.algorithms.silo_grouped import (build_silo_round_fn,
+                                                                 silo_trainer)
+
+            # the silos train together with the grouped convolutions; the
+            # evaluations keep the original trainer. The silo round has no
+            # ledger stats rows (its fourth output is always None)
+            build = build_silo_round_fn
+            round_trainer = silo_trainer(model_trainer, config.silo_threshold)
+        else:
+            build = build_personal_round_fn if self._personalized else build_round_fn
+            round_trainer = model_trainer
+        self.round_fn = build(round_trainer, config, self.aggregator, device=self.device,
                               collect_stats=True)
         #: the attached personal adapter bank (models/adapter_bank.py), set
         #: by train(bank=...) or directly; a personalized run needs one

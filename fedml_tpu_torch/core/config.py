@@ -3,11 +3,12 @@
 A mirror of ``fedml_tpu/core/config.py::FedConfig`` holding the fields the
 ported paths read (FedAvg, FedOpt, FedNova, robust aggregation, FedProx,
 the stateful client optimizers, the update codecs, buffered aggregation,
-the superstep, federated LoRA and personalization), with the same names and
-defaults so experiment configs transfer verbatim. The switches of features
-the port does not run yet (tensor sharding, silos, a mesh of more than one
-device) are kept so that ``validate`` can reject one that is on with
-``NotImplementedError``; other keys of a JAX config land in ``extra``.
+the superstep, federated LoRA, personalization and the silo-grouped round),
+with the same names and defaults so experiment configs transfer verbatim.
+The switches of features the port does not run yet (tensor sharding, a
+mesh of more than one device) are kept so that ``validate`` can reject one
+that is on with ``NotImplementedError``; other keys of a JAX config land in
+``extra``.
 """
 
 from __future__ import annotations
@@ -141,7 +142,6 @@ class FedConfig:
             "backend='shard_map' over more than one device (ROADMAP.md Queue 1 "
             "item 5, multi-device)":
                 self.backend == "shard_map" and self.mesh_size(device) > 1,
-            "silo_threshold > 0": self.silo_threshold > 0,
             "tensor_shards > 0": self.tensor_shards > 0,
             "shard_step": self.shard_step,
         }

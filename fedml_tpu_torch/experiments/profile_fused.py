@@ -30,13 +30,6 @@ from fedml_tpu_torch.utils.device import resolve_device
 CLIENTS, SAMPLES, SIDE, CLASSES, BATCH = 10, 200, 28, 62, 20
 
 
-def _device_us(event) -> float:
-    for name in ("device_time_total", "cuda_time_total"):
-        if hasattr(event, name):
-            return float(getattr(event, name))
-    return 0.0
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--rounds", type=int, default=3)
@@ -72,41 +65,74 @@ def main(argv=None):
     profile_rounds(run, args.rounds, args.dtype)
 
 
+def busy_ns(spans) -> int:
+    """The union of the ``(start, end)`` intervals' lengths: time in which
+    two device events overlap counts once."""
+    total, cur_start, cur_end = 0, None, None
+    for start, end in sorted(spans):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    return total if cur_end is None else total + cur_end - cur_start
+
+
 def measure_rounds(run_round, rounds: int, host_events: bool = True) -> dict:
     """Profile ``run_round(r)`` for r in range(rounds) (after the caller's
-    warm-up): {"wall_ms", "busy_ms", "launches"} per round, "rows" (device
-    us, count, kernel name) for the window and "kinds" {kind: [us, count]}.
-    ``host_events=False`` records the device's activity alone: the same
-    readings, without the host-side events (several a launch) that make
-    reading a window of 10**5 launches take minutes."""
+    warm-up): {"wall_ms", "busy_ms", "summed_ms", "launches"} per round,
+    "streams" (the device streams that ran events), "rows" (device us,
+    count, kernel name) for the window, "kinds" {kind: [us, count]} and
+    "results" (``run_round``'s return values). "busy_ms" is the union of
+    the device events' intervals, "summed_ms" their durations added up
+    (above it where events overlap); a busy time above the wall is a fault
+    of the measurement and raises. The device events come from the
+    profiler's raw results, not its parsed function events (minutes at
+    10**5 launches). ``host_events=False`` records the device's activity
+    alone: the same readings, without the host-side events (several a
+    launch)."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     if host_events:
         acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for r in range(rounds):
-            run_round(r)
+        results = [run_round(r) for r in range(rounds)]
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        us = _device_us(ev)
-        if us > 0 and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            rows.append((us, ev.count, ev.key))
-    if not rows:
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name, spans, streams = {}, [], set()
+    for ev in prof.profiler.kineto_results.events():
+        # kernels, copies and memsets; not the device-side ranges of
+        # record_function annotations, which span them
+        if ev.device_type() != cuda or getattr(ev, "is_user_annotation", lambda: False)():
+            continue
+        start, dur = ev.start_ns(), ev.duration_ns()
+        total = by_name.setdefault(ev.name(), [0, 0])
+        total[0] += dur
+        total[1] += 1
+        spans.append((start, start + dur))
+        streams.add(ev.device_resource_id())
+    if not spans:
         raise RuntimeError("the profiler recorded no device time; time with "
                            "CUDA events instead")
-    rows.sort(reverse=True)
+    busy_us = busy_ns(spans) / 1e3
+    if busy_us > wall_us:
+        raise RuntimeError(f"device busy {busy_us:.0f} us over the window's wall "
+                           f"{wall_us:.0f} us: the profiler's clock is off")
+    rows = sorted(((ns / 1e3, count, name) for name, (ns, count) in by_name.items()),
+                  reverse=True)
     kinds: dict = {}
     for us, count, key in rows:
         kind = next((k for k, marks in KINDS if any(m in key for m in marks)), "other")
         total = kinds.setdefault(kind, [0.0, 0])
         total[0] += us
         total[1] += count
-    busy = sum(us for us, _, _ in rows)
-    return {"wall_ms": wall_us / 1e3 / rounds, "busy_ms": busy / 1e3 / rounds,
-            "launches": sum(c for _, c, _ in rows) / rounds, "rows": rows, "kinds": kinds}
+    return {"wall_ms": wall_us / 1e3 / rounds, "busy_ms": busy_us / 1e3 / rounds,
+            "summed_ms": sum(us for us, _, _ in rows) / 1e3 / rounds,
+            "launches": len(spans) / rounds, "streams": len(streams), "rows": rows,
+            "kinds": kinds, "results": results}
 
 
 def profile_rounds(run_round, rounds: int, label: str) -> None:
@@ -114,18 +140,18 @@ def profile_rounds(run_round, rounds: int, label: str) -> None:
     warm-up) and print the wall and device-busy time per round and each
     kernel's device time, share and launches per round."""
     m = measure_rounds(run_round, rounds)
-    busy = m["busy_ms"] * 1e3 * rounds
+    summed = m["summed_ms"] * 1e3 * rounds
     print(f"{rounds} rounds, {label}: wall {m['wall_ms']:.3f} ms/round, "
           f"device busy {m['busy_ms']:.3f} ms/round "
           f"({100 * m['busy_ms'] / m['wall_ms']:.1f}% of wall), "
           f"{m['launches']:.1f} launches/round")
     print(f"{'ms/round':>10} {'share':>7} {'launches/round':>15}  kind")
     for kind, (us, count) in sorted(m["kinds"].items(), key=lambda kv: -kv[1][0]):
-        print(f"{us / 1e3 / rounds:10.3f} {100 * us / busy:6.1f}% "
+        print(f"{us / 1e3 / rounds:10.3f} {100 * us / summed:6.1f}% "
               f"{count / rounds:15.1f}  {kind}")
     print(f"{'ms/round':>10} {'share':>7} {'launches/round':>15}  kernel")
     for us, count, key in m["rows"]:
-        print(f"{us / 1e3 / rounds:10.3f} {100 * us / busy:6.1f}% "
+        print(f"{us / 1e3 / rounds:10.3f} {100 * us / summed:6.1f}% "
               f"{count / rounds:15.1f}  {key[:110]}")
 
 

@@ -43,6 +43,18 @@ state. The running statistics are buffers named ``mean`` and ``var``
 dtype rule: parameters stay float32; convolutions and the head run in the
 compute dtype (inputs and weights cast to it), normalisation in float32, so
 the residual trunk is float32 and the logits come out in the compute dtype.
+
+Silo-stacked forward (``ResNetCifar``, the silo-grouped round of
+``algorithms/silo_grouped.py``): given variables stacked over S silos
+(every leaf [S, ...], substituted by ``functional_call``) and an input [S,
+B, H, W, C], the model runs the S silos in one forward on the packed
+layout [B, S*C, H, W] (``ops/silo_conv.py``): its convolutions through
+``packed_silo_conv`` (grouped where ``silo_threshold`` admits them, per
+silo otherwise), each BatchNorm or GroupNorm over the packed channels (so
+every silo keeps its own statistics and running buffers, [S, C]), the head
+a product a silo; the logits come out [S, B, classes]. ``silo_threshold``
+> 0 builds the convolutions as ``GroupableConv``, the same variables as
+the plain model's.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedml_tpu_torch.models.cnn import compute_dtype, dense
+from fedml_tpu_torch.ops.silo_conv import GroupableConv, packed_silo_conv
 
 
 class BatchNorm(nn.Module):
@@ -73,6 +86,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool = False):
         x = x.float()
+        # silo-stacked leaves [S, C] normalise the packed [B, S*C, ...] layout
+        # channel by channel: each silo by its own statistics
+        shape = self.mean.shape
+        weight, bias, running_mean, running_var = (
+            t.reshape(-1) for t in (self.weight, self.bias, self.mean, self.var))
         if train:
             # the batch's statistics come out of the normalising call itself:
             # at momentum 1 it writes the batch mean and unbiased variance
@@ -83,18 +101,18 @@ class BatchNorm(nn.Module):
             # torch.batch_norm, not F.batch_norm, which refuses a batch of one
             # value a channel (a 1x1 map of one row): flax normalises it to
             # the bias
-            y = torch.batch_norm(x, self.weight, self.bias, batch[0], batch[1], True, 1.0,
+            y = torch.batch_norm(x, weight, bias, batch[0], batch[1], True, 1.0,
                                  self.eps, torch.backends.cudnn.enabled)
             with torch.no_grad():
                 m = self.momentum
-                mean, var = torch._foreach_mul([self.mean, self.var], m)
+                mean, var = torch._foreach_mul([running_mean, running_var], m)
                 # the biased variance; of one value it is 0 (torch's unbiased
                 # one is then NaN)
                 biased = batch[1] * ((n - 1) / n) if n > 1 else torch.zeros_like(batch[1])
                 torch._foreach_add_([mean, var], [batch[0], biased], alpha=1 - m)
-                self.updated = {"mean": mean, "var": var}
+                self.updated = {"mean": mean.reshape(shape), "var": var.reshape(shape)}
             return y
-        return F.batch_norm(x, self.mean, self.var, self.weight, self.bias, False, 0.0,
+        return F.batch_norm(x, running_mean, running_var, weight, bias, False, 0.0,
                             self.eps)
 
 
@@ -113,7 +131,11 @@ class GroupNorm(nn.Module):
         t.fill_(1.0 if leaf == "weight" else 0.0)
 
     def forward(self, x, train: bool = False):
-        return F.group_norm(x.float(), self.groups, self.weight, self.bias, self.eps)
+        # silo-stacked leaves [S, C]: the packed layout's S * groups groups,
+        # each within one silo's channels
+        silos = self.weight.shape[0] if self.weight.dim() == 2 else 1
+        return F.group_norm(x.float(), silos * self.groups, self.weight.reshape(-1),
+                            self.bias.reshape(-1), self.eps)
 
 
 class _Norm(nn.Module):
@@ -132,8 +154,13 @@ class _Norm(nn.Module):
         return norm(x, train)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0) -> nn.Conv2d:
-    """A bias-free convolution (flax ``nn.Conv(use_bias=False)``)."""
+def _conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
+          silo_threshold: int = 0) -> nn.Conv2d:
+    """A bias-free convolution (flax ``nn.Conv(use_bias=False)``), or with
+    ``silo_threshold`` > 0 its silo-grouped drop-in ``GroupableConv``
+    (the same weight)."""
+    if silo_threshold > 0:
+        return GroupableConv(cin, cout, k, stride, padding, threshold=silo_threshold)
     return nn.Conv2d(cin, cout, k, stride, padding, bias=False)
 
 
@@ -146,14 +173,15 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, planes: int, stride: int = 1, group_norm: int = 0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, silo_threshold: int = 0):
         super().__init__()
         self.stride, self.group_norm, self.dtype = stride, group_norm, dtype
-        self.Conv_0 = _conv(cin, planes, 3, stride, 1)
-        self.Conv_1 = _conv(planes, planes, 3, 1, 1)
+        st = silo_threshold
+        self.Conv_0 = _conv(cin, planes, 3, stride, 1, st)
+        self.Conv_1 = _conv(planes, planes, 3, 1, 1, st)
         self.shortcut = stride != 1 or cin != planes
         if self.shortcut:
-            self.Conv_2 = _conv(cin, planes, 1, stride)
+            self.Conv_2 = _conv(cin, planes, 1, stride, 0, st)
         _norms(self, [planes] * (3 if self.shortcut else 2))
 
     def forward(self, x, train: bool = False):
@@ -170,16 +198,17 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, planes: int, stride: int = 1, group_norm: int = 0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, silo_threshold: int = 0):
         super().__init__()
         self.stride, self.group_norm, self.dtype = stride, group_norm, dtype
+        st = silo_threshold
         cout = planes * self.expansion
-        self.Conv_0 = _conv(cin, planes, 1)
-        self.Conv_1 = _conv(planes, planes, 3, stride, 1)
-        self.Conv_2 = _conv(planes, cout, 1)
+        self.Conv_0 = _conv(cin, planes, 1, 1, 0, st)
+        self.Conv_1 = _conv(planes, planes, 3, stride, 1, st)
+        self.Conv_2 = _conv(planes, cout, 1, 1, 0, st)
         self.shortcut = stride != 1 or cin != cout
         if self.shortcut:
-            self.Conv_3 = _conv(cin, cout, 1, stride)
+            self.Conv_3 = _conv(cin, cout, 1, stride, 0, st)
         _norms(self, [planes, planes, cout] + ([cout] if self.shortcut else []))
 
     def forward(self, x, train: bool = False):
@@ -195,12 +224,20 @@ class Bottleneck(nn.Module):
 
 def _apply_conv(layer: nn.Conv2d, x, cd):
     """A bias-free flax Conv in the compute dtype ``cd`` (input and weight
-    cast to it); a grouped layer is flax's ``feature_group_count``."""
-    return F.conv2d(x.to(cd), layer.weight.to(cd), None, layer.stride, layer.padding,
-                    layer.dilation, layer.groups)
+    cast to it); a grouped layer is flax's ``feature_group_count``. A
+    silo-stacked weight [S, O, C, kh, kw] convolves the packed layout
+    (``ops/silo_conv.py::packed_silo_conv``, grouped up to the layer's
+    threshold: 0 for a plain conv)."""
+    w = layer.weight.to(cd)
+    if w.dim() == 5:
+        return packed_silo_conv(x.to(cd), w, layer.stride, layer.padding,
+                                getattr(layer, "threshold", 0))
+    return F.conv2d(x.to(cd), w, None, layer.stride, layer.padding, layer.dilation,
+                    layer.groups)
 
 
-def _stages(module: nn.Module, block, cin: int, widths, layers, group_norm, dtype) -> int:
+def _stages(module: nn.Module, block, cin: int, widths, layers, group_norm, dtype,
+            silo_threshold: int = 0) -> int:
     """Add the residual stages under flax's block names; returns the output
     channels."""
     i = 0
@@ -208,7 +245,7 @@ def _stages(module: nn.Module, block, cin: int, widths, layers, group_norm, dtyp
         for b in range(blocks):
             stride = 2 if (stage > 0 and b == 0) else 1
             module.add_module(f"{block.__name__}_{i}",
-                              block(cin, planes, stride, group_norm, dtype))
+                              block(cin, planes, stride, group_norm, dtype, silo_threshold))
             cin = planes * block.expansion
             i += 1
     module.num_blocks = i
@@ -218,32 +255,62 @@ def _stages(module: nn.Module, block, cin: int, widths, layers, group_norm, dtyp
 class ResNetCifar(nn.Module):
     """3-stage CIFAR ResNet: 3x3 stem conv -> stages -> global average pool
     -> fc. ``widths`` sets the stage widths, ``s2d`` a 2x2 space-to-depth
-    input transform (32x32x3 -> 16x16x12)."""
+    input transform (32x32x3 -> 16x16x12). ``silo_threshold`` > 0 builds
+    its convolutions as ``GroupableConv`` for the silo-grouped round: an
+    input [S, B, H, W, C] with silo-stacked variables then runs the S silos
+    in one forward (module docstring)."""
 
     def __init__(self, block, layers, output_dim: int = 10, group_norm: int = 0,
                  widths=(16, 32, 64), s2d: bool = False, in_channels: int = 3,
-                 dtype="float32"):
+                 dtype="float32", silo_threshold: int = 0):
         super().__init__()
+        self._init_args = dict(block=block, layers=tuple(layers), output_dim=output_dim,
+                               group_norm=group_norm, widths=tuple(widths), s2d=s2d,
+                               in_channels=in_channels, dtype=dtype,
+                               silo_threshold=silo_threshold)
         self.block, self.s2d = block, s2d
         self.dtype = compute_dtype(dtype)
         self.group_norm = group_norm
+        self.silo_threshold = silo_threshold
         cin = in_channels * (4 if s2d else 1)
-        self.conv1 = _conv(cin, widths[0], 3, 1, 1)
+        self.conv1 = _conv(cin, widths[0], 3, 1, 1, silo_threshold)
         _norms(self, [widths[0]])
-        cout = _stages(self, block, widths[0], widths, layers, group_norm, self.dtype)
+        cout = _stages(self, block, widths[0], widths, layers, group_norm, self.dtype,
+                       silo_threshold)
         self.fc = nn.Linear(cout, output_dim)
 
+    def clone(self, **changes) -> "ResNetCifar":
+        """A new module of the same architecture with ``changes`` to its
+        constructor's arguments (flax's ``Module.clone``)."""
+        return ResNetCifar(**{**self._init_args, **changes})
+
     def forward(self, x, train: bool = False, generator=None):
+        silos = x.shape[0] if x.dim() == 5 else 0
+        if silos:
+            x = x.flatten(0, 1)
         if self.s2d:
             b, h, w, c = x.shape
             x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
             x = x.reshape(b, h // 2, w // 2, 4 * c)
-        x = x.permute(0, 3, 1, 2)
+        if silos:
+            # [S*B, H, W, C] -> the packed layout [B, S*C, H, W]
+            b, h, w, c = x.shape
+            x = x.reshape(silos, b // silos, h, w, c).permute(1, 0, 4, 2, 3)
+            x = x.reshape(b // silos, silos * c, h, w)
+        else:
+            x = x.permute(0, 3, 1, 2)
         x = F.relu(self._Norm_0(_apply_conv(self.conv1, x, self.dtype), train))
         name = self.block.__name__
         for i in range(self.num_blocks):
             x = getattr(self, f"{name}_{i}")(x, train)
-        return dense(self.fc, x.mean((2, 3)), self.dtype)
+        pooled = x.mean((2, 3))
+        if not silos:
+            return dense(self.fc, pooled, self.dtype)
+        # a dense head a silo: [S, B, C] x [S, K, C] -> [S, B, K]
+        cd = self.dtype
+        pooled = pooled.reshape(pooled.shape[0], silos, -1).transpose(0, 1)
+        return (torch.bmm(pooled.to(cd), self.fc.weight.to(cd).transpose(1, 2))
+                + self.fc.bias.to(cd)[:, None])
 
 
 class ResNetImageNet(nn.Module):

@@ -133,14 +133,15 @@ def test_shuffle_permutes_only_the_valid_prefix():
 
 def test_unported_options_raise():
     _, _, _, tcfg, _, tt, _ = _setup()
-    for kw in (dict(tensor_shards=2), dict(silo_threshold=32)):
+    for kw in (dict(tensor_shards=2),):
         with pytest.raises(NotImplementedError):
             build_round_fn(tt, tcfg.replace(**kw), make_aggregator("fedavg", tcfg),
                            device="cpu")
     # ported: the Feistel cohort sampler, the update codecs, the superstep,
-    # the buffer (drive options) and LoRA build the round
+    # the buffer (drive options), LoRA and the silo threshold (FedAvgAPI's
+    # route to the silo round) build the round
     for kw in (dict(fast_sampling=True), dict(update_codec="int8"),
                dict(update_codec="topk"), dict(rounds_per_dispatch=2),
-               dict(buffer_size=4), dict(lora_rank=4)):
+               dict(buffer_size=4), dict(lora_rank=4), dict(silo_threshold=32)):
         build_round_fn(tt, tcfg.replace(**kw), make_aggregator("fedavg", tcfg),
                        device="cpu")

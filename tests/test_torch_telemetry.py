@@ -412,3 +412,19 @@ def test_embedding_of_out_of_range_ids_is_nan_as_in_jax():
     torch.nan_to_num(got).sum().backward()
     counts = np.bincount(ids[valid] % V, minlength=V).astype(np.float32)
     np.testing.assert_array_equal(wt.grad.numpy(), np.repeat(counts[:, None], D, 1))
+
+
+@pytest.mark.parametrize("spans, want", [
+    ([], 0),
+    ([(0, 10)], 10),
+    ([(0, 10), (20, 25)], 15),
+    ([(0, 10), (5, 12)], 12),  # two events overlap: counted once
+    ([(5, 12), (0, 10), (0, 3), (12, 14)], 14),
+    ([(0, 100), (10, 20), (30, 40)], 100),  # nested
+])
+def test_device_busy_is_the_union_of_event_intervals(spans, want):
+    """``profile_fused.measure_rounds`` reads the device's busy time as the
+    union of its events' intervals, so a share of the wall cannot pass 1."""
+    from fedml_tpu_torch.experiments.profile_fused import busy_ns
+
+    assert busy_ns(spans) == want
