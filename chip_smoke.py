@@ -7,7 +7,12 @@ Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      build every CUDA kernel of the paths from the checkout's sources (the
      fused epoch and flash attention), all ``nvcc`` processes started
-     together, and time the build;
+     together on a thread of their own, and time the build. Meanwhile the
+     work that needs no kernel and nothing of phases 2-13 runs: phase 7's
+     store and its scale_rss sweep, in processes of their own, and phases
+     14 and 15, which start no profiler (about 100 s of the script's wall
+     time, on an H100 80GB HBM3 at 700 W); the script waits for the build
+     before phase 2;
   2. every kernel against its plain PyTorch version, in float32 with TF32
      off and in bfloat16:
      - the fused epoch, on seeded data and flax-shaped weights with dropout
@@ -55,7 +60,7 @@ Phases (any failure exits non-zero and prints no result line):
   4. the server rules and client optimizers, each run through FedAvgAPI or
      its CLI with the launch counts read as in phase 3:
      - NWP with FedAdam (server Adam, lr 1e-2) at the widths of phase 3 for
-       5 rounds: the loss falls, all three flash kernels launch; the median
+       NWP_FEDADAM_ROUNDS (3) rounds: the loss falls, all three flash kernels launch; the median
        round, the aggregator call's device time (CUDA events around it) and
        the server step's alone beside its bound;
      - fused FEMNIST: FedOpt with server SGD at lr 1 against FedAvg (max
@@ -73,7 +78,8 @@ Phases (any failure exits non-zero and prints no result line):
      counted (none of them is on these paths: each must read 0):
      - cross-silo CIFAR-10 ResNet-56 (``cross_silo_cifar10_resnet56.yaml``:
        10 silos, hetero alpha 0.5, batch 64, SGD lr 0.001, momentum 0.9, wd
-       1e-4, float32): first under FedAvgM (server SGD, lr 1, momentum 0.9)
+       1e-4, float32; XS_PHASE5_SILOS (5) of the 10 silos a round): first
+       under FedAvgM (server SGD, lr 1, momentum 0.9)
        beside FedAvg, 2 rounds of 1 local epoch, each round from the same
        globals with cuDNN deterministic: the BatchNorm statistics equal
        FedAvg's weighted mean within 1e-6 (the aggregator acts on
@@ -93,7 +99,8 @@ Phases (any failure exits non-zero and prints no result line):
      - Shakespeare (``shakespeare_rnn.yaml``): the LSTM, 715 clients, 10 a
        round, batch 10, lr 0.8, 3 rounds; then fed_shakespeare per
        position through NWPTrainer, 2 rounds;
-     - the CLI with its defaults, ``main_fedavg.main([])`` on the card
+     - the CLI with its defaults but CLI_ROUNDS (3) of its 10 rounds,
+       ``main_fedavg.main(["--comm_round", "3"])`` on the card
        (MNIST logistic regression, 10 clients, 10 rounds);
      each with its median round, its training loss per round and, for one
      more round under ``torch.profiler``, the device's busy share and its
@@ -124,8 +131,9 @@ Phases (any failure exits non-zero and prints no result line):
      (``data/packed_store.py``) in a temporary directory:
      - the disk's free space checked and printed; the uncapped surrogate
        (seed 0) written a chunk of STORE_CHUNK clients at a time by a
-       spawned process, never as the padded 5.12 GB array; the build's
-       seconds, the store's bytes and the build's peak RSS printed;
+       spawned process started in phase 1, never as the padded 5.12 GB
+       array; the build's seconds, the store's bytes and the build's peak
+       RSS printed;
      - the fused path through ``FedAvgAPI.train`` at PIPE_DEPTH for
        FLAGSHIP_ROUNDS rounds (cut from the config's 1500; evaluated at
        round 0, as every drive is, and at the last): the kernel launched
@@ -138,12 +146,20 @@ Phases (any failure exits non-zero and prints no result line):
      - the engine path from the same store at PIPE_DEPTH with
        ``fast_sampling``, FLAGSHIP_ENGINE_ROUNDS rounds (cut from 1500),
        evaluated at round 0 and the last;
+     - the tracer's ``eval`` spans of that drive at the 3,400 clients,
+       resident (the splits staged on the card at the first eval, read
+       once from the store through ``materialize``), and its last globals
+       evaluated again resident and then chunked (each eval stages its
+       chunks from the store): the federation's sums within the CPU tests'
+       2e-5 / 1e-5, the staged bytes of both splits printed against the 8
+       GiB ``resident_eval_budget``;
      - the sync check: one round each of the fused path, the engine path
        with a chaos participation mask (a client NaN-faulted) and NWP at
        phase 3's widths, dispatched under
        ``torch.cuda.set_sync_debug_mode("error")``: any host sync inside
        the round fails;
-     - ``experiments/scale_rss.py`` at 10k, 100k and 1M clients: each
+     - ``experiments/scale_rss.py`` at 10k, 100k and 1M clients (started
+       in phase 1, read here): each
        point's peak RSS and rounds per second, and the ratio of the last
        point's peak to the one before, which must stay within
        SCALE_RSS_RATIO.
@@ -160,8 +176,9 @@ Phases (any failure exits non-zero and prints no result line):
        kernel launched;
      - ``fedavg_femnist.yaml`` again with ``fused_kernel=1``: the fused
        epoch must launch;
-     - a temporary ``fednas`` config with a ``multihost:`` block must
-       raise NotImplementedError naming ROADMAP (``privacy_blockensemble.yaml``
+     - a temporary ``fednas`` config with a ``multihost:`` block whose
+       second rank never comes up must raise a RuntimeError naming the
+       coordinator within the block's timeout (``privacy_blockensemble.yaml``
        runs in phase 9);
      - BASELINE.md's cross-silo rows on ``cross_silo_cifar10_resnet56.yaml``
        (1 round of E = 1 over XS_SILOS of 10 silos): MobileNet on CIFAR-10,
@@ -259,7 +276,7 @@ Phases (any failure exits non-zero and prints no result line):
      - (c) cell 22, three tenants under one ``Scheduler`` (fair share,
        ``max_resident`` 2, spilled evictions): cell 1's engine (sync, 4
        rounds), cell 18's FedBuff with stragglers in partial dispatch (4
-       rounds) and (b)'s personalized tenant (3 rounds, latency-bound with
+       rounds) and (b)'s personalized tenant (2 rounds, latency-bound with
        a deadline), submitted after two ticks so that it preempts: each
        tenant's final parameters bit for bit its solo run's, at least one
        eviction, the card's allocated bytes falling at each, ``check_slo``'s
@@ -421,6 +438,37 @@ Phases (any failure exits non-zero and prints no result line):
        tracer's spans), the loopback relay of one payload-sized message;
        every model a worker decoded equals the server's of that round bit
        for bit; the test losses finite.
+ 17. The clients-sharded round over a ``torch.distributed`` process group,
+     within PHASE17_BUDGET_S (``--multidevice-only`` builds the kernels and
+     runs this phase alone), two ranks spawned on the one card over gloo
+     with CUDA tensors (NCCL refuses two ranks on one device, so a run over
+     several GPUs with one NCCL rank each is not verified here), on cuDNN's
+     deterministic algorithms, its cuts of scale in PHASE17_CUTS:
+     - (a) cell 39, the flagship ``fedavg_femnist.yaml`` (``backend:
+       shard_map``) through ``fed_launch`` with a ``multihost:`` block on
+       loopback (rank 1's id from ``FEDML_PROCESS_ID``), ``CNN_DropOut`` at
+       full width, 10 clients a round (5 a rank) capped at 200 samples as
+       phase 3's, batch 20, E = 1, lr 0.1, clip 1.0, MD_FEMNIST_ROUNDS
+       rounds: every round's globals within MD_TOL (the JAX bound, 1e-6 on
+       every leaf's largest absolute gap) of the single-process engine
+       round of the same cohort, draws and starting globals; both ranks'
+       globals and evals the same bits (``assert_same_across_processes``);
+       no kernel launched; the 3-round gap to a straight single-process run
+       printed (read, not held: later rounds start from globals one
+       reassociated sum apart);
+     - (b) cell 40, NWP's ``transformer_nwp`` at full width (vocab 10,004,
+       d_model 128, 4 heads, 2 layers) through ``FedAvgAPI`` with
+       ``backend="shard_map"``, MD_NWP_PER_ROUND clients a round,
+       MD_NWP_ROUNDS rounds: the three flash kernels' launches counted on
+       each rank and above 0; the globals held as in (a);
+     - each rank's round ms beside the single-process round's; the
+       all-reduces a round, their bytes, and the all-reduce of a
+       globals-sized buffer timed alone;
+     - (c) a dead rank: a second group of two, whose rank 1 exits before
+       the first collective; rank 0's all-reduce must raise a RuntimeError
+       naming the coordinator and the rank within MD_DEAD_TIMEOUT_S;
+     - a one-rank NCCL group through the same sharded round on one cohort:
+       the same bits as the single-device round.
 
 The script's wall time, then the last three lines: the card's name and
 power limit, a JSON object of per-kernel numbers, and ``{"ok": true,
@@ -513,6 +561,8 @@ ATTN_SHAPES = {"a": (16, 20, 4, 32), "b": (2, 333, 2, 64), "c": (8, 2048, 4, 32)
 ATTN_TOL = {"float32": {"o": (2e-5, 2e-5), "lse": (2e-5, 2e-5), "grad": (2e-4, 2e-4)},
             "bfloat16": {"o": (1e-2, 1e-4), "lse": (2e-5, 2e-5), "grad": (1e-2, 2e-4)}}
 NWP_CLIENTS, NWP_PER_ROUND, NWP_BATCH, NWP_LR = 200, 50, 16, 0.3
+# phase 4's NWP FedAdam run: 3 rounds (5 before phase 17; a round 1.7-2.4 s)
+NWP_FEDADAM_ROUNDS = 3
 # Phase 6: the CLI's default pipeline depth, and the tracer's phase spans
 PIPE_DEPTH = 2
 DRIVE_SPANS = ("stage_wait", "stage", "h2d", "dispatch", "device_wait", "metrics_fetch",
@@ -533,6 +583,16 @@ TIME_ROUNDS = 20
 # 31.1 s a round, about 40 s of the script, on an H100 80GB HBM3 at 700 W).
 # The profiled 1-epoch round runs XS_PROFILED_SILOS of the 10 silos.
 XS_EPOCHS, XS_ROUND_S, XS_PAIR_EPOCHS, XS_BF16_EPOCHS, XS_PROFILED_SILOS = 1, 30.0, 1, 1, 1
+# phase 5's cross-silo rounds (the FedAvgM pair, FedAvg, bf16) over
+# XS_PHASE5_SILOS of the 10 silos a round: over all 10 a round took
+# 7.5-9.6 s, the eight of them about 70 s of a 1,081 s script on a slow
+# host (H100 80GB HBM3, 700 W), cut to make room for phase 17. Not below
+# 5: the FedAvg path's 2-round loss check failed over 3 (2.5552 -> 2.6142;
+# 2.5844 -> 2.5782 over 5)
+XS_PHASE5_SILOS = 5
+# the CLI's defaults run CLI_ROUNDS of their 10 rounds (1.2 s a round on a
+# slow host; cut to make room for phase 17)
+CLI_ROUNDS = 3
 # Phase 7: the FEMNIST flagship at its configured 3400 clients, from an mmap
 # shard store. The surrogate's largest client has 480 samples (its clip), so
 # the padded width is 480 rows: 24 SGD steps a client through the fused
@@ -553,7 +613,7 @@ SCALE_POINTS, SCALE_RSS_RATIO = (10_000, 100_000, 1_000_000), 1.25
 # 1 over XS_SILOS of its 10 silos (5.8-7.2 s a round over all 10, 1.6 s
 # over 2); FEMNIST's 3400 clients to PHASE8_FEMNIST_CLIENTS (its surrogate
 # takes 14 s of host time and 5 GB a build; phase 7 runs the 3400 from a
-# store). cifar10_heter_res20 (E=1, batch 16: 6.5-9.7 s) runs as written.
+# store). cifar10_heter_res20 (E=1, batch 16) runs over 5 of its 10 clients.
 CONFIG_DIR = "fedml_tpu/experiments/configs"
 PHASE8_BUDGET_S = 150.0
 PHASE8_FEMNIST_CLIENTS = 340
@@ -564,7 +624,10 @@ PHASE8_CUTS = {"cross_silo_cifar10_resnet56.yaml": ["epochs=1",
                **{name: ["epochs=1"] for name in (
                    "chmnist_heter.yaml", "chmnist_homo.yaml", "cifar10_cnn.yaml",
                    "cifar10_homo_res20.yaml", "har_class_heter.yaml", "har_class_homo.yaml",
-                   "har_hetero.yaml", "har_homo.yaml", "emnist.yaml")}}
+                   "har_hetero.yaml", "har_homo.yaml", "emnist.yaml")},
+               # 5 of its 10 clients a round (a round 6.5-10.8 s; cut to
+               # make room for phase 17)
+               "cifar10_heter_res20.yaml": ["client_num_per_round=5"]}
 # BASELINE.md's cross-silo rows (benchmark/README.md:108-111) and the new
 # convolutional models, each on cross_silo_cifar10_resnet56.yaml at 1 round
 # of 1 local epoch (of 20) over XS_SILOS of its 10 silos (phase 8 ran 158 s
@@ -596,10 +659,14 @@ MODEL_CLASSES = {"lr": "LogisticRegression", "cnn": "CNN_DropOut", "cnn_cifar": 
 # PHASE9_BUDGET_S; then the same config for PRIVACY_SHORT_ROUNDS rounds
 # with 3 paths and feature matching, one bf16 round, and cell 16: the five
 # branch ensembles, each PRIVACY_SHORT_ROUNDS rounds, within PHASE9_BUDGET_S.
+# To make room for phase 17 the 10 rounds went to 5, then 3, and the short
+# runs' 5 to 2 (the phase took 94.4-96.6 s of the script's 897-1,126 s, and
+# 80.3 s with 5 rounds of 3.5 s, on an H100 80GB HBM3 at 700 W; every check
+# kept)
 PRIVACY_CONFIG = "privacy_blockensemble.yaml"
-PRIVACY_ROUNDS = 10
+PRIVACY_ROUNDS = 3
 PRIVACY_CUTS: list = [f"comm_round={PRIVACY_ROUNDS}"]
-PRIVACY_SHORT_ROUNDS, PHASE9_BUDGET_S = 5, 120.0
+PRIVACY_SHORT_ROUNDS, PHASE9_BUDGET_S = 2, 120.0
 ENSEMBLE_METHODS = ("predavg", "predvote", "predweight", "blockavg", "hetero")
 # Phase 10: the codecs, FedBuff and the superstep (cells 17-19) on cell 1's
 # engine configuration and cut, and cell 2's
@@ -616,8 +683,10 @@ LAUNCH_SLACK = 0.15
 # StackOverflow NWP's train population (BASELINE.md, the reference's
 # benchmark/README.md:59-62): the bank's rows at the federation's real size
 BIG_BANK_ROWS, SMALL_BANK_ROWS = 342_477, 10_000
-BANK_CYCLES, BANK_COHORT, RSS_GROWTH_MB = 20, 50, 64
-SERVE_ROUNDS, PFL_SERVE_ROUNDS, PFL_DEADLINE_S, PFL_DROP_RATE = 4, 3, 600.0, 0.3
+# (the bank's cycles 20 -> 10 to make room for phase 17)
+BANK_CYCLES, BANK_COHORT, RSS_GROWTH_MB = 10, 50, 64
+# (the personalized tenant's 3 rounds cut to 2 to make room for phase 17)
+SERVE_ROUNDS, PFL_SERVE_ROUNDS, PFL_DEADLINE_S, PFL_DROP_RATE = 4, 2, 600.0, 0.3
 # Phase 12: the FedAvg family's last datasets (cells 23-27) at full width,
 # each path with the four kernels' launches counted (each must read 0),
 # within PHASE12_BUDGET_S. Cuts of scale, each beside its constant:
@@ -628,14 +697,16 @@ SO_LR_CLIENTS, SO_LR_PER_ROUND, SO_LR_BATCH, SO_LR_LR, SO_LR_ROUNDS = 200, 10, 1
 # config's 1500), then one round of the Shakespeare LSTM. The adapters of a
 # near-uniform random LSTM move its loss by float32 noise in 3 rounds at
 # BASELINE.md's lr 10**-0.5 (a CPU probe: 0.4605729 -> 0.4605728); lr 10
-# (no published LoRA config names one) makes the fall plain (-> 0.4605620)
-LSTM_LORA_ROUNDS, LSTM_LORA_LR = 3, 10.0
+# (no published LoRA config names one) makes the fall plain (-> 0.4605620);
+# 2 rounds (of 3 before phase 17) still show the fall
+LSTM_LORA_ROUNDS, LSTM_LORA_LR = 2, 10.0
 # (c) gld23k: its 233 users and 23,080 train rows at 64 px, the rows
 # naming GLD_POOL distinct seeded images (each decoded once a row); the
-# test csv cut to GLD_TEST_ROWS rows (of 19,526); 3 rounds
+# test csv cut to GLD_TEST_ROWS rows (of 19,526); 2 rounds (3 before phase
+# 17; a round 4.1-6.0 s)
 GLD_USERS, GLD_CLASSES, GLD_ROWS, GLD_SIDE = 233, 203, 23_080, 64
 GLD_POOL, GLD_TEST_ROWS, GLD_PER_ROUND, GLD_ROUNDS, GLD_BATCH, GLD_LR = (
-    2_048, 2_330, 10, 3, 32, 0.05)
+    2_048, 2_330, 10, 2, 32, 0.05)
 # (d) ILSVRC2012 at 224 px: 100 class-blocked clients over 1,000 classes,
 # INET_TRAIN_PER_CLASS train images a class (of about 1,300) and
 # INET_VAL_PER_CLASS val images (of 50), copies of INET_POOL seeded JPEGs;
@@ -774,8 +845,9 @@ PHASE15_CUTS = {
 # beside its constant:
 PHASE16_BUDGET_S = 60.0
 # (a) cell 37: the cross-silo config's E = 20 to 1, and every silo capped at
-# SILO_CAP rows (10 steps of batch 64), SILO_ROUNDS rounds a path (of 100)
-SILO_CAP, SILO_ROUNDS, SILO_THRESHOLDS = 640, 2, (32, 64)
+# SILO_CAP rows (5 steps of batch 64; 640 rows, 10 steps, before phase 17:
+# the phase took 49.5-69.5 s of its 60), SILO_ROUNDS rounds a path (of 100)
+SILO_CAP, SILO_ROUNDS, SILO_THRESHOLDS = 320, 2, (32, 64)
 # The silo round against the engine round after each round, leaf by leaf:
 # ||silo - engine|| / max(||engine - the round's start||, LEAF_FLOOR *
 # sqrt(leaf size)), the share of the leaf's update on which the two paths
@@ -798,13 +870,37 @@ SILO_CAP, SILO_ROUNDS, SILO_THRESHOLDS = 640, 2, (32, 64)
 # left out of the aggregate reads about 0.1 there.
 LEAF_FLOOR, LEAF_TOL, POOLED_TOL = 1e-6, (0.5, 1.5), 2e-3
 # (b) cell 38: FEMNIST's 3400 clients to MQTT_CLIENTS (the workers sample
-# MQTT_WORKERS of them a round), MQTT_ROUNDS rounds
-MQTT_CLIENTS, MQTT_WORKERS, MQTT_ROUNDS = 10, 2, 2
+# MQTT_WORKERS of them a round), MQTT_ROUNDS rounds (2 before phase 17; a
+# round 6.7 s)
+MQTT_CLIENTS, MQTT_WORKERS, MQTT_ROUNDS = 10, 2, 1
 PHASE16_CUTS = {
     "silo_grouped": ["epochs=1 (of 20)", f"samples a silo <= {SILO_CAP}",
                      f"comm_round={SILO_ROUNDS} (of 100)"],
     "mqtt_fedavg": [f"client_num_in_total={MQTT_CLIENTS} (of 3400)",
                     f"comm_round={MQTT_ROUNDS}"],
+}
+
+# Phase 17: the clients-sharded round over a process group (cells 39-40),
+# MD_RANKS ranks on the one card over gloo, each path's launches of the four
+# kernels counted, within PHASE17_BUDGET_S, on cuDNN's deterministic
+# algorithms. MD_TOL is the JAX package's bound on every leaf's largest
+# absolute gap between the sharded and the single-device round
+# (fedml_tpu/parallel/sharded.py:12-17): one round from the same globals,
+# equal but for the order of the weighted sum. Cuts of scale:
+PHASE17_BUDGET_S = 60.0
+MD_RANKS, MD_TOL, MD_DEAD_TIMEOUT_S = 2, 1e-6, 20.0
+# (a) cell 39: the flagship's 3400 clients to phase 3's 100, capped at CAP
+# samples, MD_FEMNIST_ROUNDS rounds (of 1500)
+MD_FEMNIST_ROUNDS = 3
+# (b) cell 40: NWP at phase 3's widths and data, MD_NWP_PER_ROUND of its 50
+# clients a round, MD_NWP_ROUNDS rounds
+MD_NWP_PER_ROUND, MD_NWP_ROUNDS = 10, 2
+PHASE17_CUTS = {
+    "femnist shard_map": [f"client_num_in_total={FEMNIST_CLIENTS} (of 3400)",
+                          f"samples a client <= {CAP}",
+                          f"comm_round={MD_FEMNIST_ROUNDS} (of 1500)"],
+    "nwp shard_map": [f"client_num_per_round={MD_NWP_PER_ROUND}",
+                      f"comm_round={MD_NWP_ROUNDS}"],
 }
 
 
@@ -1729,7 +1825,7 @@ def check_fedavgm_statistics(launches: dict) -> None:
     from fedml_tpu_torch.experiments import profile_zoo
     from fedml_tpu_torch.utils.pytree import split_variables
 
-    epochs = ["--epochs", str(XS_PAIR_EPOCHS)]
+    epochs = ["--epochs", str(XS_PAIR_EPOCHS), "--client_num_per_round", str(XS_PHASE5_SILOS)]
     base = profile_zoo.make_api("cross_silo", *epochs)
     other = profile_zoo.make_api("cross_silo", *epochs, "--server_optimizer", "sgd",
                                  "--server_lr", "1.0", "--server_momentum", "0.9",
@@ -1786,7 +1882,7 @@ def run_zoo_paths() -> dict:
 
     launches: dict = {}
     check_fedavgm_statistics(launches)
-    epochs = ["--epochs", str(XS_EPOCHS)]
+    epochs = ["--epochs", str(XS_EPOCHS), "--client_num_per_round", str(XS_PHASE5_SILOS)]
     api = profile_zoo.make_api("cross_silo", *epochs)
     tag = f"cross-silo resnet56 (E={XS_EPOCHS}, cut from 20; 2 rounds, cut from 100)"
     hist = zoo_path("cross-silo resnet56", launches, api.train)
@@ -1794,7 +1890,7 @@ def run_zoo_paths() -> dict:
     check_round_budget(tag, hist)
     check_running_statistics(api)
     bf16 = profile_zoo.make_api("cross_silo", "--epochs", str(XS_BF16_EPOCHS), "--dtype",
-                                "bfloat16")
+                                "bfloat16", "--client_num_per_round", str(XS_PHASE5_SILOS))
     bf16.global_variables = {k: v.clone() for k, v in api.global_variables.items()}
     bhist = zoo_path("cross-silo resnet56 bf16", launches, bf16.train)
     check_zoo_run(f"cross-silo resnet56 bf16 (E={XS_BF16_EPOCHS}, 2 rounds from the float32 "
@@ -1845,7 +1941,8 @@ def run_zoo_paths() -> dict:
 
     with tempfile.TemporaryDirectory() as run_dir:
         hist = zoo_path("cli defaults (mnist lr)", launches,
-                        lambda: main_fedavg.main(["--run_dir", run_dir]))
+                        lambda: main_fedavg.main(["--run_dir", run_dir, "--comm_round",
+                                                  str(CLI_ROUNDS)]))
     losses = [h["loss_sum"] / h["total"] for h in hist]
     if not losses[-1] < losses[0] or not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"cli defaults: training loss did not fall: {losses}")
@@ -2148,32 +2245,66 @@ def check_store_widths(built: dict) -> None:
                            f"clients' {built['largest']}: in-RAM packing would differ")
 
 
-def flagship_store(root: str, clients: int):
-    """Phase 7, step 1: check the disk, build the store in a spawned process
-    and open it as a FederatedDataset whose train and test splits are
-    MmapPackedStores. ``train_global`` is empty: no path of the port reads
-    it, and the flat copy would take 1.2 GB. Returns (dataset, build
-    numbers)."""
-    import multiprocessing
+class FlagshipStoreBuild:
+    """Phase 7's store, written from the script's start by a spawned process
+    of its own (``build_femnist_store``; it needs no kernel, so it runs
+    beside the kernels' build) into a temporary directory that ``close``
+    removes. Checks the disk first."""
+
+    def __init__(self, clients: int):
+        import multiprocessing
+        import shutil
+
+        from fedml_tpu_torch.data import sources
+
+        self.clients = clients
+        self._dir = tempfile.TemporaryDirectory(prefix="femnist_store_")
+        self.root = self._dir.name
+        rows = sources.FEMNIST_MAX_SAMPLES + sources.FEMNIST_MAX_SAMPLES // 9
+        need = clients * rows * (SIDE * SIDE * 4 + 4)  # float32 x, int32 y
+        free = shutil.disk_usage(self.root).free
+        log(f"flagship store: {free / 1e9:.2f} GB free under {self.root}, the store needs "
+            f"{need / 1e9:.2f} GB")
+        if free < 1.2 * need:
+            self._dir.cleanup()
+            raise RuntimeError(f"not enough disk for the {clients}-client store under "
+                               f"{self.root}")
+        self._pool = multiprocessing.get_context("spawn").Pool(1)
+        self._job = self._pool.apply_async(build_femnist_store, (self.root, clients))
+
+    def result(self) -> dict:
+        """The build's numbers, once its process has ended."""
+        built = self._job.get()
+        self._pool.close()
+        self._pool.join()
+        return built
+
+    def close(self) -> None:
+        """Stop the build's process if it still runs and remove the store."""
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
+            self._dir.cleanup()
+
+
+def flagship_store(store: FlagshipStoreBuild):
+    """Phase 7, step 1: wait for the store's build and open it as a
+    FederatedDataset whose train and test splits are MmapPackedStores.
+    ``train_global`` is empty: no path of the port reads it, and the flat
+    copy would take 1.2 GB. Returns (dataset, build numbers)."""
     import os
-    import shutil
 
     import numpy as np
 
-    from fedml_tpu_torch.data import sources
     from fedml_tpu_torch.data.packed_store import MmapPackedStore
     from fedml_tpu_torch.data.registry import FederatedDataset
 
-    rows = sources.FEMNIST_MAX_SAMPLES + sources.FEMNIST_MAX_SAMPLES // 9
-    need = clients * rows * (SIDE * SIDE * 4 + 4)  # float32 x, int32 y
-    free = shutil.disk_usage(root).free
-    log(f"flagship store: {free / 1e9:.2f} GB free under {root}, the store needs "
-        f"{need / 1e9:.2f} GB")
-    if free < 1.2 * need:
-        raise RuntimeError(f"not enough disk for the {clients}-client store under {root}")
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
-        built = pool.apply(build_femnist_store, (root, clients))
+    t0 = time.perf_counter()
+    built = store.result()
+    waited = time.perf_counter() - t0
     check_store_widths(built)
+    root = store.root
     with np.load(os.path.join(root, "test_global.npz")) as f:
         test_global = (f["x"], f["y"])
     train = MmapPackedStore(os.path.join(root, "train"))
@@ -2182,11 +2313,12 @@ def flagship_store(root: str, clients: int):
                           train_global=(np.zeros((0, SIDE, SIDE, 1), np.float32),
                                         np.zeros(0, np.int32)),
                           test_global=test_global, class_num=CLASSES)
-    log(f"flagship store: {clients} clients, {train.total_samples} train samples, padded "
-        f"width {train.n_max} (test {ds.test.n_max}), {len(test_global[1])} global test "
-        f"samples; built in {built['seconds']:.1f} s, {built['bytes'] / 1e9:.3f} GB on disk, "
-        f"the build's peak RSS {built['peak_rss_mb']:.1f} MB (from "
-        f"{built['start_rss_mb']:.1f} MB before it)")
+    log(f"flagship store: {store.clients} clients, {train.total_samples} train samples, "
+        f"padded width {train.n_max} (test {ds.test.n_max}), {len(test_global[1])} global "
+        f"test samples; built in {built['seconds']:.1f} s beside the earlier phases (phase 7 "
+        f"waited {waited:.1f} s for it), {built['bytes'] / 1e9:.3f} GB on disk, the build's "
+        f"peak RSS {built['peak_rss_mb']:.1f} MB (from {built['start_rss_mb']:.1f} MB before "
+        f"it)")
     return ds, built
 
 
@@ -2258,49 +2390,119 @@ def check_flagship_kernel(device) -> dict:
     return numbers
 
 
-def run_scale_rss() -> dict:
+def eval_span(api, round_idx: int) -> tuple:
+    """The drive's evaluation of ``api`` (``local_test_on_all_clients`` and
+    ``test_global``) under a fresh Tracer's ``eval`` span, the card synced
+    at its end: (its seconds, the federation's metrics)."""
+    import torch
+
+    from fedml_tpu_torch.telemetry import Tracer
+
+    tracer = Tracer()
+    with tracer.span("eval", round_idx):
+        out = api.local_test_on_all_clients(round_idx)
+        api.test_global(round_idx)
+        torch.cuda.synchronize()
+    return tracer.find_spans("eval")[0]["dur_s"], out
+
+
+def check_eval_residency(api, tracer) -> dict:
+    """Phase 7, step 5: the tracer's ``eval`` spans of ``api``'s drive at the
+    flagship's 3,400 clients, resident (the first staging both splits,
+    the last steady), then the same globals evaluated again resident and
+    chunked (``resident_eval`` off: the chunks staged from the store), each
+    in an ``eval`` span: the federation's sums within the CPU tests' 2e-5 /
+    1e-5; the staged bytes of both splits printed against the 8 GiB
+    budget."""
+    spans = [s["dur_s"] for s in sorted(tracer.find_spans("eval"), key=lambda s: s["round"])]
+    if not api._resident_cache:
+        raise RuntimeError("phase 7: the drive's eval fell back to the chunked path")
+    resident_s, resident = eval_span(api, FLAGSHIP_ENGINE_ROUNDS)
+    api.cfg = api.cfg.replace(resident_eval=False)
+    api._resident_cache = None
+    chunked_s, chunked = eval_span(api, FLAGSHIP_ENGINE_ROUNDS)
+    for k, want in chunked.items():
+        if not abs(resident[k] - want) <= 1e-5 + 2e-5 * abs(want):
+            raise RuntimeError(f"phase 7: resident {k} {resident[k]!r}, chunked {want!r}")
+    budget = api.cfg.resident_eval_budget
+    out = {"drive_eval_s": spans, "resident_s": resident_s, "chunked_s": chunked_s,
+           "staged_bytes": api.resident_eval_bytes, "budget_bytes": budget,
+           "metrics": resident, "max_gap": max(abs(resident[k] - chunked[k]) for k in chunked)}
+    log(f"eval span at {FLAGSHIP_CLIENTS} clients: the drive's {[round(t, 3) for t in spans]} s "
+        f"(the first staging both splits); again resident {resident_s:.3f} s, chunked "
+        f"{chunked_s:.3f} s; staged {api.resident_eval_bytes / 2 ** 30:.3f} GiB of the "
+        f"{budget / 2 ** 30:.0f} GiB budget; largest gap of the sums {out['max_gap']:.3g}; "
+        f"{resident}")
+    return out
+
+
+class ScaleRssSweep:
     """Phase 7, step 6: ``experiments/scale_rss.py`` at SCALE_POINTS (each
-    point a process of its own, training on the card); the last point's
-    peak RSS must stay within SCALE_RSS_RATIO of the one before."""
-    import os
+    point a process of its own, training on the card), started at the
+    script's start in a session of its own (it needs no kernel, so it runs
+    beside the kernels' build); ``result`` checks it, ``kill`` stops it and
+    its points."""
 
-    cmd = [sys.executable, "-m", "fedml_tpu_torch.experiments.scale_rss", "--points",
-           ",".join(str(n) for n in SCALE_POINTS)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    if proc.returncode != 0:
-        raise RuntimeError(f"scale_rss failed (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
-    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
-    points, summary = lines[:-1], lines[-1]
-    for p in points:
-        log(f"scale_rss {p['clients']} clients: peak RSS {p['peak_rss_mb']:.1f} MB (from "
-            f"{p['start_rss_mb']:.1f} MB at the point's start; ru_maxrss "
-            f"{p['ru_maxrss_mb']:.1f} MB), "
-            f"{p['rounds_per_sec']:.3f} rounds/s, store {p['store_logical_mb']:.1f} MB "
-            f"logical / {p['store_physical_mb']:.2f} MB on disk, on {p['device']}")
-    ratio = summary["rss_ratio_last_over_prev"]
-    log(f"scale_rss: peak RSS of {points[-1]['clients']} clients over {points[-2]['clients']}: "
-        f"{ratio:.4f}")
-    if ratio > SCALE_RSS_RATIO:
-        raise RuntimeError(f"scale_rss: peak RSS grew {ratio:.3f}x from "
-                           f"{points[-2]['clients']} to {points[-1]['clients']} clients")
-    return {"points": points, "ratio": ratio}
+    def __init__(self):
+        import os
+
+        cmd = [sys.executable, "-m", "fedml_tpu_torch.experiments.scale_rss", "--points",
+               ",".join(str(n) for n in SCALE_POINTS)]
+        self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True, start_new_session=True,
+                                      cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def kill(self) -> None:
+        import os
+        import signal
+
+        if self._proc.poll() is None:
+            os.killpg(self._proc.pid, signal.SIGKILL)
+            self._proc.wait()
+
+    def result(self) -> dict:
+        """The sweep's points; the last point's peak RSS must stay within
+        SCALE_RSS_RATIO of the one before."""
+        try:
+            stdout, stderr = self._proc.communicate(timeout=900)
+        finally:
+            self.kill()
+        if self._proc.returncode != 0:
+            raise RuntimeError(f"scale_rss failed (rc {self._proc.returncode}):\n"
+                               f"{stderr[-4000:]}")
+        lines = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+        points, summary = lines[:-1], lines[-1]
+        for p in points:
+            log(f"scale_rss {p['clients']} clients: peak RSS {p['peak_rss_mb']:.1f} MB (from "
+                f"{p['start_rss_mb']:.1f} MB at the point's start; ru_maxrss "
+                f"{p['ru_maxrss_mb']:.1f} MB), "
+                f"{p['rounds_per_sec']:.3f} rounds/s, store {p['store_logical_mb']:.1f} MB "
+                f"logical / {p['store_physical_mb']:.2f} MB on disk, on {p['device']}")
+        ratio = summary["rss_ratio_last_over_prev"]
+        log(f"scale_rss: peak RSS of {points[-1]['clients']} clients over "
+            f"{points[-2]['clients']}: {ratio:.4f}")
+        if ratio > SCALE_RSS_RATIO:
+            raise RuntimeError(f"scale_rss: peak RSS grew {ratio:.3f}x from "
+                               f"{points[-2]['clients']} to {points[-1]['clients']} clients")
+        return {"points": points, "ratio": ratio}
 
 
-def run_flagship(nwp, device, fused_launches: dict) -> dict:
+def run_flagship(nwp, device, fused_launches: dict, store: FlagshipStoreBuild,
+                 scale: ScaleRssSweep) -> dict:
     """Phase 7: the FEMNIST flagship at its configured 3400 clients from an
-    mmap shard store, fused and engine, at depth PIPE_DEPTH; the kernel at
-    the store's padded width; one round each of the fused, the masked
-    engine and the NWP path under the sync check; scale_rss. Returns its
-    numbers."""
+    mmap shard store (``store``, built beside the earlier phases), fused and
+    engine, at depth PIPE_DEPTH; the kernel at the store's padded width; one
+    round each of the fused, the masked engine and the NWP path under the
+    sync check; the scale_rss sweep's result (``scale``, run beside the
+    earlier phases). Returns its numbers."""
     from fedml_tpu_torch import FedAvgAPI, FedConfig, NWPTrainer, create_model
     from fedml_tpu_torch.robustness.chaos import FaultPlan
 
     started = time.perf_counter()
     numbers = {}
     flagship = dict(client_num_in_total=FLAGSHIP_CLIENTS, pipeline_depth=PIPE_DEPTH)
-    with tempfile.TemporaryDirectory(prefix="femnist_store_") as root:
-        ds, numbers["build"] = flagship_store(root, FLAGSHIP_CLIENTS)
+    try:
+        ds, numbers["build"] = flagship_store(store)
         tag = f"flagship {FLAGSHIP_CLIENTS} fused depth {PIPE_DEPTH}"
         api = femnist_api(ds, True, comm_round=FLAGSHIP_ROUNDS,
                           frequency_of_the_test=FLAGSHIP_ROUNDS, **flagship)
@@ -2319,12 +2521,13 @@ def run_flagship(nwp, device, fused_launches: dict) -> dict:
         engine = femnist_api(ds, False, comm_round=FLAGSHIP_ENGINE_ROUNDS,
                              frequency_of_the_test=FLAGSHIP_ENGINE_ROUNDS, fast_sampling=True,
                              **flagship)
-        (hist, _, numbers["engine"]), n = count_launches(lambda: drive(tag, engine))
+        (hist, tracer, numbers["engine"]), n = count_launches(lambda: drive(tag, engine))
         if any(n.values()):
             raise RuntimeError(f"{tag} launched a kernel: {n}")
         losses = check_trained(tag, engine, hist)
         log(f"{tag}: train loss {[round(v, 4) for v in losses]}, Test/Acc "
             f"{hist[-1]['Test/Acc']:.4f}")
+        numbers["eval"] = check_eval_residency(engine, tracer)
         r = FLAGSHIP_ENGINE_ROUNDS
         rates = dict(drop_rate=0.3, nan_rate=0.3)
         metrics = dispatch_without_sync(
@@ -2332,8 +2535,11 @@ def run_flagship(nwp, device, fused_launches: dict) -> dict:
             chaos=FaultPlan(seed=chaos_seed(r + 1, 10, r, **rates), **rates))
         if metrics["quarantined_count"] < 1:
             raise RuntimeError(f"the sync check's masked round quarantined no client: {metrics}")
-        for store in (ds.train, ds.test):
-            store.close()
+        del engine
+        for split in (ds.train, ds.test):
+            split.close()
+    finally:
+        store.close()
 
     cfg = FedConfig(dataset="stackoverflow_nwp", model="transformer_nwp",
                     client_num_in_total=NWP_CLIENTS, client_num_per_round=NWP_PER_ROUND,
@@ -2344,7 +2550,7 @@ def run_flagship(nwp, device, fused_launches: dict) -> dict:
                         device="cuda")
     nwp_api.train_one_round(0)
     dispatch_without_sync("nwp at full width", nwp_api, 1)
-    numbers["scale"] = run_scale_rss()
+    numbers["scale"] = scale.result()
     log(f"phase 7: {time.perf_counter() - started:.1f} s")
     return numbers
 
@@ -2443,14 +2649,39 @@ def launch(path, overrides, run_dir: str, profile: bool = False) -> dict:
     return row
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
 def write_multihost_control(directory: str) -> str:
-    """A ``fednas`` config with a ``multihost:`` block (not ported: it must
-    raise NotImplementedError naming ROADMAP); returns its path."""
+    """A ``fednas`` config with a ``multihost:`` block on loopback whose
+    second rank never comes up: the rendezvous must raise a RuntimeError
+    naming the coordinator within the block's 2 s timeout; returns its
+    path."""
     path = f"{directory}/fednas_multihost.yaml"
     with open(path, "w") as f:
         f.write("algorithm: fednas\nargs:\n  dataset: mnist\nmultihost:\n"
-                "  coordinator: \"localhost:1234\"\n  num_processes: 4\n")
+                f"  coordinator: \"localhost:{free_port()}\"\n  num_processes: 2\n"
+                "  process_id: 0\n  timeout: 2\n")
     return path
+
+
+def check_multihost_control(directory: str) -> str:
+    """Run ``write_multihost_control``'s config; returns the error's text."""
+    from fedml_tpu_torch.experiments import fed_launch
+
+    try:
+        fed_launch.main(["--config", write_multihost_control(directory)])
+    except RuntimeError as e:
+        if "coordinator=localhost:" not in str(e) or "process_id=0" not in str(e):
+            raise RuntimeError(f"the multihost block's error names no coordinator or rank: "
+                               f"{e}")
+        return str(e)[:160]
+    raise RuntimeError("a multihost: block whose peer never came up did not raise")
 
 
 def run_launcher(fused_launches: dict) -> dict:
@@ -2482,16 +2713,8 @@ def run_launcher(fused_launches: dict) -> dict:
             row = next(r for r in rows if r["config"] == name)
             if row["backend"] != "shard_map":
                 raise RuntimeError(f"{name} ran with backend {row['backend']}, not as written")
-        control = write_multihost_control(run_dir)
-        try:
-            fed_launch.main(["--config", control])
-        except NotImplementedError as e:
-            if "ROADMAP" not in str(e):
-                raise RuntimeError(f"the multihost block's error names no ROADMAP: {e}")
-            log(f"phase 8 control: fednas with a multihost: block raises "
-                f"NotImplementedError ({e})")
-        else:
-            raise RuntimeError("a multihost: block (fednas) did not raise")
+        log(f"phase 8 control: fednas with a multihost: block and no peer raises "
+            f"RuntimeError ({check_multihost_control(run_dir)})")
         silo = next(p for p in paths if p.name == "cross_silo_cifar10_resnet56.yaml")
         for overrides, bf16, profile in CROSS_SILO_ROWS:
             for dtype in ("float32", "bfloat16") if bf16 else ("float32",):
@@ -4386,7 +4609,7 @@ SPLIT_LAUNCH = {
 def run_split_launcher() -> dict:
     """Phase 14 (d): ``fedgkt``, ``split_nn`` and ``vfl`` each run through
     ``fed_launch`` from a YAML; phase 8's control, a ``fednas`` config with
-    a ``multihost:`` block, still raises."""
+    a ``multihost:`` block whose peer never comes up, raises."""
     import math
 
     from fedml_tpu_torch.experiments import fed_launch
@@ -4405,13 +4628,8 @@ def run_split_launcher() -> dict:
             if len(records) != 1 or not all(math.isfinite(v) for v in values):
                 raise RuntimeError(f"fed_launch {name}: {result}")
             out[name] = {"seconds": round(time.perf_counter() - t0, 2), **records[0]}
-        control = write_multihost_control(tmp)
-        try:
-            fed_launch.main(["--config", control])
-        except NotImplementedError:
-            out["fednas multihost"] = "raises NotImplementedError"
-        else:
-            raise RuntimeError("a multihost: block (fednas) did not raise")
+        check_multihost_control(tmp)
+        out["fednas multihost"] = "no peer: raises RuntimeError"
     log(f"the split-learning launcher names: {json.dumps(out)}")
     return out
 
@@ -5008,7 +5226,407 @@ def run_silo_mqtt(fused_launches: dict, flash_launches: dict) -> dict:
     return out
 
 
+# ---- phase 17: the clients-sharded round over a process group (cells 39-40)
+
+
+def md_config(path: str, port, overrides: dict) -> str:
+    """``fedavg_femnist.yaml`` with ``overrides`` on its args, and with a
+    ``multihost:`` block on loopback at ``port`` (None: no block), written
+    as JSON (which the launcher reads as YAML); returns ``path``."""
+    from fedml_tpu_torch.experiments import fed_launch
+
+    cfg = fed_launch._load_yaml(f"{CONFIG_DIR}/fedavg_femnist.yaml")
+    cfg["args"] = {**cfg["args"], **overrides}
+    if port is not None:
+        cfg["multihost"] = {"coordinator": f"localhost:{port}", "num_processes": MD_RANKS,
+                            "backend": "gloo", "timeout": 120}
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def md_settings() -> None:
+    """The phase's numerics in every process: TF32 off (phase 2's) and
+    cuDNN's deterministic algorithms (the bit-identity checks')."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def md_capped_loader():
+    """Cap the CLI's dataset at CAP samples a client, as phase 3 does;
+    returns the loader it replaced."""
+    from fedml_tpu_torch.experiments import main_fedavg
+
+    load = main_fedavg.load_dataset
+    main_fedavg.load_dataset = lambda *a, **kw: capped(load(*a, **kw), CAP)
+    return load
+
+
+def md_spy_rounds():
+    """Record every FedAvgAPI dispatch's round and starting globals (cloned
+    on the device: no sync) and the API: ([(round, globals)], [api])."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+
+    starts, apis = [], []
+    dispatch = FedAvgAPI._dispatch
+
+    def spy(self, staged, rng_salt):
+        starts.append((staged.round_idx,
+                       {k: v.detach().clone() for k, v in self.global_variables.items()}))
+        if not apis or apis[-1] is not self:
+            apis.append(self)
+        return dispatch(self, staged, rng_salt)
+
+    FedAvgAPI._dispatch = spy
+    return starts, apis
+
+
+def md_cpu(tree: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in tree.items()}
+
+
+def md_evals(hist: list) -> list:
+    """The evaluated rounds' metrics of a history, in key order."""
+    return [[h[k] for k in sorted(h) if "/" in k] for h in hist if "Test/Acc" in h]
+
+
+def md_time_all_reduce(tree: dict, reps: int = 5) -> float:
+    """The all-reduce of ``tree`` (the round's packed buffer) alone: the
+    median ms of ``reps`` calls, the card synced before and after each."""
+    import torch
+
+    from fedml_tpu_torch.parallel.mesh import all_reduce_tree
+
+    ms = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_tree(tree)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms[1:])
+
+
+def md_rank(rank: int, port: int, tmp: str) -> None:
+    """One rank of phase 17's group: (a) the flagship through fed_launch's
+    multihost block, (b) NWP through FedAvgAPI, both sharded; each
+    checked for agreement across the ranks; results to ``tmp/rank<r>.pt``."""
+    import os
+
+    os.environ["FEDML_PROCESS_ID"] = str(rank)
+    import torch
+
+    from fedml_tpu_torch import FedAvgAPI, FedConfig, NWPTrainer, create_model
+    from fedml_tpu_torch.experiments import fed_launch
+    from fedml_tpu_torch.parallel import mesh, multihost
+
+    md_settings()
+    md_capped_loader()
+    starts, apis = md_spy_rounds()
+    out = {}
+    t0 = time.perf_counter()
+    hist, n = count_launches(lambda: fed_launch.main(
+        ["--config", f"{tmp}/a.json", "--override", f"run_dir={tmp}/runs/rank{rank}"]))
+    api = apis[-1]
+    multihost.assert_same_across_processes(api.global_variables, "femnist globals")
+    multihost.assert_same_across_processes(md_evals(hist), "femnist evals")
+    m = api.mesh
+    out["a"] = {"seconds": time.perf_counter() - t0, "launches": n, "hist": hist,
+                "mesh": [m.world_size, m.rank, m.backend, str(m.device)],
+                "starts": [(r, md_cpu(g)) for r, g in starts],
+                "final": md_cpu(api.global_variables), "collectives": dict(mesh.COLLECTIVES),
+                "allreduce_ms": md_time_all_reduce(
+                    {k: torch.zeros_like(v) for k, v in api.global_variables.items()})}
+    starts.clear()
+    mesh.COLLECTIVES.update(calls=0, bytes=0, seconds=0.0)
+    t0 = time.perf_counter()
+    nwp = load_nwp()
+    cfg = FedConfig(dataset="stackoverflow_nwp", model="transformer_nwp",
+                    client_num_in_total=NWP_CLIENTS, client_num_per_round=MD_NWP_PER_ROUND,
+                    batch_size=NWP_BATCH, lr=NWP_LR, grad_clip=1.0, epochs=1,
+                    comm_round=MD_NWP_ROUNDS, seed=SEED, backend="shard_map")
+    api = FedAvgAPI(nwp, cfg, NWPTrainer(create_model("transformer_nwp",
+                                                      output_dim=nwp.class_num)),
+                    device="cuda")
+    hist, n = count_launches(api.train)
+    multihost.assert_same_across_processes(api.global_variables, "nwp globals")
+    multihost.assert_same_across_processes(md_evals(hist), "nwp evals")
+    out["b"] = {"seconds": time.perf_counter() - t0, "launches": n, "hist": hist,
+                "starts": [(r, md_cpu(g)) for r, g in starts],
+                "final": md_cpu(api.global_variables), "collectives": dict(mesh.COLLECTIVES),
+                "allreduce_ms": md_time_all_reduce(
+                    {k: torch.zeros_like(v) for k, v in api.global_variables.items()}),
+                "scalar_allreduce_ms": md_time_all_reduce(
+                    {"w": torch.zeros((), device=api.device)})}
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def md_dead_rank(rank: int, port: int, tmp: str) -> None:
+    """Phase 17 (c): a group of two whose rank 1 exits right after the
+    rendezvous, before any collective; rank 0's all-reduce of a tensor on
+    the card must raise. Rank 0 writes what happened to ``tmp/dead.pt``."""
+    import os
+
+    import torch
+
+    from fedml_tpu_torch.parallel import mesh, multihost
+
+    multihost.init_multihost(f"localhost:{port}", 2, rank,
+                             initialization_timeout=MD_DEAD_TIMEOUT_S)
+    if rank == 1:
+        os._exit(0)  # no goodbye to the group
+    x = torch.ones(1024, device="cuda")
+    time.sleep(1.0)
+    t0 = time.perf_counter()
+    try:
+        mesh.all_reduce_tree({"x": x})
+        result = {"raised": None}
+    except RuntimeError as e:
+        result = {"raised": str(e), "seconds": time.perf_counter() - t0}
+    torch.save(result, f"{tmp}/dead.pt")
+    os._exit(0)  # the group's teardown would wait for the dead peer
+
+
+def md_reference(tag: str, api, starts: list, final: dict) -> dict:
+    """Each round the rank ran, again in this process on the single-device
+    round from the rank's starting globals (the same cohort and draws):
+    every leaf within MD_TOL of the rank's result. Returns the gaps and
+    the single-device rounds' ms (the card synced around each)."""
+    import torch
+
+    from fedml_tpu_torch.telemetry import NULL_TRACER
+
+    ends = [g for _, g in starts[1:]] + [final]
+    gaps, times = [], []
+    for (r, start), end in zip(starts, ends):
+        api.global_variables = {k: v.to(api.device) for k, v in start.items()}
+        api.agg_state = api.aggregator.init_state(api.global_variables)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.train_one_round(r, tracer=NULL_TRACER)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        gaps.append(max(float((api.global_variables[k].cpu() - v).abs().max())
+                        for k, v in end.items()))
+        if gaps[-1] > MD_TOL:
+            raise RuntimeError(f"{tag}: round {r} sharded vs single-device: a leaf "
+                               f"{gaps[-1]:.3g} apart (limit {MD_TOL})")
+    return {"gaps": gaps, "single_round_ms": times}
+
+
+def md_nccl_one_rank(ds) -> dict:
+    """A one-rank NCCL group through the sharded round on one FEMNIST
+    cohort: its globals the single-device round's bits (an all-reduce over
+    one rank is the identity; the weighted sum is otherwise the same)."""
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.algorithms.aggregators import make_aggregator
+    from fedml_tpu_torch.algorithms.engine import build_round_fn
+    from fedml_tpu_torch.algorithms.fedavg import client_sampling, round_generator
+    from fedml_tpu_torch.parallel import build_sharded_round_fn, make_mesh, mesh, multihost
+
+    multihost.init_multihost(f"localhost:{free_port()}", 1, 0, initialization_timeout=60,
+                             backend="nccl")
+    try:
+        md = make_mesh(device="cuda")
+        cfg = femnist_cfg(FEMNIST_CLIENTS, 1, 10)
+        trainer = cnn_trainer(ds)
+        agg = make_aggregator("fedavg", cfg)
+        dev = md.device
+        gv = trainer.init(torch.Generator().manual_seed(SEED), dev)
+        idx = client_sampling(0, ds.client_num, 10)
+        x, y, c = ds.train.select(idx)
+        args = [torch.from_numpy(a).to(dev) for a in (x, y, c)]
+        want = build_round_fn(trainer, cfg, agg, device=dev)(
+            gv, (), *args, round_generator(SEED, 0), host_counts=c)
+        calls = mesh.COLLECTIVES["calls"]
+        got = build_sharded_round_fn(trainer, cfg, agg, md)(
+            gv, (), *args, round_generator(SEED, 0), host_counts=c)
+        calls = mesh.COLLECTIVES["calls"] - calls
+        same_bits("phase 17 nccl one rank", got[0], want[0])
+        out = {"backend": md.backend, "device": str(dev), "all_reduces": calls}
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 17 nccl: a one-rank nccl group's sharded round ({calls} all-reduces) gives "
+        f"the single-device round's bits: {out}")
+    return out
+
+
+def run_multidevice(fused_launches: dict, flash_launches: dict) -> dict:
+    """Phase 17 (see the module docstring). Returns the phase's numbers."""
+    import argparse
+    import multiprocessing
+
+    import torch
+
+    from fedml_tpu_torch import FedAvgAPI, FedConfig, NWPTrainer, create_model, load_dataset
+    from fedml_tpu_torch.experiments import fed_launch, main_fedavg
+    from fedml_tpu_torch.ops import attention
+
+    started = time.perf_counter()
+    log(f"phase 17 cuts: {json.dumps(PHASE17_CUTS)}")
+    md_settings()
+    ctx = multiprocessing.get_context("spawn")
+    out = {}
+    overrides = {"client_num_in_total": FEMNIST_CLIENTS, "comm_round": MD_FEMNIST_ROUNDS,
+                 "frequency_of_the_test": MD_FEMNIST_ROUNDS, "device": "cuda"}
+    with tempfile.TemporaryDirectory(prefix="multidevice_") as tmp:
+        port, dead_port = free_port(), free_port()
+        md_config(f"{tmp}/a.json", port, overrides)
+        # (c) first: its two processes come up beside (a)'s and are gone
+        # before (a) and (b) train
+        dead = [ctx.Process(target=md_dead_rank, args=(r, dead_port, tmp))
+                for r in range(2)]
+        ranks = [ctx.Process(target=md_rank, args=(r, port, tmp)) for r in range(MD_RANKS)]
+        for p in dead + ranks:
+            p.start()
+        for p in dead:
+            p.join(MD_DEAD_TIMEOUT_S + 60)
+        if any(p.is_alive() for p in dead):
+            for p in dead + ranks:
+                p.kill()
+            raise RuntimeError("phase 17 (c): the dead-rank group hung")
+        dead_out = torch.load(f"{tmp}/dead.pt", weights_only=False)
+        if not dead_out["raised"] or "coordinator=localhost:" not in dead_out["raised"] \
+                or "rank 0 of 2" not in dead_out["raised"]:
+            raise RuntimeError(f"phase 17 (c): rank 0 did not raise naming the coordinator "
+                               f"and its rank: {dead_out}")
+        out["dead_rank"] = {"raised_after_s": dead_out["seconds"],
+                            "error": dead_out["raised"][:200]}
+        log(f"phase 17 (c): rank 1 died before the first collective; rank 0's all-reduce "
+            f"raised after {dead_out['seconds']:.3f} s: {dead_out['raised'][:200]}")
+        for p in ranks:
+            p.join(600)
+        if any(p.is_alive() or p.exitcode != 0 for p in ranks):
+            for p in ranks:
+                p.kill()
+            raise RuntimeError(f"phase 17: a rank failed: exit codes "
+                               f"{[p.exitcode for p in ranks]}")
+        rank_out = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                    for r in range(MD_RANKS)]
+        argv = fed_launch.resolve(["--config", md_config(f"{tmp}/ref.json", None,
+                                                         overrides)])[1]
+    spawn_s = time.perf_counter() - started
+
+    # (a): every round against the single-device round from the same globals
+    a = [r["a"] for r in rank_out]
+    for r, ra in enumerate(a):
+        if ra["mesh"][:3] != [MD_RANKS, r, "gloo"] or any(ra["launches"].values()):
+            raise RuntimeError(f"phase 17 (a) rank {r}: mesh {ra['mesh']}, launches "
+                               f"{ra['launches']}")
+        fused_launches[f"phase 17 femnist shard_map rank {r}"] = ra["launches"]["fused_epoch"]
+        flash_launches[f"phase 17 femnist shard_map rank {r}"] = {
+            k: ra["launches"][k] for k in attention.launches}
+    load = md_capped_loader()
+    try:
+        cfg, ds, trainer = main_fedavg.setup_run(
+            main_fedavg.add_args(argparse.ArgumentParser()).parse_args(argv))
+    finally:
+        main_fedavg.load_dataset = load
+    ref = FedAvgAPI(ds, cfg, trainer, device="cuda")
+    same_bits("phase 17 (a) initial globals", a[0]["starts"][0][1], md_cpu(ref.global_variables))
+    straight = FedAvgAPI(ds, cfg, trainer, device="cuda")
+    for r in range(MD_FEMNIST_ROUNDS):
+        straight.train_one_round(r)
+    out["femnist"] = {
+        **md_reference("phase 17 (a)", ref, a[0]["starts"], a[0]["final"]),
+        "rank_round_ms": [[h["round_time"] * 1e3 for h in ra["hist"]] for ra in a],
+        "straight_gap": max(float((straight.global_variables[k].cpu() - v).abs().max())
+                            for k, v in a[0]["final"].items()),
+        "collectives": a[0]["collectives"], "allreduce_ms": a[0]["allreduce_ms"],
+        "test_acc": a[0]["hist"][-1]["Test/Acc"], "seconds": a[0]["seconds"]}
+    log(f"phase 17 (a) femnist shard_map over {MD_RANKS} ranks: {json.dumps(out['femnist'])}")
+
+    # (b): the flash kernels on every rank, the globals held as in (a)
+    b = [r["b"] for r in rank_out]
+    for r, rb in enumerate(b):
+        flash = {k: rb["launches"][k] for k in attention.launches}
+        if min(flash.values()) < 1 or rb["launches"]["fused_epoch"]:
+            raise RuntimeError(f"phase 17 (b) rank {r}: launches {rb['launches']}")
+        flash_launches[f"phase 17 nwp shard_map rank {r}"] = flash
+        fused_launches[f"phase 17 nwp shard_map rank {r}"] = 0
+    nwp = load_nwp()
+    cfg = FedConfig(dataset="stackoverflow_nwp", model="transformer_nwp",
+                    client_num_in_total=NWP_CLIENTS, client_num_per_round=MD_NWP_PER_ROUND,
+                    batch_size=NWP_BATCH, lr=NWP_LR, grad_clip=1.0, epochs=1,
+                    comm_round=MD_NWP_ROUNDS, seed=SEED)
+    ref = FedAvgAPI(nwp, cfg, NWPTrainer(create_model("transformer_nwp",
+                                                      output_dim=nwp.class_num)),
+                    device="cuda")
+    out["nwp"] = {
+        **md_reference("phase 17 (b)", ref, b[0]["starts"], b[0]["final"]),
+        "rank_round_ms": [[h["round_time"] * 1e3 for h in rb["hist"]] for rb in b],
+        "launches": [{k: rb["launches"][k] for k in attention.launches} for rb in b],
+        "collectives": b[0]["collectives"], "allreduce_ms": b[0]["allreduce_ms"],
+        "scalar_allreduce_ms": b[0]["scalar_allreduce_ms"], "seconds": b[0]["seconds"]}
+    log(f"phase 17 (b) nwp shard_map over {MD_RANKS} ranks: {json.dumps(out['nwp'])}")
+    out["nccl"] = md_nccl_one_rank(ds)
+    torch.backends.cudnn.deterministic = False
+    seconds = time.perf_counter() - started
+    out["seconds"], out["spawned_s"] = round(seconds, 1), round(spawn_s, 1)
+    if seconds > PHASE17_BUDGET_S:
+        log(f"WARNING phase 17 took {seconds:.1f} s, over its {PHASE17_BUDGET_S:.0f} s budget")
+    log(f"phase 17: {seconds:.1f} s ({spawn_s:.1f} s of it the ranks')")
+    return out
+
+
+#: what main undoes at its end, however it ends: the build's thread is
+#: waited for, the store's process and the scale_rss sweep are stopped and
+#: the store removed
+_CLEANUPS: list = []
+
+
+class KernelBuild:
+    """Phase 1's build on a thread of its own (``ops/_build.py::build``: one
+    ``nvcc`` a source, all started together), so that work that needs no
+    kernel runs meanwhile. ``wait`` returns the build's ptxas reports or
+    raises its error; ``seconds`` is the build's own time."""
+
+    def __init__(self, names):
+        import threading
+
+        from fedml_tpu_torch.ops import _build
+
+        self.seconds = None
+        self._out: dict = {}
+        started = time.perf_counter()
+
+        def run():
+            try:
+                self._out["reports"] = _build.build(names)
+            except BaseException as e:  # noqa: BLE001 — raised again by wait
+                self._out["error"] = e
+            self.seconds = time.perf_counter() - started
+
+        self._thread = threading.Thread(target=run, name="nvcc", daemon=True)
+        self._thread.start()
+
+    def wait(self) -> dict:
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["reports"]
+
+    def wait_quietly(self) -> None:
+        """Let the ``nvcc`` processes end, whatever they return."""
+        self._thread.join()
+
+
 def main(argv=None) -> int:
+    try:
+        return _main(argv)
+    finally:
+        while _CLEANUPS:
+            _CLEANUPS.pop()()
+
+
+def _main(argv=None) -> int:
     import argparse
 
     import torch
@@ -5043,6 +5661,10 @@ def main(argv=None) -> int:
     parser.add_argument("--silo-mqtt-only", action="store_true",
                         help="build the kernels, then run phase 16 alone (the silo-grouped "
                         "round and FedAvg over MQTT), checking it and printing no result")
+    parser.add_argument("--multidevice-only", action="store_true",
+                        help="build the kernels, then run phase 17 alone (the clients-sharded "
+                        "round over a process group of two ranks on the card), checking it "
+                        "and printing no result")
     parser.add_argument("--serving-only", action="store_true",
                         help="build the kernels, then run phase 3's NWP path (for its "
                         "launch counts) and phase 11 alone (LoRA, the client ledger, the "
@@ -5064,10 +5686,37 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    build = KernelBuild(["fused_sgd", "flash_attention"])
+    _CLEANUPS.append(build.wait_quietly)
+    # phase 2 onwards: TF32 off for the plain float32 versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    only = (opts.launcher_only or opts.privacy_only or opts.transport_only
+            or opts.serving_only or opts.datasets_only or opts.algorithms_only
+            or opts.split_only or opts.search_seg_only or opts.silo_mqtt_only
+            or opts.multidevice_only)
+    fused_launches, flash_launches = {}, {}
+    if not (only or calibrate):
+        # while nvcc runs: phase 7's store and its scale_rss sweep, each in
+        # processes of its own, and the two phases that launch none of the
+        # kernels, need nothing of the phases before them and start no
+        # profiler (14 and 15). A profiler session started before the
+        # kernels' libraries are loaded leaves later sessions blind to
+        # their launches (phase 16 here made phase 2's one-launch check
+        # read no device event on the H100), so phase 16 keeps its place
+        log("while the kernels build: phase 7's store and scale_rss sweep in processes "
+            "of their own, and phases 14 and 15")
+        store = FlagshipStoreBuild(FLAGSHIP_CLIENTS)
+        _CLEANUPS.append(store.close)
+        scale = ScaleRssSweep()
+        _CLEANUPS.append(scale.kill)
+        split_family = run_split_family(fused_launches, flash_launches)
+        search_seg = run_search_seg(fused_launches, flash_launches)
     t0 = time.perf_counter()
-    reports = _build.build(["fused_sgd", "flash_attention"])
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(reports) or 'already built'})")
+    reports = build.wait()
+    log(f"kernel build: {build.seconds:.1f} s ({', '.join(reports) or 'already built'}); "
+        f"waited {time.perf_counter() - t0:.1f} s for it")
     for name in ("fused_sgd", "flash_attention"):
         # the build keeps each library's ptxas report beside it
         kernels = ptxas_kernels(_build.library_path(name).with_suffix(".ptxas.txt").read_text())
@@ -5077,13 +5726,8 @@ def main(argv=None) -> int:
         for line in check_spills(kernels):
             log(f"    {line}")
 
-    # ---- phase 2: kernels vs plain versions, TF32 off for the plain float32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    if (opts.launcher_only or opts.privacy_only or opts.transport_only or opts.serving_only
-            or opts.datasets_only or opts.algorithms_only or opts.split_only
-            or opts.search_seg_only or opts.silo_mqtt_only):
+    # ---- phase 2: kernels vs plain versions (TF32 off since the build)
+    if only:
         if opts.launcher_only:
             run_launcher({})
         if opts.privacy_only:
@@ -5116,6 +5760,8 @@ def main(argv=None) -> int:
             run_search_seg({}, {})
         if opts.silo_mqtt_only:
             run_silo_mqtt({}, {})
+        if opts.multidevice_only:
+            run_multidevice({}, {})
         log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
         return 0
     if calibrate:
@@ -5139,7 +5785,6 @@ def main(argv=None) -> int:
     log(f"femnist surrogate: {FEMNIST_CLIENTS} clients (cut from 3400), capped at "
         f"{CAP} samples, padded width {ds.train.n_max}, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    fused_launches, flash_launches = {}, {}
     fused_hist, n = with_launches("femnist fused fedavg", ["fused_epoch"],
                                   lambda: run_main_path(ds, fused=True))
     fused_launches["femnist fused fedavg"] = n["fused_epoch"]
@@ -5158,7 +5803,8 @@ def main(argv=None) -> int:
     _, flash_launches["nwp fedadam"] = with_launches(
         "nwp fedadam", flash,
         lambda: run_nwp_path(nwp, "fedopt", "nwp fedadam", server_optimizer="adam",
-                             server_lr=1e-2, frequency_of_the_test=ROUNDS))
+                             server_lr=1e-2, comm_round=NWP_FEDADAM_ROUNDS,
+                             frequency_of_the_test=NWP_FEDADAM_ROUNDS))
     run_main_path(ds, False, "fednova", tag="engine fednova+momentum+wd+fedprox",
                   comm_round=2, momentum=0.9, wd=1e-4, fedprox_mu=0.01)
     run_main_path(ds, False, tag="engine amsgrad", comm_round=2, client_optimizer="adam",
@@ -5175,7 +5821,7 @@ def main(argv=None) -> int:
     drive_numbers = run_drives(ds, nwp, fused_launches, flash_launches)
 
     # ---- phase 7: the flagship at its configured 3400 clients, out of core
-    flagship = run_flagship(nwp, dev, fused_launches)
+    flagship = run_flagship(nwp, dev, fused_launches, store, scale)
 
     # ---- phase 8: the launcher over the repo's 26 YAML configs
     launcher = run_launcher(fused_launches)
@@ -5204,17 +5850,17 @@ def main(argv=None) -> int:
     algorithms = run_algorithms(ds, fused_launches, flash_launches)
     del ds, nwp
 
-    # ---- phase 14: FedML's split-learning family (cells 32-34; no kernel
-    # runs on their paths)
-    split_family = run_split_family(fused_launches, flash_launches)
-
-    # ---- phase 15: FedNAS and FedSeg (cells 35-36; no kernel runs on
-    # their paths)
-    search_seg = run_search_seg(fused_launches, flash_launches)
+    # ---- phases 14 (FedML's split-learning family, cells 32-34) and 15
+    # (FedNAS and FedSeg, cells 35-36) ran while the kernels built; no
+    # kernel runs on their paths
 
     # ---- phase 16: the silo-grouped round and FedAvg over MQTT (cells
     # 37-38; no kernel runs on their paths)
     silo_mqtt = run_silo_mqtt(fused_launches, flash_launches)
+
+    # ---- phase 17: the clients-sharded round over a process group of two
+    # ranks on the card (cells 39-40; the flash kernels on (b)'s path)
+    multidevice = run_multidevice(fused_launches, flash_launches)
     launches = sum(fused_launches.values())
     attn_launches = {k: sum(p[k] for p in flash_launches.values()) for k in flash}
 
@@ -5252,7 +5898,7 @@ def main(argv=None) -> int:
     log(f"bfloat16 fused_epoch at {FLAGSHIP_SAMPLES} rows: "
         f"{json.dumps(flagship['kernel']['bfloat16'])}")
     log(f"flagship {FLAGSHIP_CLIENTS}: "
-        f"{json.dumps({k: flagship[k] for k in ('fused', 'engine')})}")
+        f"{json.dumps({k: flagship[k] for k in ('fused', 'engine', 'eval')})}")
     log(f"launcher: {json.dumps(launcher)}")
     log(f"privacy: {json.dumps(privacy)}")
     log(f"transport: {json.dumps(transport)}")
@@ -5262,6 +5908,7 @@ def main(argv=None) -> int:
     log(f"split family: {json.dumps(split_family)}")
     log(f"search and segmentation: {json.dumps(search_seg)}")
     log(f"silo-grouped round and fedavg over mqtt: {json.dumps(silo_mqtt)}")
+    log(f"clients-sharded round over {MD_RANKS} ranks: {json.dumps(multidevice)}")
     log(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

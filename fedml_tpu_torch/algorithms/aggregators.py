@@ -20,6 +20,15 @@ and server optimizer state, the robust rule's clip and noise and FedNova's
 tau normalisation see parameters only (``utils/pytree.py::split_variables``).
 ``rng`` is the round's CPU generator; an aggregator state is a dict of
 tensors on the device.
+
+Each aggregator also has ``sharded(gv, result, weights, rng, state)``: the
+same rule in the clients-sharded round (``parallel/sharded.py``), where
+``result`` and ``weights`` hold this rank's block of the cohort and
+``group`` is the process group (None: the default one). Every
+cross-client reduction becomes a locally weighted partial sum and an
+``all_reduce(SUM)`` over the process group (``tree_weighted_sum_psum``);
+per-client work (clipping, tau normalisation) stays local, so the sharded
+rule equals ``__call__`` up to float summation order.
 """
 
 from __future__ import annotations
@@ -70,6 +79,35 @@ def quarantine_stage(result, weights, participation):
     return safe, masked, alive, quarantined
 
 
+def tree_weighted_sum_psum(stacked: dict, weights: torch.Tensor, group=None) -> dict:
+    """The cross-rank weighted SUM: this rank's clients weight-summed, then
+    the leaf-sized partials all-reduced over the process group in one
+    buffer (``parallel/mesh.py::all_reduce_tree``). Callers own the weight
+    normalisation."""
+    from fedml_tpu_torch.parallel.mesh import all_reduce_tree
+
+    def wsum(leaf):
+        wb = weights.reshape((-1,) + (1,) * (leaf.dim() - 1)).to(leaf.dtype)
+        return (leaf * wb).sum(0)
+
+    return all_reduce_tree({k: wsum(v) for k, v in stacked.items()}, group=group)
+
+
+def total_weight_psum(weights: torch.Tensor, group=None) -> torch.Tensor:
+    """The cohort's total weight over every rank."""
+    from fedml_tpu_torch.parallel.mesh import all_reduce_tree
+
+    return all_reduce_tree({"w": weights.sum()}, group=group)["w"]
+
+
+def tree_weighted_mean_psum(stacked: dict, weights: torch.Tensor, group=None) -> dict:
+    """``tree_weighted_mean`` with the client axis split over the ranks:
+    normalised by the all-reduced total weight, then the weighted-sum
+    all-reduce."""
+    w = weights / torch.clamp(total_weight_psum(weights, group), min=1e-12)
+    return tree_weighted_sum_psum(stacked, w, group)
+
+
 class FedAvgAggregator:
     """Sample-weighted mean over every variable (reference
     FedAVGAggregator.py:58-87)."""
@@ -82,6 +120,14 @@ class FedAvgAggregator:
 
     def __call__(self, global_variables, result, weights, rng, state):
         return tree_weighted_mean(result.variables, weights), state
+
+    def sharded(self, global_variables, result, weights, rng, state, group=None):
+        if self.cfg.extra.get("flat_agg", False):
+            raise ValueError(
+                "flat_agg is a single-chip latency probe (and a measured "
+                "negative, docs/PERF.md) — it has no sharded rule; drop "
+                "extra['flat_agg'] for shard_map runs")
+        return tree_weighted_mean_psum(result.variables, weights, group), state
 
 
 def _scale_by_moments(b1: float, b2: float, eps: float, initial: float,
@@ -156,6 +202,12 @@ class FedOptAggregator:
         avg = tree_weighted_mean(result.variables, weights)
         return self.server_step(global_variables, avg, state)
 
+    def sharded(self, global_variables, result, weights, rng, state, group=None):
+        # the server step runs on every rank over the all-reduced mean:
+        # elementwise work, the same bits everywhere
+        avg = tree_weighted_mean_psum(result.variables, weights, group)
+        return self.server_step(global_variables, avg, state)
+
     def server_step(self, global_variables, avg, state):
         """(new_global, state) from the round's weighted mean ``avg``: the
         server optimizer steps the parameters; the model state is the
@@ -184,6 +236,15 @@ class RobustAggregator:
 
     def __call__(self, global_variables, result, weights, rng, state):
         avg = tree_weighted_mean(self._clipped(global_variables, result), weights)
+        return self._add_noise(avg, rng), state
+
+    def sharded(self, global_variables, result, weights, rng, state, group=None):
+        # the clip is per client (local); only the mean crosses ranks. Every
+        # rank's round generator is in the same state here (each drew the
+        # whole cohort's randomness, parallel/sharded.py), so the noise is
+        # drawn on each rank's device from the same seed: the same bits
+        avg = tree_weighted_mean_psum(self._clipped(global_variables, result), weights,
+                                      group)
         return self._add_noise(avg, rng), state
 
     def _clipped(self, global_variables, result):
@@ -239,6 +300,30 @@ class FedNovaAggregator:
         mean = tree_weighted_mean(rest, weights)
         return {k: combine(v, global_variables[k]) if k in params else mean[k]
                 for k, v in result.variables.items()}, state
+
+    def sharded(self, global_variables, result, weights, rng, state, group=None):
+        # tau normalisation is per client (local); tau_eff, the normalised
+        # deltas' weighted sum and the state's weighted mean are partial
+        # sums, all-reduced together in one buffer after the total weight
+        from fedml_tpu_torch.parallel.mesh import all_reduce_tree
+
+        wtotal = total_weight_psum(weights, group)
+        w = weights / wtotal
+        tau = torch.clamp(result.num_steps.float(), min=1.0)
+        params, rest = split_variables(result.variables)
+        partial = {"tau_eff": (w * tau).sum()}
+        for k, stack in params.items():
+            shape = (-1,) + (1,) * (stack.dim() - 1)
+            d = (global_variables[k][None] - stack) / tau.reshape(shape)
+            partial[k] = (d * w.reshape(shape).to(d.dtype)).sum(0)
+        w_rest = weights / torch.clamp(wtotal, min=1e-12)
+        for k, stack in rest.items():
+            wb = w_rest.reshape((-1,) + (1,) * (stack.dim() - 1)).to(stack.dtype)
+            partial[k] = (stack * wb).sum(0)
+        total = all_reduce_tree(partial, group=group)
+        tau_eff = total["tau_eff"]
+        return {k: global_variables[k] - tau_eff * total[k] if k in params else total[k]
+                for k in result.variables}, state
 
 
 # --------------------------------------------------------------- buffered

@@ -15,9 +15,10 @@ The reference task is streaming online learning (one sample a node per
 iteration, regret metric); ``DecentralizedFLAPI.run`` reproduces that loop.
 ``backend="shard_map"`` wants one device per node in the JAX package (a
 ``ppermute`` exchange); with more nodes than devices it warns and mixes
-densely, and so does the port, which runs on one device
-(``FedConfig.validate`` raises for a mesh over more: ROADMAP.md Queue 1
-item 5, multi-device).
+densely, and so does the port, which runs on one device. In a process
+group of more than one rank the API raises: the cross-rank gossip exchange
+is ROADMAP.md Queue 1 item 2.4 (``parallel/gossip.py``), and running the
+dense mix on every rank would repeat it silently.
 """
 
 from __future__ import annotations
@@ -116,6 +117,11 @@ class DecentralizedFLAPI:
         self.device = resolve_device(device)
         self.trainer = trainer
         self.cfg = cfg.validate(device=self.device)
+        if cfg.mesh_size() > 1:
+            raise NotImplementedError(
+                f"decentralized gossip over a process group of {cfg.mesh_size()} ranks is "
+                f"not ported to fedml_tpu_torch yet (ROADMAP.md Queue 1 item 2.4, "
+                f"parallel/gossip.py); run it in one process")
         if not len(np.asarray(topology.topology)):
             topology.generate_topology()
         self.W = torch.from_numpy(topology.mixing_matrix()).to(self.device)

@@ -509,7 +509,8 @@ def build_round_fn(trainer, cfg: FedConfig, aggregator, codec=None,
         return fused_round
     if param_sharding is not None:
         raise NotImplementedError(
-            "tensor sharding is not ported to fedml_tpu_torch yet")
+            "tensor sharding is not ported to fedml_tpu_torch yet (ROADMAP.md Queue 1 "
+            "item 2.6, tensor parallelism)")
     from fedml_tpu_torch.core.builder import build_round_core, wrap_codec
 
     # a codec wraps the aggregator here unless the caller wrapped it
@@ -688,17 +689,44 @@ def stage_to_device(x, y, counts, participation, device, stream=None) -> tuple:
 
 
 def build_eval_fn(trainer) -> Callable:
-    """eval(variables, bx[nb, b, ...], by, bmask, clients=1) -> summed
-    metrics, one batch at a time; each batch's rows are ``clients`` equal
-    consecutive blocks, one per client."""
+    """eval(variables, bx[nb, b, ...], by, bmask) -> summed metrics, one
+    batch at a time."""
 
     @torch.no_grad()
-    def eval_fn(variables, bx, by, bmask, clients=1):
+    def eval_fn(variables, bx, by, bmask):
         sums = None
         for i in range(bx.shape[0]):
-            m = trainer.eval_fn(variables, {"x": bx[i], "y": by[i],
-                                            "mask": bmask[i], "clients": clients})
+            m = trainer.eval_fn(variables, {"x": bx[i], "y": by[i], "mask": bmask[i]})
             sums = m if sums is None else {k: sums[k] + m[k] for k in m}
+        return sums
+
+    return eval_fn
+
+
+def build_federation_eval_fn(trainer) -> Callable:
+    """The resident federation eval (JAX ``engine.py::
+    build_federation_eval_fn``): eval(variables, xs, ys, counts) -> summed
+    metric scalars on the device, from a split staged on the device once
+    (``FedAvgAPI._resident_eval_data``), or from one chunk staged from the
+    host (the chunked path, ``FedAvgAPI._client_chunks``). xs and ys are
+    [nc, k * n_max, ...]: nc chunks of k whole clients each, in the port's
+    chunk geometry (``fedavg.py``'s ``_EVAL_ROWS`` and ``_EVAL_LOGITS``),
+    the last chunk padded with empty clients; counts is [nc, k]. Each chunk
+    is one forward pass with every client's rows past its count masked (the
+    trainer's per-client quantities see ``clients`` = k), and the sums stay
+    on the device."""
+
+    @torch.no_grad()
+    def eval_fn(variables, xs, ys, counts):
+        k = counts.shape[1]
+        n_max = xs.shape[1] // k
+        rows = torch.arange(n_max, device=xs.device)
+        sums = None
+        for i in range(xs.shape[0]):
+            mask = (rows[None] < counts[i][:, None]).to(torch.float32).reshape(k * n_max)
+            m = trainer.eval_fn(variables, {"x": xs[i], "y": ys[i], "mask": mask,
+                                            "clients": k})
+            sums = m if sums is None else {key: sums[key] + m[key] for key in m}
         return sums
 
     return eval_fn

@@ -16,8 +16,11 @@ logger, ``test_global`` and ``local_test_on_all_clients``; federated LoRA
 ledger (``train(ledger=)``) and per-client personalization from the
 adapter bank (``cfg.personalize`` with ``train(bank=)``: the personalized
 round in the eager and pipelined loops, ``--adapter_clusters`` rows and
-``personalization_lift``); and the silo-grouped round
-(``cfg.silo_threshold`` > 0, ``algorithms/silo_grouped.py``).
+``personalization_lift``); the silo-grouped round
+(``cfg.silo_threshold`` > 0, ``algorithms/silo_grouped.py``); the resident
+federation eval (``cfg.resident_eval``); and the clients-sharded round
+(``cfg.backend="shard_map"`` over a process group of more than one rank,
+``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 from fedml_tpu_torch import telemetry
 from fedml_tpu_torch.algorithms.aggregators import make_aggregator
 from fedml_tpu_torch.algorithms.engine import (build_client_eval_fn, build_eval_fn,
+                                               build_federation_eval_fn,
                                                build_personal_client_eval_fn,
                                                build_personal_round_fn, build_round_fn,
                                                pack_test_batches, stage_to_device,
@@ -42,11 +46,13 @@ from fedml_tpu_torch.algorithms.sampling import feistel_host
 from fedml_tpu_torch.codecs import make_codec
 from fedml_tpu_torch.core.builder import wrap_codec
 from fedml_tpu_torch.core.config import FedConfig
+from fedml_tpu_torch.data.packed_store import MmapPackedStore, materialize
 from fedml_tpu_torch.data.packing import pad_clients
 from fedml_tpu_torch.data.prefetch import CohortPrefetcher, StagedCohort
 from fedml_tpu_torch.data.registry import FederatedDataset
 from fedml_tpu_torch.models.lora import attach_lora_base, maybe_wrap_lora, strip_lora_base
-from fedml_tpu_torch.robustness.chaos import apply_faults, summarize as chaos_summary
+from fedml_tpu_torch.robustness.chaos import (FaultEvents, apply_faults,
+                                             summarize as chaos_summary)
 from fedml_tpu_torch.telemetry.records import RoundRecordLog, fetch_scalars
 from fedml_tpu_torch.utils.checkpoint import Checkpointable
 from fedml_tpu_torch.utils.device import resolve_device, synchronize, to_device
@@ -125,6 +131,14 @@ class FedAvgAPI(Checkpointable):
         self.device = resolve_device(device)
         self.dataset = dataset
         self.cfg = config.validate(device=self.device)
+        #: the process-group mesh of the clients-sharded round
+        #: (backend="shard_map" over more than one rank), else None
+        self.mesh = None
+        if config.backend == "shard_map" and config.mesh_size() > 1:
+            from fedml_tpu_torch.parallel import make_mesh
+
+            self.mesh = make_mesh(tuple(config.mesh_shape or ()) or None, device=self.device)
+            self.device = self.mesh.device
         model_trainer = maybe_wrap_lora(model_trainer, config)
         self.trainer = model_trainer
         self.aggregator = make_aggregator(aggregator_name, config)
@@ -134,28 +148,36 @@ class FedAvgAPI(Checkpointable):
             # wrapped here, before init_state, so that the state (which
             # checkpoints and the guard's snapshot carry) holds the
             # residuals; a buffered drive keeps the inner aggregator: its
-            # codec stage is the admit (algorithms/buffered.py)
-            self.aggregator = wrap_codec(
-                self.aggregator, self.codec,
-                min(config.client_num_per_round, dataset.client_num))
+            # codec stage is the admit (algorithms/buffered.py). Sharded,
+            # a rank holds the residual rows of its block of the padded
+            # cohort
+            slots = min(config.client_num_per_round, dataset.client_num)
+            if self.mesh is not None:
+                slots = -(-slots // self.mesh.world_size)
+            self.aggregator = wrap_codec(self.aggregator, self.codec, slots)
         # the rounds compute the client ledger's stats rows while a ledger
         # is attached (_dispatch's stats flag); the rows only read a round's
         # results, so the globals are the same bits with a ledger or without
         self._personalized = bool(config.personalize)
-        if config.silo_threshold > 0:
+        if self.mesh is not None:
+            from fedml_tpu_torch.parallel import build_sharded_round_fn
+
+            self.round_fn = build_sharded_round_fn(model_trainer, config, self.aggregator,
+                                                   self.mesh, collect_stats=True)
+        elif config.silo_threshold > 0:
             from fedml_tpu_torch.algorithms.silo_grouped import (build_silo_round_fn,
                                                                  silo_trainer)
 
             # the silos train together with the grouped convolutions; the
             # evaluations keep the original trainer. The silo round has no
             # ledger stats rows (its fourth output is always None)
-            build = build_silo_round_fn
-            round_trainer = silo_trainer(model_trainer, config.silo_threshold)
+            self.round_fn = build_silo_round_fn(
+                silo_trainer(model_trainer, config.silo_threshold), config, self.aggregator,
+                device=self.device, collect_stats=True)
         else:
             build = build_personal_round_fn if self._personalized else build_round_fn
-            round_trainer = model_trainer
-        self.round_fn = build(round_trainer, config, self.aggregator, device=self.device,
-                              collect_stats=True)
+            self.round_fn = build(model_trainer, config, self.aggregator, device=self.device,
+                                  collect_stats=True)
         #: the attached personal adapter bank (models/adapter_bank.py), set
         #: by train(bank=...) or directly; a personalized run needs one
         self.bank = None
@@ -166,6 +188,12 @@ class FedAvgAPI(Checkpointable):
         self.client_eval_fn = build_client_eval_fn(model_trainer)
         self._personal_eval_fn = (build_personal_client_eval_fn(model_trainer)
                                   if self._personalized else None)
+        # the resident federation eval: its program, and the splits on the
+        # device (None until the first eval; {} when they cannot be resident)
+        self._fed_eval_fn = build_federation_eval_fn(model_trainer)
+        self._resident_cache = None
+        #: the bytes the resident eval staged (0 until it stages)
+        self.resident_eval_bytes = 0
         self.history: list[dict[str, Any]] = []
         self.global_variables = model_trainer.init(
             torch.Generator().manual_seed(config.seed), self.device)
@@ -182,8 +210,10 @@ class FedAvgAPI(Checkpointable):
         self._resident_train = None
         # The stage seam: every cohort, eager or pipelined, reaches the
         # device through this one callable, stage_fn(round_idx, *,
-        # chaos=None, faults=None, tracer=None) -> StagedCohort.
-        self.stage_fn = self._stage_cohort
+        # chaos=None, faults=None, tracer=None) -> StagedCohort. Sharded,
+        # a rank stages only its block of the cohort.
+        self.stage_fn = (self._stage_cohort if self.mesh is None
+                         else self._stage_sharded_cohort)
 
     # ------------------------------------------------------------------ train
     def train_one_round(self, round_idx: int, faults=None, rng_salt: int = 0,
@@ -221,9 +251,13 @@ class FedAvgAPI(Checkpointable):
                 staged.counts, rng]
         if self._personalized:
             args.append(staged.personal["tree"])
-        # the last argument: whether the round computes the ledger's rows
-        out = self.round_fn(*args, staged.participation, None, None,
-                            staged.host_counts(), self._drive_ledger is not None)
+        # the sharded round draws the whole cohort's randomness from the
+        # real cohort's counts; the last argument: whether the round
+        # computes the ledger's rows
+        host_counts = (staged.host_counts() if staged.cohort_counts is None
+                       else staged.cohort_counts)
+        out = self.round_fn(*args, staged.participation, None, None, host_counts,
+                            self._drive_ledger is not None)
         self.global_variables, self.agg_state, metrics, stats = out[:4]
         self._last_dispatch = (staged, stats)
         self._last_personal = ((staged.personal["rows"], out[4])
@@ -263,6 +297,12 @@ class FedAvgAPI(Checkpointable):
         from the record log's flush. It changes no round and adds no sync
         point: the globals are the same bits with it on or off.
 
+        Over a sharded mesh each rank runs this loop: the train metrics
+        and the globals are the same on every rank, every rank evaluates
+        the whole federation, and checkpoints go to ``ckpt_dir/rank<r>``
+        (a rank's codec residuals are its own). A client ledger is per
+        process and is refused there.
+
         ``bank`` (``models.adapter_bank.AdapterBank``) attaches the personal
         adapter bank a personalized run needs: the cohort's rows are
         gathered when the loop takes the cohort, the round's updated rows ride the record log's
@@ -275,6 +315,12 @@ class FedAvgAPI(Checkpointable):
             self.bank = bank
         if cfg.personalize and self.bank is None:
             raise ValueError(_NEEDS_BANK)
+        if self.mesh is not None:
+            if ledger is not None:
+                raise ValueError("a client ledger records one process's cohorts: it is "
+                                 "not supported with backend='shard_map' over several ranks")
+            if ckpt_dir:
+                ckpt_dir = os.path.join(ckpt_dir, f"rank{self.mesh.rank}")
         self._drive_ledger = ledger
         owns_tracer = tracer is None
         if tracer is None:
@@ -495,6 +541,42 @@ class FedAvgAPI(Checkpointable):
             (dx, dy, dc, dp), ready, pinned = stage_to_device(
                 x, y, counts, participation, self.device, self._h2d_stream)
         return StagedCohort(round_idx, dx, dy, dc, dp, faults, idx, ready, pinned)
+
+    def _stage_sharded_cohort(self, round_idx: int, chaos=None, faults=None,
+                              tracer=None) -> StagedCohort:
+        """``_stage_cohort`` for a rank of the sharded round: the whole
+        cohort sampled from the round (``multihost.sample_sharded_cohort``,
+        the same on every rank, no communication), this rank's block of it
+        gathered (``stage_local_cohort``; pad rows have zero counts), the
+        round's faults drawn for the whole cohort and applied to the block
+        (pad rows do not participate), and the real cohort's host counts
+        kept for the round's draws (``StagedCohort.cohort_counts``)."""
+        from fedml_tpu_torch.parallel.multihost import (sample_sharded_cohort,
+                                                        stage_local_cohort)
+
+        cfg = self.cfg
+        if tracer is None:
+            tracer = telemetry.get_tracer() or telemetry.NULL_TRACER
+        with tracer.span("stage", round_idx):
+            cohort = sample_sharded_cohort(
+                round_idx, self.dataset.client_num, cfg.client_num_per_round,
+                process_index=self.mesh.rank, process_count=self.mesh.world_size,
+                sampler=fast_client_sampling if cfg.fast_sampling else client_sampling)
+            if faults is None and chaos is not None:
+                faults = chaos.events(round_idx, len(cohort.full_idx))
+            x, y, counts = stage_local_cohort(self.dataset.train, cohort)
+            participation = None
+            if faults is not None:
+                local = FaultEvents(*(_pad_to(np.asarray(m, bool), len(cohort.padded_idx))
+                                      [cohort.local_slice] for m in faults))
+                x = apply_faults(local, x)
+                participation = local.participation
+            cohort_counts = np.asarray(self.dataset.train.counts)[cohort.full_idx]
+        with tracer.span("h2d", round_idx):
+            (dx, dy, dc, dp), ready, pinned = stage_to_device(
+                x, y, counts, participation, self.device, self._h2d_stream)
+        return StagedCohort(round_idx, dx, dy, dc, dp, faults, cohort.full_idx, ready,
+                            pinned, cohort_counts=cohort_counts)
 
     def stage_partial_cohort(self, round_idx: int, width: int, cohort: int,
                              chaos=None, tracer=None) -> StagedCohort:
@@ -869,28 +951,100 @@ class FedAvgAPI(Checkpointable):
         sample-weighted (reference fedavg_api.py:119-183); CI mode
         evaluates one client. Each forward pass takes whole clients, their
         padded rows masked, as the JAX drive's vmap over clients does: the
-        NWP trainer's reported loss is a per-client quantity."""
+        NWP trainer's reported loss is a per-client quantity.
+
+        With ``cfg.resident_eval`` (the default) the splits are staged on
+        the device once a run (``_resident_eval_data``) and each split
+        evaluates from there (``engine.build_federation_eval_fn``): between
+        evals only the globals change. CI mode, a streaming split and
+        splits over ``cfg.resident_eval_budget`` stage chunks from the host
+        at every eval (``_client_chunks``), with the same chunks and the
+        same sums. Either way the sums come back in one transfer a split."""
         ds = self.dataset
+        splits = (("Train", ds.train), ("Test", ds.test or ds.train))
+        resident = None if self.cfg.ci else self._resident_eval_data(splits)
         out = {}
-        for split_name, packed in (("Train", ds.train), ("Test", ds.test or ds.train)):
+        for split_name, packed in splits:
+            chunks = [resident[split_name]] if resident else self._client_chunks(packed)
             sums = None
-            for bx, by, bm, clients in self._client_chunks(packed):
-                m = self.eval_fn(self.global_variables, bx, by, bm, clients)
+            for chunk in chunks:
+                m = self._fed_eval_fn(self.global_variables, *chunk)
                 sums = m if sums is None else {k: sums[k] + m[k] for k in m}
-            sums = {k: float(v) for k, v in sums.items()}
+            sums = self._fetch(sums)
             total = max(sums.get("test_total", 0.0), 1.0)
             out[f"{split_name}/Acc"] = sums.get("test_correct", 0.0) / total
             out[f"{split_name}/Loss"] = sums.get("test_loss", 0.0) / total
         return out
 
-    def _client_chunks(self, packed):
-        """(x [1, k * n_max, ...], y, mask, k) on the device for each run of
-        k clients of a split; the last run is padded with empty clients."""
+    def _resident_eval_data(self, splits):
+        """{split name: (xs [nc, k * n_max, ...], ys, counts [nc, k])} on the
+        device, staged once a run in ``_client_chunks``' geometry (the JAX
+        drive's ``_resident_eval_data``); None when ``cfg.resident_eval`` is
+        off, a split streams (staging it would decode it whole), or the
+        staged bytes exceed ``cfg.resident_eval_budget``. An in-budget
+        ``MmapPackedStore`` is read once through ``materialize``."""
+        if not self.cfg.resident_eval:
+            return None
+        if self._resident_cache is not None:
+            return self._resident_cache or None  # {}: refused before
+        uniq = {id(p): p for _, p in splits}  # the test split may be the train split
+        if not all(isinstance(p.x, np.ndarray) or isinstance(p, MmapPackedStore)
+                   for p in uniq.values()):
+            log.info("resident_eval disabled: streaming (lazy-decode) split — "
+                     "using chunked eval")
+            self._resident_cache = {}
+            return None
+        chunk = {key: self._eval_chunk(p) for key, p in uniq.items()}
+
+        def staged_bytes(key, p):
+            # what staging puts on the device: padded to a chunk multiple
+            ratio = (-(-p.num_clients // chunk[key]) * chunk[key]) / p.num_clients
+            return (p.x.nbytes + p.y.nbytes + np.asarray(p.counts).nbytes) * ratio
+
+        total = sum(staged_bytes(key, p) for key, p in uniq.items())
+        if total > self.cfg.resident_eval_budget:
+            log.warning("resident_eval disabled: packed splits are %.1f GiB > budget "
+                        "%.1f GiB — falling back to chunked streaming eval",
+                        total / 2 ** 30, self.cfg.resident_eval_budget / 2 ** 30)
+            self._resident_cache = {}
+            return None
+        staged = {key: self._stage_split(p, chunk[key]) for key, p in uniq.items()}
+        self._resident_cache = {name: staged[id(p)] for name, p in splits}
+        self.resident_eval_bytes = int(total)
+        return self._resident_cache
+
+    def _stage_split(self, packed, k: int) -> tuple:
+        """A whole split on the device as [nc, k * n_max, ...] chunks of k
+        clients (the last padded with empty clients) and its counts [nc, k]."""
+        if isinstance(packed, MmapPackedStore):
+            packed = materialize(packed, budget=self.cfg.resident_eval_budget)
+        n, n_max = packed.num_clients, packed.n_max
+        nc = -(-n // k)
+        out = []
+        for a in (packed.x, packed.y, packed.counts):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            padded = t.new_zeros((nc * k,) + t.shape[1:], device=self.device)
+            padded[:n].copy_(t)
+            out.append(padded)
+        xs, ys, counts = out
+        return (xs.reshape((nc, k * n_max) + tuple(xs.shape[2:])),
+                ys.reshape((nc, k * n_max) + tuple(ys.shape[2:])), counts.reshape(nc, k))
+
+    def _eval_chunk(self, packed) -> int:
+        """Clients a forward pass of the eval takes: at most _EVAL_ROWS rows
+        and _EVAL_LOGITS logits (one client in CI mode)."""
         num = 1 if self.cfg.ci else packed.num_clients
-        n_max = packed.n_max
         per_row = self.dataset.class_num * int(np.prod(packed.y.shape[2:], dtype=np.int64))
         rows = min(_EVAL_ROWS, _EVAL_LOGITS // max(per_row, 1))
-        k = max(1, min(num, rows // max(n_max, 1)))
+        return max(1, min(num, rows // max(packed.n_max, 1)))
+
+    def _client_chunks(self, packed):
+        """(x [1, k * n_max, ...], y, counts [1, k]) on the device for each run
+        of k clients of a split, the last run padded with empty clients: one
+        chunk at a time in the resident eval's layout."""
+        num = 1 if self.cfg.ci else packed.num_clients
+        n_max = packed.n_max
+        k = self._eval_chunk(packed)
         budget = getattr(packed, "byte_budget", None)
         if budget is not None:
             # a streaming split decodes a chunk at a time, never the whole
@@ -902,7 +1056,11 @@ class FedAvgAPI(Checkpointable):
         for start in range(0, num, k):
             x, y, counts = packed.select(np.arange(start, min(start + k, num)))
             x, y, counts = pad_clients(x, y, counts, k)
-            mask = (np.arange(n_max)[None] < counts[:, None]).astype(np.float32)
-            yield (*(torch.from_numpy(np.ascontiguousarray(
-                a.reshape((1, k * n_max) + a.shape[2:]))).to(self.device)
-                for a in (x, y, mask)), k)
+            yield tuple(torch.from_numpy(np.ascontiguousarray(
+                a.reshape((1, k * n_max) + a.shape[2:]) if a.ndim > 1 else a.reshape(1, k)))
+                .to(self.device) for a in (x, y, counts))
+
+
+def _pad_to(mask: np.ndarray, n: int) -> np.ndarray:
+    """A cohort's bool mask padded with False to the padded cohort's n rows."""
+    return np.concatenate([mask, np.zeros(n - len(mask), bool)])

@@ -10,8 +10,10 @@ is fixed (reference CI-script-fedavg.sh:52-62).
 The groups and their clients are loops over the engine's client step
 (``engine._batched_update``), as the port's FedAvg round loops its cohort.
 ``backend="shard_map"`` on one device is this round (the JAX package's
-two-level mesh over one device); over more devices ``FedConfig.validate``
-raises (ROADMAP.md Queue 1 item 5, multi-device). ``cfg.fused_kernel`` has
+two-level mesh over one device). In a process group of more than one rank
+the API raises: the two-level sharded round is ROADMAP.md Queue 1 item 2.3,
+and running this one-device round on every rank would repeat it silently.
+``cfg.fused_kernel`` has
 no effect here, as in the JAX package: only ``engine.build_round_fn``
 routes a round through the fused kernel.
 """
@@ -91,6 +93,11 @@ class HierarchicalFLAPI:
         self.device = resolve_device(device)
         self.dataset = dataset
         self.cfg = cfg.validate(device=self.device)
+        if cfg.mesh_size() > 1:
+            raise NotImplementedError(
+                f"hierarchical FL over a process group of {cfg.mesh_size()} ranks is not "
+                f"ported to fedml_tpu_torch yet (ROADMAP.md Queue 1 item 2.3, "
+                f"parallel/hierarchical.py); run it in one process")
         self.trainer = trainer
         self.group_comm_round = group_comm_round
         if group_assignment is None:

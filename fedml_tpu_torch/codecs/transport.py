@@ -1,6 +1,6 @@
-"""The codec stage of the single-device round (PyTorch form of
+"""The codec stage of the synchronous round (PyTorch form of
 ``fedml_tpu/codecs/transport.py``'s ``slot_residual`` and
-``CodecAggregator``).
+``CodecAggregator``, its ``sharded`` rule included).
 
 ``CodecAggregator`` wraps any aggregator with a per-client encode and
 decode between the client step and the wrapped rule. The error-feedback
@@ -10,8 +10,13 @@ carry FedOpt's moments. One residual row per cohort slot, as in the
 reference: slot i's quantization error feeds slot i's next encode (a
 slot-level approximation of per-client error feedback).
 
-The multi-device transports (``CodecAggregator.sharded``,
-``transport_wsum``, ``masked_row_transport``) are not ported.
+In the clients-sharded round (``parallel/sharded.py``) each rank holds the
+residual rows of its own block of the padded cohort, so the ranks' blocks
+together span the padded cohort (JAX ``fedavg.py:164-171``): the encode
+and decode stay local and only the decoded rows' weighted sums cross the
+ranks. The tensor-sharded wire transports (``transport_wsum``,
+``masked_row_transport``) belong to ROADMAP.md Queue 1 item 2.6 and are not
+ported.
 """
 
 from __future__ import annotations
@@ -69,4 +74,12 @@ class CodecAggregator:
                                         state["codec"])
         new_global, new_inner = self.inner(global_variables, dec_result,
                                            weights, rng, state["agg"])
+        return new_global, {"agg": new_inner, "codec": r_new}
+
+    def sharded(self, global_variables, result, weights, rng, state, group=None):
+        # the rows and their residual slots are this rank's block
+        dec_result, r_new = self._stage(global_variables, result, weights,
+                                        state["codec"])
+        new_global, new_inner = self.inner.sharded(global_variables, dec_result,
+                                                   weights, rng, state["agg"], group)
         return new_global, {"agg": new_inner, "codec": r_new}

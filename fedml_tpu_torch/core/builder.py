@@ -1,6 +1,7 @@
 """The synchronous-round bodies and the codec seam (PyTorch form of
 ``fedml_tpu/core/builder.py``'s ``build_round_core``,
-``build_personal_round_core`` and ``wrap_codec``)."""
+``build_personal_round_core`` and ``wrap_codec``), and the pieces the
+clients-sharded round shares (``masked_psum_tail``, ``shard_key_slice``)."""
 
 from __future__ import annotations
 
@@ -130,3 +131,61 @@ def _select_state(pred: torch.Tensor, new_state, old_state):
         return type(new_state)(_select_state(pred, a, b)
                                for a, b in zip(new_state, old_state))
     return torch.where(pred, new_state, old_state)
+
+
+def masked_psum_tail(new_global, new_state, metrics, alive, quarantined,
+                     fallback_global, fallback_state, group=None):
+    """The masked sharded round's no-op guard and fault counts (JAX
+    ``core/builder.py::masked_psum_tail``): the alive and quarantined counts
+    are all-reduced over the process group; when the whole cohort is dead
+    on every rank, BOTH the globals and the aggregator state (a codec's
+    residual carry included: a round that commits nothing must not move the
+    error feedback) revert to the fallbacks. Returns (new_global, new_state,
+    metrics) with ``participated_count`` and ``quarantined_count``."""
+    from fedml_tpu_torch.parallel.mesh import all_reduce_tree
+
+    counts = all_reduce_tree({"alive": alive.sum().float(),
+                              "quarantined": quarantined.sum().float()}, group=group)
+    any_alive = counts["alive"] > 0
+    new_global = tree_where(any_alive, new_global, fallback_global)
+    new_state = _select_state(any_alive, new_state, fallback_state)
+    metrics["participated_count"] = counts["alive"]
+    metrics["quarantined_count"] = counts["quarantined"]
+    return new_global, new_state, metrics
+
+
+def shard_key_slice(rng: torch.Generator, counts, n_max: int, epochs: int, shuffle: bool,
+                    index: int, n_local: int, seeds=None, perms=None):
+    """This rank's block of the round's client randomness: (seeds [n_local]
+    int64, perms [n_local, epochs, n_max] or None without shuffle, the
+    block's host counts), for rows [index * n_local, (index + 1) * n_local)
+    of the padded cohort.
+
+    Every rank draws the REAL cohort's perms and seeds from the round
+    generator with ``engine.draw_client_randomness`` (``counts`` is the
+    real cohort's host counts), exactly as the single-device round does, so
+    each client's local training is the single-device round's bit for bit
+    and the generator is left where that round leaves it (the robust rule
+    draws its noise seed next). Pad rows past the real cohort get no-op
+    draws APPENDED after the real rows (seed 0, the identity permutation):
+    a draw over the padded length would shift the real clients' streams,
+    since the seeds' ``randint`` follows the perms in one stream. Injected
+    ``seeds``/``perms`` (the real cohort's, as a test feeds the
+    single-device round) replace the draws as they do there."""
+    from fedml_tpu_torch.algorithms.engine import draw_client_randomness
+
+    counts = [int(c) for c in counts]
+    drawn_perms, drawn_seeds = draw_client_randomness(rng, counts, n_max, epochs, shuffle)
+    seeds = drawn_seeds if seeds is None else torch.as_tensor(seeds).cpu()
+    if shuffle and perms is None:
+        perms = drawn_perms
+    lo, hi = index * n_local, (index + 1) * n_local
+    pad = max(0, hi - max(lo, len(counts)))
+    local_seeds = torch.cat([seeds[lo:hi], seeds.new_zeros(pad)])
+    local_counts = counts[lo:hi] + [0] * pad
+    local_perms = None
+    if perms is not None:
+        perms = torch.as_tensor(perms).cpu()
+        ident = torch.arange(n_max).expand(pad, perms.shape[1], n_max)
+        local_perms = torch.cat([perms[lo:hi], ident.to(perms.dtype)])
+    return local_seeds, local_perms, local_counts

@@ -3,12 +3,12 @@
 A mirror of ``fedml_tpu/core/config.py::FedConfig`` holding the fields the
 ported paths read (FedAvg, FedOpt, FedNova, robust aggregation, FedProx,
 the stateful client optimizers, the update codecs, buffered aggregation,
-the superstep, federated LoRA, personalization and the silo-grouped round),
-with the same names and defaults so experiment configs transfer verbatim.
-The switches of features the port does not run yet (tensor sharding, a
-mesh of more than one device) are kept so that ``validate`` can reject one
-that is on with ``NotImplementedError``; other keys of a JAX config land in
-``extra``.
+the superstep, federated LoRA, personalization, the silo-grouped round,
+the resident federation eval and the clients-sharded round over a process
+group), with the same names and defaults so experiment configs transfer
+verbatim. The switches of features the port does not run yet (tensor
+sharding) are kept so that ``validate`` can reject one that is on with
+``NotImplementedError``; other keys of a JAX config land in ``extra``.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ import math
 from dataclasses import dataclass, field
 from typing import Any
 
-from fedml_tpu_torch.utils.device import device_count
 
 
 @dataclass(frozen=True)
@@ -70,11 +69,16 @@ class FedConfig:
     # systems
     seed: int = 0
     ci: int = 0  # evaluate a single client in local_test_on_all_clients
-    # "shard_map" runs the clients over a mesh of devices: on a mesh of one
-    # device that is the vmap round (a psum over one member), which the
-    # port runs; a mesh over more devices is not ported
+    # local_test_on_all_clients keeps the packed splits on the device and
+    # evaluates the federation from there (staged once a run), unless the
+    # splits exceed resident_eval_budget bytes or a split streams
+    resident_eval: bool = True
+    resident_eval_budget: int = 8 << 30
+    # "shard_map" shards the cohort over the ranks of the initialized
+    # torch.distributed process group (parallel/sharded.py), one process a
+    # rank; without a group, or in a group of one, it is the vmap round
     backend: str = "vmap"
-    mesh_shape: tuple[int, ...] = ()  # () = every device of the run's type
+    mesh_shape: tuple[int, ...] = ()  # () = the process group's world size
     pipeline_depth: int = 0
     silo_threshold: int = 0
     tensor_shards: int = 0
@@ -117,12 +121,14 @@ class FedConfig:
         return dataclasses.replace(self, **kw)
 
     def mesh_size(self, device=None) -> int:
-        """The devices a ``shard_map`` round spans: ``mesh_shape``'s product,
-        or every device of ``device``'s type (the card's count for
-        ``cuda``, 1 for the CPU or when no device is given)."""
-        if self.mesh_shape:
-            return math.prod(self.mesh_shape)
-        return device_count(device) if device is not None else 1
+        """The ranks a ``shard_map`` round spans: the world size of the
+        initialized ``torch.distributed`` process group, or 1 without one
+        (one process never spans more than one card). ``device`` is
+        accepted for the callers that pass the run's device; it does not
+        change the answer."""
+        from fedml_tpu_torch.parallel.mesh import world_size
+
+        return world_size()
 
     def validate(self, chaos: bool = False, device=None) -> "FedConfig":
         """Raise ``NotImplementedError`` for a feature the port has not
@@ -130,26 +136,32 @@ class FedConfig:
         requirement of ``fedml_tpu/core/spec.py`` (the subset that can arise
         among the features the port runs). ``chaos`` says whether the drive
         arms a fault plan, which is not a config field (the JAX package's
-        ``validate(chaos="on")`` overlay); ``device`` is the run's device,
-        whose type sets the default mesh of ``backend="shard_map"``. Returns
-        self."""
+        ``validate(chaos="on")`` overlay); ``device`` is the run's device
+        (the mesh of ``backend="shard_map"`` is the process group,
+        ``mesh_size``). With that backend, a ``mesh_shape`` whose product is
+        not the group's world size raises ``ValueError``. Returns self."""
         if self.backend not in ("vmap", "shard_map"):
             raise ValueError(f"unknown backend {self.backend!r} (vmap or shard_map)")
         for reason, clash in _exclusions(self, chaos):
             if clash:
                 raise ValueError(reason)
+        if (self.backend == "shard_map" and self.mesh_shape
+                and math.prod(self.mesh_shape) != self.mesh_size(device)):
+            raise ValueError(
+                f"mesh_shape {tuple(self.mesh_shape)} spans "
+                f"{math.prod(self.mesh_shape)} ranks but the process group has "
+                f"{self.mesh_size(device)}: launch one process a rank "
+                f"(fed_launch's multihost: block, parallel/multihost.py::"
+                f"init_multihost) with as many processes as the mesh has members")
         unported = {
-            "backend='shard_map' over more than one device (ROADMAP.md Queue 1 "
-            "item 5, multi-device)":
-                self.backend == "shard_map" and self.mesh_size(device) > 1,
-            "tensor_shards > 0": self.tensor_shards > 0,
-            "shard_step": self.shard_step,
+            "tensor_shards > 0 (ROADMAP.md Queue 1 item 2.6, tensor parallelism)":
+                self.tensor_shards > 0,
+            "shard_step (ROADMAP.md Queue 1 item 2.6, tensor parallelism)":
+                self.shard_step,
         }
         for name, on in unported.items():
             if on:
-                raise NotImplementedError(
-                    f"{name} is not ported to fedml_tpu_torch yet "
-                    f"(see ROADMAP.md Queue 1)")
+                raise NotImplementedError(f"{name} is not ported to fedml_tpu_torch yet")
         if self.personalize and self.lora_rank <= 0:
             # spec.py's REQUIREMENTS row (the exclusion above fires first)
             raise ValueError(
@@ -189,8 +201,8 @@ class FedConfig:
 
 # The exclusions of ``fedml_tpu/core/spec.py`` (``EXCLUSIONS`` and
 # ``CONSTRAINTS``) that involve the update codec, buffered aggregation, the
-# superstep, LoRA or personalization, in its order and with its reasons
-# verbatim.
+# superstep, LoRA, personalization or the sharded round, in its order and
+# with its reasons verbatim.
 _BUFFER_REASON = (
     "buffer_size (staleness-aware buffered aggregation) drives "
     "the single-controller vmap engine; the sharded admit/commit "
@@ -223,6 +235,10 @@ def _exclusions(cfg: FedConfig, chaos: bool = False) -> list:
     silo = cfg.silo_threshold > 0
     tensor = cfg.tensor_shards > 0
     shard_map = cfg.backend == "shard_map"
+    # shard_map over a group of more than one rank builds the sharded round
+    # (parallel/sharded.py); over one it is the vmap round, which combines
+    # with the fused kernel and the silo round as before
+    sharded = shard_map and cfg.mesh_size() > 1
     fused = cfg.fused_kernel
     lora = cfg.lora_rank > 0
     pfl = cfg.personalize
@@ -239,6 +255,10 @@ def _exclusions(cfg: FedConfig, chaos: bool = False) -> list:
         (_SUPERSTEP_REASON, superstep and tensor),
         (_SUPERSTEP_REASON, superstep and silo),
         (_SUPERSTEP_REASON, superstep and fused),
+        ("silo_threshold (the single-chip silo-grouped conv path) "
+         "and backend='shard_map' are mutually exclusive — the "
+         "grouped lowering merges silos on ONE chip; drop one of the "
+         "two settings", silo and sharded),
         ("--fused_kernel is mutually exclusive with --update_codec",
          fused and codec),
         ("--fused_kernel is mutually exclusive with --buffer_size "
@@ -247,6 +267,10 @@ def _exclusions(cfg: FedConfig, chaos: bool = False) -> list:
         ("--fused_kernel is mutually exclusive with --lora_rank "
          "(the kernel trains the raw CNN param layout)",
          fused and lora),
+        ("--fused_kernel drives the single-chip vmap engine — the "
+         "kernel owns the whole client step and has no shard_map "
+         "lowering; drop one of fused_kernel / backend='shard_map'",
+         fused and sharded),
         ("--shard_step runs under GSPMD automatic partitioning — the "
          "codec transports are manual shard_map collectives and do "
          "not compose with it. Drop --shard_step (the storage-sharded "

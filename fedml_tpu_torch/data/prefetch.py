@@ -51,7 +51,10 @@ class StagedCohort:
     bank row ids, "tree": {key: [C, ...] tensor on the device}}``, the
     cohort's personal adapter rows, gathered when the drive takes the
     cohort to dispatch (after the previous rounds' bank writes), so the
-    scatter back targets exactly the rows that were fed."""
+    scatter back targets exactly the rows that were fed. ``cohort_counts``
+    (None unless the round is sharded over ranks) is the real cohort's host
+    counts, every rank's: a rank stages only its block, and the sharded
+    round draws the whole cohort's randomness from these."""
 
     round_idx: int
     x: Any
@@ -63,6 +66,7 @@ class StagedCohort:
     ready: Any | None = None
     host: tuple | None = None
     personal: Any | None = None
+    cohort_counts: Any | None = None
 
     def host_counts(self):
         """The counts on the host: their pinned source on the card, the

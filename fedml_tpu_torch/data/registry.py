@@ -47,3 +47,9 @@ def load_dataset(name: str, **kwargs) -> FederatedDataset:
             f"dataset {name!r} is not ported to fedml_tpu_torch yet "
             f"(ported: {sorted(_LOADERS)})")
     return _LOADERS[name](**kwargs)
+
+
+def available_datasets() -> list[str]:
+    import fedml_tpu_torch.data.loaders  # noqa: F401  (registers loaders)
+
+    return sorted(_LOADERS)

@@ -25,8 +25,23 @@ Usage:
 
 ``privacy`` runs ``main_privacy`` (the branch and block ensembles with the
 MI report), so all 26 of the repo's configs run, and every one of the JAX
-launcher's 14 algorithm names. A ``multihost:`` block raises
-``NotImplementedError`` naming ROADMAP.md.
+launcher's 14 algorithm names.
+
+A ``multihost:`` block starts this process as one rank of a
+``torch.distributed`` process group before the main runs
+(``parallel/multihost.py::init_multihost``), as the JAX launcher starts
+``jax.distributed``; with ``backend: shard_map`` FedAvg then shards each
+round's cohort over the ranks (``parallel/sharded.py``). One process a rank:
+
+    multihost:
+      coordinator: "localhost:29500"   # host:port of rank 0's rendezvous
+      num_processes: 2
+      process_id: 0                    # or the FEDML_PROCESS_ID variable
+      backend: gloo                    # gloo (CPU, or ranks sharing a card)
+                                       # or nccl (one card a rank)
+      timeout: 300                     # seconds to wait for the peers and
+                                       # for any collective
+
 The config is read with PyYAML, or as JSON where PyYAML does not import,
 as the JAX launcher reads it.
 """
@@ -36,6 +51,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import os
 
 ALGORITHMS = {
     # algorithm name -> the port's experiments module with a main(argv)
@@ -74,7 +90,8 @@ def config_to_argv(args_map: dict) -> list[str]:
 
 def resolve(argv=None) -> tuple[str, list[str]]:
     """(the main's module name, its argv) for the launcher's ``argv``:
-    ``--config`` and any number of ``--override key=value``."""
+    ``--config`` and any number of ``--override key=value``. A
+    ``multihost:`` block initializes the process group here."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--override", type=str, nargs="*", default=[], action="extend",
@@ -85,10 +102,17 @@ def resolve(argv=None) -> tuple[str, list[str]]:
     algo = cfg.get("algorithm", "fedavg")
     if algo not in ALGORITHMS:
         raise SystemExit(f"unknown algorithm {algo!r}; one of {sorted(ALGORITHMS)}")
-    if cfg.get("multihost"):
-        raise NotImplementedError(
-            f"the multihost: block of {args.config} is not ported to fedml_tpu_torch "
-            f"yet (ROADMAP.md Queue 1 item 5, multi-device)")
+    mh = cfg.get("multihost")
+    if mh:
+        from fedml_tpu_torch.parallel.multihost import init_multihost
+
+        pid = mh.get("process_id")
+        if pid is None:
+            pid = int(os.environ.get("FEDML_PROCESS_ID", "0"))
+        info = init_multihost(mh["coordinator"], int(mh["num_processes"]), int(pid),
+                              initialization_timeout=mh.get("timeout"),
+                              backend=mh.get("backend", "gloo"))
+        print(f"multihost topology: {info}")
     exp_args = dict(cfg.get("args") or {})
     for ov in args.override:
         k, _, v = ov.partition("=")

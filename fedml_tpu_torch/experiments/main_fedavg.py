@@ -103,13 +103,13 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--frequency_of_the_test", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ci", type=int, default=0)
-    # the JAX CLI's mesh flags (common.py:46-48): a shard_map round over a
-    # mesh of one device is the vmap round, which runs; a mesh over more
-    # devices raises (ROADMAP.md Queue 1 item 5)
+    # the JAX CLI's mesh flags (common.py:46-48): shard_map shards each
+    # round's cohort over the ranks of the process group (fed_launch's
+    # multihost: block starts it); with one rank it is the vmap round
     parser.add_argument("--backend", type=str, default="vmap", choices=["vmap", "shard_map"])
     parser.add_argument("--mesh_shape", type=int, nargs="*", default=None,
-                        help="devices of the shard_map mesh (default: every device "
-                             "of --device's type)")
+                        help="ranks of the shard_map mesh; its product must be the "
+                             "process group's world size (default: the world size)")
     parser.add_argument("--fedprox_mu", type=float, default=0.0)
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"])

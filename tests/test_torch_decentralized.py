@@ -201,7 +201,8 @@ def test_dsgd_consensus_and_learning():
 def test_shard_map_on_one_device_warns_and_mixes_densely(caplog):
     """More gossip nodes than devices: the JAX package warns and uses the
     dense W @ x mix, and so does the port, the same bits as the dense
-    backend; a mesh over more devices raises, naming ROADMAP's item."""
+    backend; a mesh over more ranks than the process group has raises (the
+    raise over a real group of 2 ranks is tests/test_torch_multihost.py's)."""
     x, y = _streaming_data(n_nodes=6, T=5)
     runs = []
     for backend in ("vmap", "shard_map"):
@@ -212,7 +213,7 @@ def test_shard_map_on_one_device_warns_and_mixes_densely(caplog):
         runs.append(api.run(x, y))
     assert "dense single-chip" in caplog.text
     assert all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="one process a rank"):
         DecentralizedFLAPI(ClassificationTrainer(_module()),
                            FedConfig(backend="shard_map", mesh_shape=(2,)),
                            topology.SymmetricTopologyManager(6, 2), device="cpu")

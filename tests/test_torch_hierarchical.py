@@ -208,7 +208,8 @@ def test_fused_kernel_flag_has_no_effect(mnist12):
 
 def test_shard_map_on_one_device_is_the_vmap_round(mnist12):
     """backend='shard_map' on one device is the vmap round bit for bit; a
-    mesh over more devices raises, naming ROADMAP's multi-device item."""
+    mesh over more ranks than the process group has raises (the raise over
+    a real group of 2 ranks is tests/test_torch_multihost.py's)."""
     runs = []
     for backend in ("vmap", "shard_map"):
         api = HierarchicalFLAPI(mnist12, FedConfig(**KW, backend=backend), _trainer(mnist12),
@@ -217,7 +218,7 @@ def test_shard_map_on_one_device_is_the_vmap_round(mnist12):
         runs.append(api.global_variables)
     assert all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
     for api_cls, extra in ((HierarchicalFLAPI, {"group_num": 2}), (CentralizedTrainer, {})):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(ValueError, match="one process a rank"):
             api_cls(mnist12, FedConfig(**KW, backend="shard_map", mesh_shape=(2,)),
                     _trainer(mnist12), device="cpu", **extra)
 

@@ -134,14 +134,21 @@ def test_every_config_resolves_through_the_port(path, tmp_path):
 
 def test_unported_algorithms_and_multihost_raise(tmp_path):
     """Every algorithm name of the JAX launcher is ported; a ``multihost:``
-    block still raises (with ``fednas`` and ``fedseg`` as with
-    ``fedavg``), naming ROADMAP's multi-device item; an unknown name
-    exits."""
+    block starts the process group (with ``fednas`` and ``fedseg`` as with
+    ``fedavg``), and a peer that never comes up raises a RuntimeError
+    naming the coordinator and this rank within the block's timeout; an
+    unknown name exits."""
+    import socket
+
     for algo in ("fedavg", "fednas", "fedseg"):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
         cfg = tmp_path / f"mh_{algo}.yaml"
         cfg.write_text(f"algorithm: {algo}\nargs:\n  dataset: mnist\nmultihost:\n"
-                       "  coordinator: \"10.0.0.1:1234\"\n  num_processes: 4\n")
-        with pytest.raises(NotImplementedError, match="ROADMAP.*multihost|multihost.*item 5"):
+                       f"  coordinator: \"localhost:{port}\"\n  num_processes: 2\n"
+                       "  process_id: 0\n  timeout: 1\n")
+        with pytest.raises(RuntimeError, match=f"coordinator=localhost:{port}.*process_id=0"):
             fed_launch.main(["--config", str(cfg)])
     cfg = tmp_path / "bad.yaml"
     cfg.write_text("algorithm: nope\n")
@@ -218,14 +225,15 @@ def test_fednas_and_fedseg_run_through_the_launcher(name, tmp_path):
 
 
 def test_shard_map_backend_rule():
-    """One device: a shard_map round is the vmap round, so it validates;
-    a mesh over more devices raises, naming ROADMAP's multi-device item."""
+    """Without a process group a shard_map round spans one rank, the vmap
+    round, so it validates; a mesh_shape over more ranks than the group
+    has raises, telling to launch one process a rank."""
     cfg = FedConfig(backend="shard_map")
     assert cfg.mesh_size("cpu") == 1 and cfg.validate(device="cpu") is cfg
     assert FedConfig(backend="shard_map", mesh_shape=(1,)).validate() is not None
     for bad in (FedConfig(backend="shard_map", mesh_shape=(2,)),
                 FedConfig(backend="shard_map", mesh_shape=(1, 4))):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(ValueError, match="one process a rank"):
             bad.validate(device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         FedConfig(backend="pmap").validate()

@@ -33,8 +33,8 @@ from fedml_tpu.models.registry import create_model as jax_create_model
 from fedml_tpu_torch import ClassificationTrainer, FedAvgAPI, FedConfig, telemetry
 from fedml_tpu_torch.algorithms.aggregators import make_aggregator
 from fedml_tpu_torch.algorithms.engine import build_round_fn
-from fedml_tpu_torch.algorithms.fedavg import (_EVAL_ROWS, client_sampling,
-                                               fast_client_sampling)
+from fedml_tpu_torch.algorithms import fedavg as fedavg_module
+from fedml_tpu_torch.algorithms.fedavg import client_sampling, fast_client_sampling
 from fedml_tpu_torch.data import packed_store
 from fedml_tpu_torch.data.packed_store import (DEFAULT_CLIENTS_PER_SHARD, MmapPackedStore,
                                                create_synthetic_store, materialize,
@@ -209,14 +209,17 @@ def test_fedavg_from_store_bit_identical_to_in_ram(ds8, tmp_path, drive, chaos, 
     """FedAvgAPI over a store equals the in-RAM eager run bit for bit
     (globals, state, history with every round's evaluation), the pipelined
     drive's stager thread gathering from the store under a fault schedule.
-    No read of the whole store: the facade's ``__array__`` is never called
-    and no gather takes more clients than a cohort or an evaluation pass."""
+    One read of the whole store, and only one: the resident eval's
+    ``materialize`` of the in-budget train split at the first evaluation
+    (the JAX drive's rule); otherwise the facade's ``__array__`` is never
+    called and no gather takes more clients than a cohort."""
     plan = (lambda: FaultPlan(seed=3, drop_rate=0.25, nan_rate=0.25)) if chaos else None
     ram = _api(ds8, _cfg(5))
     ram.train(chaos=plan and plan())
     store_ds, _ = _store_ds(ds8, tmp_path)
-    gathered = []
+    gathered, reads = [], []
     gather = MmapPackedStore._gather
+    array = packed_store._MmapField.__array__
 
     def counted(self, idx, field):
         gathered.append(len(idx))
@@ -225,12 +228,20 @@ def test_fedavg_from_store_bit_identical_to_in_ram(ds8, tmp_path, drive, chaos, 
     def whole(*_):
         raise AssertionError("a whole-store read")
 
+    def resident_read(store, budget):
+        reads.append(store)
+        with monkeypatch.context() as m:
+            m.setattr(packed_store._MmapField, "__array__", array)
+            return packed_store.materialize(store, budget=budget)
+
     monkeypatch.setattr(MmapPackedStore, "_gather", counted)
     monkeypatch.setattr(packed_store._MmapField, "__array__", whole)
+    monkeypatch.setattr(fedavg_module, "materialize", resident_read)
     stored = _api(store_ds, _cfg(5, pipeline_depth=2 if drive == "pipelined" else 0))
     stored.train(chaos=plan and plan())
     _same_run(stored, ram)
-    assert max(gathered) <= max(8, _EVAL_ROWS // store_ds.train.n_max)
+    assert reads == [store_ds.train]
+    assert max(gathered) <= 8
     store_ds.train.close()
 
 
